@@ -1,0 +1,329 @@
+"""Drive the PyTorch port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with an NVIDIA Hopper card
+(sm_90a) and the CUDA toolkit. Phases, each fatal on failure:
+
+1. build every CUDA kernel of the port from ``src/repro_torch/csrc/``;
+2. hold each kernel against its plain PyTorch version on the card, at
+   the JAX package's kernel-test cases and at the main path's shapes;
+3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
+   random trained-like weights from a seed) through
+   ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
+   the attention backend: counts the kernel's launches, checks x0
+   against the dense backend, and checks that repeats and budget
+   switches build no runner;
+4. time each kernel, its plain version and the PyTorch library call at
+   the main path's shape (CUDA graphs, CUDA events).
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when
+there is no CUDA card or no port next to this file.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch").is_dir():
+    sys.exit("chip_smoke.py: run it from a checkout of the repository "
+             "(src/repro_torch/ is missing)")
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke.py: needs a CUDA card (torch.cuda.is_available() is "
+             "False)")
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.diffusion.schedule import linear_schedule  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.attention import ops  # noqa: E402
+from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.timing import graph_ms  # noqa: E402
+from repro_torch.models import dit as dit_mod  # noqa: E402
+from repro_torch.pipeline import FlexiPipeline, SamplingPlan  # noqa: E402
+
+DEV = torch.device("cuda")
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM published peaks
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+BUDGETS = (0.6, 0.8, 1.0)
+BATCH = 4                           # requests per batch (CFG runs 2x4 rows)
+T_STEPS = 10
+
+# the JAX package's ATTN_CASES (tests/test_kernels.py) and the main path's
+# shapes: B = 2 x 4 rows under CFG, 256 tokens at patch 2, 64 at patch 4
+ATTN_CASES = [
+    # B, S, H, K, hd, causal, softcap, window, dtype
+    (2, 128, 4, 2, 64, True, 0.0, 0, torch.float32),
+    (1, 256, 4, 4, 64, True, 50.0, 0, torch.float32),
+    (2, 256, 8, 2, 32, True, 0.0, 128, torch.float32),
+    (1, 128, 2, 1, 128, False, 0.0, 0, torch.float32),
+    (1, 256, 4, 2, 64, True, 0.0, 0, torch.bfloat16),
+    (2, 384, 6, 2, 64, True, 30.0, 256, torch.float32),
+    (2 * BATCH, 256, 16, 16, 72, False, 0.0, 0, torch.bfloat16),
+    (2 * BATCH, 64, 16, 16, 72, False, 0.0, 0, torch.bfloat16),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def randn(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: build
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    report = build.build_all()
+    log(f"[build] {len(report)} kernel source(s) built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name, rep in report.items():
+        regs = [ln.split("info    : ")[-1] for ln in rep["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"[build]   {name}: {rep['seconds']:.1f}s; " + "; ".join(regs))
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+
+
+def packed_case(gen: torch.Generator):
+    """Three requests packed in rows of 256 tokens, padding -1, and a
+    caller's block map that also hides some tiles the segments allow."""
+    B, S, H, hd = 2, 256, 16, 72
+    seg = torch.full((B, S), -1, dtype=torch.int32)
+    seg[0, :64], seg[0, 64:192] = 0, 1
+    seg[1, :150] = 0
+    bmap = torch.ones((B, 2, 2), dtype=torch.int32)
+    bmap[0, 0, 1] = 0
+    q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+    return q, k, v, dict(causal=False, segment_ids=seg.to(DEV),
+                         block_map=bmap.to(DEV))
+
+
+def phase_kernel_checks(gen: torch.Generator) -> float:
+    worst = 0.0
+    cases = [(f"B{B} S{S} H{H} K{K} hd{hd} causal={int(c)} cap={cap} "
+              f"win={w} {str(dt)[6:]}",
+              [randn(gen, (B, S, h, hd), dt) for h in (H, K, K)],
+              dict(causal=c, softcap=cap, window=w))
+             for B, S, H, K, hd, c, cap, w, dt in ATTN_CASES]
+    q, k, v, kw = packed_case(gen)
+    cases.append(("packed B2 S256 3 segments + padding + block map bf16",
+                  [q, k, v], kw))
+    for name, (q, k, v), kw in cases:
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[q.dtype]
+        worst = max(worst, err)
+        log(f"[kernel] flash_attention {name}: max|err|={err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version on {name}: {err} > {tol}")
+        if "segment_ids" in kw:
+            seg = kw["segment_ids"]
+            if not torch.all(got[seg < 0] == 0):
+                raise AssertionError("padding rows must return exactly 0")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main path
+
+
+def trained_like_xl(gen: torch.Generator):
+    """DiT-XL/2 with random weights; the zero-initialized de-embedding and
+    adaLN gates made non-zero so the sample depends on every block."""
+    cfg = get_config("dit-xl-2")
+    params = dit_mod.init_dit(cfg, gen)
+    dt = params["deembed"]["w_flex"].dtype
+    for node, key, scale in [(params["deembed"], "w_flex", 0.1),
+                             (params["final"]["ada"], "w", 0.05),
+                             (params["blocks"]["ada"], "w", 0.05)]:
+        node[key] = randn(gen, node[key].shape, dt) * scale
+    return params, cfg
+
+
+def forward_calls(plan: SamplingPlan, cfg) -> int:
+    """Denoiser forward calls a static plan makes for one batch."""
+    per_step = {True: 2, False: 1}
+    calls = sum(n * per_step[plan.guidance_active and mode == 0
+                             and plan.guidance_kind == "weak_cond"]
+                for mode, n in plan.resolve_schedule(cfg).phases)
+    return calls * (2 if plan.solver == "dpm2" else 1)
+
+
+def phase_main_path(gen: torch.Generator) -> dict:
+    t0 = time.perf_counter()
+    params, cfg = trained_like_xl(gen)
+    pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+    del params
+    torch.cuda.synchronize()
+    log(f"[main] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"heads={cfg.attn.num_heads}x{cfg.attn.head_dim}, "
+        f"{cfg.param_dtype}; weights in {time.perf_counter() - t0:.1f}s")
+    plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
+             for b in BUDGETS}
+    for b, plan in plans.items():
+        log(f"[main]   budget {b}: schedule {plan.resolve_schedule(cfg).phases}"
+            f", relative compute {plan.relative_compute(cfg):.4f}")
+
+    rng = np.random.default_rng(SEED)
+    waves = [[(b, rng.integers(0, cfg.dit.num_classes, BATCH).tolist())
+              for b in BUDGETS] for _ in range(2)]
+    waves[1].reverse()          # the second wave switches budgets the other way
+    expected = 0
+    first_batch = None
+    ops.flash_attention.launches = 0
+    t_serve = time.perf_counter()
+    built_after_first = None
+    served = 0
+    for w, wave in enumerate(waves):
+        for b, labels in wave:
+            batch_gen = torch.Generator(device=DEV).manual_seed(1000 + served)
+            t1 = time.perf_counter()
+            res = pipe.sample(plans[b], BATCH, batch_gen,
+                              cond=torch.tensor(labels, device=DEV))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            expected += cfg.num_layers * forward_calls(plans[b], cfg)
+            if first_batch is None:
+                first_batch = (b, labels, res.x0)
+            shape = (BATCH,) + tuple(cfg.dit.latent_shape)
+            if tuple(res.x0.shape) != shape or not torch.isfinite(res.x0).all():
+                raise AssertionError(f"x0 {tuple(res.x0.shape)} not finite or "
+                                     f"not {shape}")
+            served += BATCH
+            log(f"[serve] wave {w} budget {b}: {BATCH} requests in "
+                f"{dt * 1e3:.1f} ms, x0 std {res.x0.float().std().item():.4f}")
+        if w == 0:
+            built_after_first = pipe.cache_stats()["compiled"]
+    wall = time.perf_counter() - t_serve
+    launches = ops.flash_attention.launches
+    stats = pipe.cache_stats()
+    log(f"[serve] {served} requests in {wall:.2f}s ({served / wall:.2f} img/s, "
+        f"first wave included); runners {stats}")
+    if launches != expected:
+        raise AssertionError(f"flash_attention launched {launches} times, "
+                             f"expected {expected} (layers x forward calls)")
+    log(f"[serve] flash_attention launches {launches} == "
+        f"{cfg.num_layers} layers x {expected // cfg.num_layers} forward calls")
+    if stats["compiled"] != built_after_first or built_after_first != len(BUDGETS):
+        raise AssertionError(f"repeats / budget switches built runners: {stats}")
+
+    # One forward at full width, each mode, flash vs dense backend, at the
+    # bf16 kernel tolerance. (The dense path rounds probabilities to bf16
+    # before P·V; the kernel keeps them in float32.)
+    x = randn(gen, (2 * BATCH,) + tuple(cfg.dit.latent_shape))
+    t = torch.full((2 * BATCH,), 500, device=DEV)
+    y = torch.arange(2 * BATCH, device=DEV)
+    for mode in range(1 + len(cfg.dit.flex_patch_sizes)):
+        outs = [dit_mod.dit_forward(pipe.params, x, t, y, cfg, mode=mode,
+                                    attn_backend=be).float()
+                for be in ("pallas", "dense")]
+        err = (outs[0] - outs[1]).abs().max().item()
+        log(f"[serve] forward mode {mode} flash vs dense backend: "
+            f"max|err|={err:.3e} (tol 2e-2 abs + rel)")
+        torch.testing.assert_close(outs[0], outs[1], atol=2e-2, rtol=2e-2)
+
+    # The same plan with the dense backend, same prior and labels. DDIM's
+    # x0 prediction divides by sqrt(alpha_bar_t) (~0.006 at t=999), which
+    # amplifies those bf16 differences step by step, so x0 is held on its
+    # own scale: max|err| <= 2e-2 * max(1, max|x0|).
+    b, labels, x0 = first_batch
+    dense = pipe.sample(SamplingPlan(T=T_STEPS, budget=b, attn_backend="dense"),
+                        BATCH, torch.Generator(device=DEV).manual_seed(1000),
+                        cond=torch.tensor(labels, device=DEV)).x0
+    err = (x0.float() - dense.float()).abs().max().item()
+    scale = max(1.0, dense.float().abs().max().item())
+    log(f"[serve] x0 flash vs dense backend (budget {b}): max|err|={err:.3e}, "
+        f"max|x0|={scale:.3f} (tol {2e-2 * scale:.3e})")
+    if not err <= 2e-2 * scale:
+        raise AssertionError(f"x0 differs between backends: {err}")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: times at the main path's shape
+
+
+def attention_bound_ms(B, S, H, hd, dtype) -> tuple:
+    """Least time for q, k, v read once and o written once, or for the two
+    products at the tensor-core peak of the dtype."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * B * S * H * hd * itemsize
+    flops = 4 * B * H * S * S * hd
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_timing(gen: torch.Generator) -> dict:
+    out = {}
+    for S in (256, 64):
+        B, H, hd, dt = 2 * BATCH, 16, 72, torch.bfloat16
+        q, k, v = (randn(gen, (B, S, H, hd), dt) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        before = ops.flash_attention.launches
+        ms = graph_ms(lambda: ops.flash_attention(q, k, v, causal=False))
+        ops.flash_attention.launches = before    # timing launches do not count
+        plain = graph_ms(lambda: flash_attention_ref(q, k, v, causal=False))
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bound, by = attention_bound_ms(B, S, H, hd, dt)
+        log(f"[time] flash_attention B{B} S{S} H{H} hd{hd} bf16: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
+        out[S] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                      bound_by=by)
+    return out[256]
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    phase_build()
+    worst = phase_kernel_checks(gen)
+    main_path = phase_main_path(gen)
+    times = phase_timing(gen)
+    kernels = [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/flash_attention.py:46",
+        "launches": main_path["launches"], "max_abs_err": worst,
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        "library_ms": times["library_ms"]}]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Config dataclasses of the PyTorch port (DiT side).
+
+The same plain frozen dataclasses as ``repro.configs.base``, field for
+field, so a config means the same thing in both packages. The port holds
+the DiT configurations only; the language-model fields (``moe``, ``ssm``
+and friends) are kept so the field sets stay equal, and stay ``None`` here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    logit_softcap: float = 0.0
+    qkv_bias: bool = False
+    sliding_window: int = 0
+    local_global_pattern: str = "G"
+    qk_norm: bool = False
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    # Latent input: (frames, height, width, channels). frames=1 → image.
+    latent_shape: Tuple[int, int, int, int] = (1, 32, 32, 4)
+    # Pre-trained ("powerful") patch size (p_f, p_h, p_w).
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    # Additional ("weak") patch sizes the model is flexified to.
+    flex_patch_sizes: Tuple[Tuple[int, int, int], ...] = ((1, 4, 4),)
+    # Underlying patch size p' the flexible embed weights are stored at.
+    underlying_patch_size: Tuple[int, int, int] = (1, 4, 4)
+    # Conditioning: 'class' (adaLN label embedding), 'text' (cross-attn), 'none'
+    conditioning: str = "class"
+    num_classes: int = 1000
+    text_len: int = 77
+    text_dim: int = 0            # 0 → d_model
+    learn_sigma: bool = True     # c_out = 2 * c_in
+    # LoRA conversion recipe (Sec 3.2); 0 = shared-params recipe (Sec 3.1).
+    lora_rank: int = 0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attn: Optional[AttnConfig] = None
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    dit: Optional[DiTConfig] = None
+    mlp_activation: str = "swiglu"
+    norm_type: str = "rmsnorm"
+    tie_embeddings: bool = False
+    final_logit_softcap: float = 0.0
+    scale_embeddings: bool = False
+    use_post_norm: bool = False
+    cross_attn_every: int = 0
+    vision_tokens: int = 0
+    encoder_layers: int = 0
+    audio_frames: int = 0
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: str = "block"
+    unroll: bool = False
+    kv_cache_dtype: str = "compute"
+    sequence_parallel: bool = False
+    max_seq_len: int = 8192
+
+    def reduced(self, **overrides: Any) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (the reference's rule)."""
+        if self.moe is not None or self.ssm is not None:
+            raise NotImplementedError("the port holds DiT configs only")
+        attn = None
+        if self.attn is not None:
+            a = self.attn
+            kv = max(1, min(2, a.num_kv_heads))
+            attn = replace(
+                a, num_heads=4, num_kv_heads=kv if 4 % kv == 0 else 1,
+                head_dim=16,
+                sliding_window=min(a.sliding_window, 32) if a.sliding_window else 0)
+        dit = None
+        if self.dit is not None:
+            dit = replace(self.dit, latent_shape=(self.dit.latent_shape[0] if
+                          self.dit.latent_shape[0] == 1 else 4, 16, 16, 4),
+                          num_classes=10, text_len=8)
+        kw: dict = dict(
+            num_layers=2, d_model=64, d_ff=128 if self.d_ff else 0,
+            vocab_size=256 if self.vocab_size else 0,
+            attn=attn, moe=None, ssm=None, dit=dit,
+            encoder_layers=2 if self.encoder_layers else 0,
+            audio_frames=16 if self.audio_frames else 0,
+            vision_tokens=8 if self.vision_tokens else 0,
+            cross_attn_every=2 if self.cross_attn_every else 0,
+            param_dtype="float32", compute_dtype="float32",
+            max_seq_len=128, remat="none",
+        )
+        kw.update(overrides)
+        return replace(self, **kw)
