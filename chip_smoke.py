@@ -7,15 +7,25 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
 1. build every CUDA kernel of the port from ``src/repro_torch/csrc/``;
 2. hold each kernel against its plain PyTorch version on the card, at
-   the JAX package's kernel-test cases and at the main path's shapes;
+   the JAX package's kernel-test cases and at each path's shapes;
 3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
    random trained-like weights from a seed) through
    ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
    the attention backend: counts the kernel's launches, checks x0
    against the dense backend, and checks that repeats and budget
    switches build no runner;
-4. time each kernel, its plain version and the PyTorch library call at
-   the main path's shape (CUDA graphs, CUDA events).
+4. tokenize and de-tokenize a B=8 latent with those DiT-XL/2 weights at
+   each patch size through ``kernels/patch_embed/ops`` (the patch
+   embed / de-embed kernels), held against ``core/patch.py``;
+5. run one Mamba2 layer at mamba2-130m width (d=768, 24 SSD heads x 64,
+   state 128, chunk 128, bf16) through ``ssm_apply(use_kernel=True)``
+   (the SSD kernel) at B=4, S=2048 and S=2000, held against
+   ``use_kernel=False``;
+6. time each kernel, its plain version and the PyTorch library call at
+   its path's shapes (CUDA graphs, CUDA events).
+
+Each path resets its kernels' launch counts just before it runs and
+fails unless they equal the calls it made.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -48,8 +58,19 @@ from repro_torch.diffusion.schedule import linear_schedule  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops  # noqa: E402
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.core import patch as patch_mod  # noqa: E402
+from repro_torch.kernels.patch_embed import ops as pe_ops  # noqa: E402
+from repro_torch.kernels.patch_embed.patch_embed import (  # noqa: E402
+    patch_deembed_cuda, patch_embed_cuda)
+from repro_torch.kernels.patch_embed.ref import (  # noqa: E402
+    patch_deembed_ref, patch_embed_ref)
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_chunked  # noqa: E402
+from repro_torch.kernels.ssd.ssd_chunk import ssd_chunk_cuda  # noqa: E402
 from repro_torch.kernels.timing import graph_ms  # noqa: E402
 from repro_torch.models import dit as dit_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models.common import init_tree  # noqa: E402
 from repro_torch.pipeline import FlexiPipeline, SamplingPlan  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -58,6 +79,13 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM published peaks
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+# patch embed: the JAX package's PE level (sums of up to 1152 products in
+# another order; bf16 outputs within one rounding). SSD: the cumulative log
+# decay of a 128-step chunk is summed in another order than torch.cumsum;
+# at |L| ~ 150 a float32 ulp is 1.5e-5 and exp(L_q - L_k) turns a few into
+# ~1e-4 relative (the JAX package holds its SSD kernel at 2e-3).
+PE_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 BUDGETS = (0.6, 0.8, 1.0)
 BATCH = 4                           # requests per batch (CFG runs 2x4 rows)
 T_STEPS = 10
@@ -75,6 +103,20 @@ ATTN_CASES = [
     (2 * BATCH, 256, 16, 16, 72, False, 0.0, 0, torch.bfloat16),
     (2 * BATCH, 64, 16, 16, 72, False, 0.0, 0, torch.bfloat16),
 ]
+
+
+# the JAX package's PE_CASES (N, K, M) and the DiT-XL/2 tokenizer at B=8:
+# embed mode 0 / 1, de-embed mode 0 / 1 (c_out 8 x pp 4 / 16)
+PE_CASES = [(512, 64, 256, torch.float32), (256, 48, 128, torch.float32),
+            (1024, 128, 512, torch.bfloat16), (256, 16, 64, torch.float32)]
+PE_PATH = {"patch_embed": [(2048, 16, 1152), (512, 64, 1152)],
+           "patch_deembed": [(2048, 1152, 32), (512, 1152, 128)]}
+# the JAX package's SSD_CASES (B, S, H, P, N, chunk) and one mamba2-130m
+# layer at B=4, S=2048
+SSD_CASES = [(2, 64, 4, 16, 8, 16), (1, 96, 2, 32, 16, 32),
+             (2, 48, 3, 8, 8, 16), (1, 128, 4, 16, 32, 64)]
+SSD_PATH = (4, 2048, 24, 64, 128, 128)
+SSM_SEQS = (2048, 2000)             # the layer path: whole chunks, then padded
 
 
 def log(msg: str) -> None:
@@ -143,6 +185,63 @@ def phase_kernel_checks(gen: torch.Generator) -> float:
             seg = kw["segment_ids"]
             if not torch.all(got[seg < 0] == 0):
                 raise AssertionError("padding rows must return exactly 0")
+    return worst
+
+
+def ssd_inputs(gen: torch.Generator, B, S, H, P, N, dtype):
+    x = randn(gen, (B, S, H, P), dtype)
+    dt = F.softplus(randn(gen, (B, S, H)))
+    A = -torch.exp(randn(gen, (H,)) * 0.5)
+    return x, dt, A, randn(gen, (B, S, N)), randn(gen, (B, S, N))
+
+
+def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"[kernel] {name}: max|err|={err:.3e} (tol {tol} abs + rel)")
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    return err
+
+
+def phase_new_kernel_checks(gen: torch.Generator) -> dict:
+    """The patch embed / de-embed and SSD kernels against their plain
+    versions: the JAX package's cases, then each path's shapes."""
+    worst = {"patch_embed": 0.0, "patch_deembed": 0.0, "ssd_chunk": 0.0}
+    kernels = {"patch_embed": (patch_embed_cuda, patch_embed_ref),
+               "patch_deembed": (patch_deembed_cuda, patch_deembed_ref)}
+    cases = [(name, N, K, M, dt) for N, K, M, dt in PE_CASES for name in kernels]
+    cases += [(name, N, K, M, torch.bfloat16)
+              for name, shapes in PE_PATH.items() for N, K, M in shapes]
+    for name, N, K, M, dt in cases:
+        x, w, b = (randn(gen, shape, dt) for shape in ((N, K), (K, M), (M,)))
+        kernel, plain = kernels[name]
+        got = kernel(x, w, b)
+        torch.cuda.synchronize()
+        worst[name] = max(worst[name], check(
+            f"{name} N{N} K{K} M{M} {str(dt)[6:]}", got, plain(x, w, b),
+            PE_TOL[dt]))
+    for case, dt in ([(c, torch.float32) for c in SSD_CASES]
+                     + [(SSD_PATH, torch.float32), (SSD_PATH, torch.bfloat16)]):
+        B, S, H, P, N, Q = case
+        x, dts, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dt)
+        got = ssd_chunk_cuda(x, dts, A, Bm, Cm, Q)
+        torch.cuda.synchronize()
+        want = ssd_chunk_ref(x, dts, A, Bm, Cm, Q)
+        label = f"ssd_chunk B{B} S{S} H{H} P{P} N{N} Q{Q} {str(dt)[6:]}"
+        errs = [check(f"{label} y", got[0], want[0], SSD_TOL[dt])]
+        errs += [check(f"{label} {part}", g, w, SSD_TOL[torch.float32])
+                 for part, g, w in zip(("Sc", "Ltot"), got[1:], want[1:])]
+        worst["ssd_chunk"] = max([worst["ssd_chunk"]] + errs)
+    # S not a multiple of the chunk, with a carried state: ops.ssd pads
+    B, S, H, P, N, Q = 2, 200, 4, 64, 128, 128
+    x, dts, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, torch.float32)
+    h0 = randn(gen, (B, H, P, N)) * 0.1
+    y, h = ssd_ops.ssd(x, dts, A, Bm, Cm, Q, h0)
+    torch.cuda.synchronize()
+    y_ref, h_ref = ssd_chunked(x, dts, A, Bm, Cm, Q, h0)
+    worst["ssd_chunk"] = max(
+        worst["ssd_chunk"],
+        check(f"ssd (padded) B{B} S{S} Q{Q} + h0 y", y, y_ref, SSD_TOL[torch.float32]),
+        check(f"ssd (padded) B{B} S{S} Q{Q} + h0 h", h, h_ref, SSD_TOL[torch.float32]))
     return worst
 
 
@@ -231,8 +330,8 @@ def phase_main_path(gen: torch.Generator) -> dict:
         raise AssertionError(f"repeats / budget switches built runners: {stats}")
 
     # One forward at full width, each mode, flash vs dense backend, at the
-    # bf16 kernel tolerance. (The dense path rounds probabilities to bf16
-    # before P·V; the kernel keeps them in float32.)
+    # bf16 kernel tolerance. (Both round the probabilities to bf16 before
+    # P·V, as the TPU kernel does; they sum in other orders.)
     x = randn(gen, (2 * BATCH,) + tuple(cfg.dit.latent_shape))
     t = torch.full((2 * BATCH,), 500, device=DEV)
     y = torch.arange(2 * BATCH, device=DEV)
@@ -259,11 +358,100 @@ def phase_main_path(gen: torch.Generator) -> dict:
         f"max|x0|={scale:.3f} (tol {2e-2 * scale:.3e})")
     if not err <= 2e-2 * scale:
         raise AssertionError(f"x0 differs between backends: {err}")
-    return {"launches": launches}
+    return {"launches": launches, "pipe": pipe}
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: times at the main path's shape
+# Phase 4: the tokenizer path
+
+
+def phase_tokenizer(gen: torch.Generator, pipe: FlexiPipeline) -> dict:
+    """Each patch size of DiT-XL/2: tokenize a B=8 latent and de-tokenize
+    the tokens with the pipeline's weights through the kernels' ops entry,
+    against the port's core/patch.py path (the tokenizer dit_forward runs)."""
+    cfg = pipe.cfg
+    dit = cfg.dit
+    emb, de = pipe.params["embed"], pipe.params["deembed"]
+    c_out = dit_mod.c_out_dim(cfg)
+    # the biases are zero-initialized: give them values so the path adds them
+    emb = dict(emb, b=randn(gen, emb["b"].shape, emb["b"].dtype) * 0.1)
+    de = dict(de, b_flex=randn(gen, de["b_flex"].shape, de["b_flex"].dtype) * 0.1)
+    x = randn(gen, (2 * BATCH,) + tuple(dit.latent_shape), torch.bfloat16)
+    pp = dit.underlying_patch_size
+    patches = (dit.patch_size,) + dit.flex_patch_sizes
+    pe_ops.embed_tokens_flex.launches = 0
+    pe_ops.deembed_tokens_flex.launches = 0
+    for p in patches:
+        tok = pe_ops.embed_tokens_flex(emb["w_flex"], emb["b"], x, p, pp)
+        out = pe_ops.deembed_tokens_flex(de["w_flex"], de["b_flex"], tok,
+                                         dit.latent_shape, p, pp, c_out)
+        torch.cuda.synchronize()
+        tok_ref = patch_mod.embed_tokens_flex(emb["w_flex"], emb["b"], x, p, pp)
+        out_ref = patch_mod.deembed_tokens_flex(de["w_flex"], de["b_flex"], tok,
+                                                dit.latent_shape, p, pp, c_out)
+        shape = (2 * BATCH,) + tuple(dit.latent_shape[:3]) + (c_out,)
+        if tuple(out.shape) != shape or not torch.isfinite(out).all():
+            raise AssertionError(f"de-tokenized {tuple(out.shape)} not finite "
+                                 f"or not {shape}")
+        n = tok.shape[1]
+        log(f"[tokenizer] patch {p}: {n} tokens x {tok.shape[2]}")
+        check(f"embed_tokens_flex patch {p} vs core/patch.py", tok, tok_ref, 2e-2)
+        check(f"deembed_tokens_flex patch {p} vs core/patch.py", out, out_ref, 2e-2)
+    launches = {"patch_embed": pe_ops.embed_tokens_flex.launches,
+                "patch_deembed": pe_ops.deembed_tokens_flex.launches}
+    if any(n != len(patches) for n in launches.values()):
+        raise AssertionError(f"tokenizer launches {launches}, expected "
+                             f"{len(patches)} each (one per patch size)")
+    log(f"[tokenizer] launches {launches} == {len(patches)} patch sizes")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: one Mamba2 layer
+
+
+def phase_mamba_layer(gen: torch.Generator) -> dict:
+    """One mamba2-130m layer, bf16, random weights with decay rates and
+    time steps that vary across heads, through ssm_apply(use_kernel=True)
+    at S=2048 and at S=2000 (padded), against use_kernel=False."""
+    cfg = get_config("mamba2-130m")
+    d, scfg = cfg.d_model, cfg.ssm
+    params = init_tree(ssm_mod.ssm_schema(d, scfg), gen, torch.bfloat16)
+    H = params["A_log"].shape[0]
+    params["A_log"] = (randn(gen, (H,)) * 0.5).to(torch.bfloat16)
+    params["dt_bias"] = (randn(gen, (H,)) * 0.5).to(torch.bfloat16)
+    d_in, _, P = ssm_mod.ssm_dims(d, scfg)
+    log(f"[mamba] {cfg.name} layer: d={d}, d_inner={d_in}, {H} SSD heads x "
+        f"{P}, state {scfg.state_dim}, chunk {scfg.chunk_size}, bf16")
+    B = 4
+    inputs = {S: randn(gen, (B, S, d), torch.bfloat16) for S in SSM_SEQS}
+    ssd_ops.ssd.launches = 0
+    outs = {}
+    for S, u in inputs.items():
+        t0 = time.perf_counter()
+        outs[S] = ssm_mod.ssm_apply(params, u, scfg, d, use_kernel=True)
+        torch.cuda.synchronize()
+        log(f"[mamba] B{B} S{S}: ssm_apply(use_kernel=True) in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call of the shape)")
+    launches = ssd_ops.ssd.launches
+    for S, u in inputs.items():
+        out, state = outs[S]
+        ref, ref_state = ssm_mod.ssm_apply(params, u, scfg, d, use_kernel=False)
+        if tuple(out.shape) != (B, S, d) or not torch.isfinite(out).all():
+            raise AssertionError(f"layer output {tuple(out.shape)} not finite "
+                                 f"or not {(B, S, d)}")
+        check(f"ssm_apply B{B} S{S} out, kernel vs plain branch", out, ref, 2e-2)
+        check(f"ssm_apply B{B} S{S} state h, kernel vs plain branch",
+              state["h"], ref_state["h"], SSD_TOL[torch.float32])
+    if launches != len(SSM_SEQS):
+        raise AssertionError(f"ssd launched {launches} times, expected "
+                             f"{len(SSM_SEQS)} (one per layer call)")
+    log(f"[mamba] ssd launches {launches} == {len(SSM_SEQS)} layer calls")
+    return {"ssd_chunk": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: times at each path's shapes
 
 
 def attention_bound_ms(B, S, H, hd, dtype) -> tuple:
@@ -297,6 +485,56 @@ def phase_timing(gen: torch.Generator) -> dict:
     return out[256]
 
 
+def bound_ms(nbytes: float, flops: float, peak: float) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_new_timing(gen: torch.Generator) -> dict:
+    """Each new kernel at its path's shapes, the first shape listed being
+    the one the kernels line reports. The kernels' wrappers are timed
+    directly: the ops entries (which count launches) are not called."""
+    out = {}
+    kernels = {"patch_embed": (patch_embed_cuda, patch_embed_ref),
+               "patch_deembed": (patch_deembed_cuda, patch_deembed_ref)}
+    for name, shapes in PE_PATH.items():
+        kernel, plain = kernels[name]
+        for N, K, M in shapes:
+            x, w, b = (randn(gen, shape, torch.bfloat16)
+                       for shape in ((N, K), (K, M), (M,)))
+            ms = graph_ms(lambda: kernel(x, w, b))
+            plain_ms = graph_ms(lambda: plain(x, w, b))
+            lib = graph_ms(lambda: torch.addmm(b, x, w))
+            bound, by = bound_ms(2 * (N * K + K * M + M + N * M), 2 * N * K * M,
+                                 BF16_FLOPS)
+            log(f"[time] {name} N{N} K{K} M{M} bf16: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, addmm {lib:.4f} ms, bound {bound:.4f} ms "
+                f"({by}); {bound / ms:.1%} of the bound")
+            out.setdefault(name, dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                      bound_ms=bound, bound_by=by))
+    B, S, H, P, N, Q = SSD_PATH
+    nc = S // Q
+    for dt in (torch.bfloat16, torch.float32):
+        x, dts, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dt)
+        ms = graph_ms(lambda: ssd_chunk_cuda(x, dts, A, Bm, Cm, Q))
+        plain_ms = graph_ms(lambda: ssd_chunk_ref(x, dts, A, Bm, Cm, Q), calls=3,
+                            replays=3)
+        isz = x.element_size()
+        nbytes = (2 * B * S * H * P * isz + 4 * (B * S * H + H + 2 * B * S * N)
+                  + 4 * (B * nc * H * P * N + B * nc * H))
+        # multiply-adds the function needs: C.B and M.x over k <= q only
+        tri = Q * (Q + 1) // 2
+        flops = 2 * B * nc * (tri * N + H * tri * P + H * Q * P * N)
+        bound, by = bound_ms(nbytes, flops, F32_FLOPS)
+        log(f"[time] ssd_chunk B{B} S{S} H{H} P{P} N{N} Q{Q} x {str(dt)[6:]}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at the f32 "
+            f"CUDA-core peak); {bound / ms:.1%} of the bound")
+        out.setdefault("ssd_chunk", dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                         bound_ms=bound, bound_by=by))
+    return out
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -308,8 +546,12 @@ def main() -> None:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     phase_build()
     worst = phase_kernel_checks(gen)
+    worst_new = phase_new_kernel_checks(gen)
     main_path = phase_main_path(gen)
+    launches = phase_tokenizer(gen, main_path.pop("pipe"))
+    launches.update(phase_mamba_layer(gen))
     times = phase_timing(gen)
+    new_times = phase_new_timing(gen)
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -318,6 +560,15 @@ def main() -> None:
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": times["library_ms"]}]
+    sources = {"patch_embed": ("patch_embed.cu", "patch_embed/patch_embed.py:25"),
+               "patch_deembed": ("patch_embed.cu", "patch_embed/patch_embed.py:60"),
+               "ssd_chunk": ("ssd_chunk.cu", "ssd/ssd_chunk.py:28")}
+    for name, (src, tpu) in sources.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": f"src/repro/kernels/{tpu}",
+                        "launches": launches[name], "max_abs_err": worst_new[name],
+                        **new_times[name]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""Config dataclasses of the PyTorch port (DiT side).
+"""Config dataclasses of the PyTorch port.
 
 The same plain frozen dataclasses as ``repro.configs.base``, field for
 field, so a config means the same thing in both packages. The port holds
-the DiT configurations only; the language-model fields (``moe``, ``ssm``
-and friends) are kept so the field sets stay equal, and stay ``None`` here.
+the DiT configurations and the Mamba2 (SSD) configuration; the other
+language-model fields (``moe`` and friends) are kept so the field sets
+stay equal, and stay ``None`` here.
 """
 from __future__ import annotations
 
@@ -23,6 +24,16 @@ class AttnConfig:
     sliding_window: int = 0
     local_global_pattern: str = "G"
     qk_norm: bool = False
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128
+    num_heads: int = 0        # SSD heads; 0 → derived as d_inner // head_dim
+    head_dim: int = 64
+    expand: int = 2           # d_inner = expand * d_model
+    chunk_size: int = 64      # SSD chunk length
+    conv_width: int = 4       # depthwise conv width
 
 
 @dataclass(frozen=True)
@@ -55,7 +66,7 @@ class ModelConfig:
     vocab_size: int
     attn: Optional[AttnConfig] = None
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     dit: Optional[DiTConfig] = None
     mlp_activation: str = "swiglu"
     norm_type: str = "rmsnorm"
@@ -77,8 +88,8 @@ class ModelConfig:
 
     def reduced(self, **overrides: Any) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
-        if self.moe is not None or self.ssm is not None:
-            raise NotImplementedError("the port holds DiT configs only")
+        if self.moe is not None:
+            raise NotImplementedError("the port holds no MoE config yet")
         attn = None
         if self.attn is not None:
             a = self.attn
@@ -87,6 +98,9 @@ class ModelConfig:
                 a, num_heads=4, num_kv_heads=kv if 4 % kv == 0 else 1,
                 head_dim=16,
                 sliding_window=min(a.sliding_window, 32) if a.sliding_window else 0)
+        ssm = None
+        if self.ssm is not None:
+            ssm = replace(self.ssm, state_dim=16, head_dim=16, chunk_size=16)
         dit = None
         if self.dit is not None:
             dit = replace(self.dit, latent_shape=(self.dit.latent_shape[0] if
@@ -95,7 +109,7 @@ class ModelConfig:
         kw: dict = dict(
             num_layers=2, d_model=64, d_ff=128 if self.d_ff else 0,
             vocab_size=256 if self.vocab_size else 0,
-            attn=attn, moe=None, ssm=None, dit=dit,
+            attn=attn, moe=None, ssm=ssm, dit=dit,
             encoder_layers=2 if self.encoder_layers else 0,
             audio_frames=16 if self.audio_frames else 0,
             vision_tokens=8 if self.vision_tokens else 0,

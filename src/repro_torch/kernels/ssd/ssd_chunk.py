@@ -1,0 +1,109 @@
+"""ctypes binding of the Hopper SSD intra-chunk kernel
+(``csrc/ssd_chunk.cu``), which replaces the Pallas TPU kernel
+``repro.kernels.ssd.ssd_chunk._ssd_kernel``.
+
+:func:`ssd_chunk_cuda` checks what the kernel takes, allocates the three
+outputs, and launches on PyTorch's current stream. It raises when the
+launch is refused (the C entry returns ``cudaGetLastError()``). It never
+synchronises and never falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = "ssd_chunk.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a loaded library."""
+    fn = lib.ssd_chunk_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p,          # x dt A Bm Cm
+                       p, p, p,                # y sc ltot
+                       i, i, i, i, i, i, i,    # dtype B S H P N chunk
+                       i, p]                   # heads per block, stream
+        fn.restype = ctypes.c_int
+        lib.ssd_chunk_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_chunk_limits.restype = None
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return bind(build.load(SOURCE))
+
+
+def limits() -> Tuple[int, int, int]:
+    """The largest (chunk, head_dim P, state N) the kernel takes."""
+    out = (ctypes.c_int * 3)()
+    _lib().ssd_chunk_limits(out)
+    return tuple(out)
+
+
+def heads_per_block(batch_chunks: int, H: int, sms: int) -> int:
+    """Heads one block walks: split the heads so that the blocks fill the
+    card's SMs about once (one block per SM: its shared memory is ~170 KB)."""
+    groups = max(1, min(H, sms // max(1, batch_chunks)))
+    return -(-H // groups)
+
+
+def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the kernel on contiguous CUDA tensors x [B,S,H,P] (float32 or
+    bfloat16), dt [B,S,H], A [H], Bm/Cm [B,S,N] (float32), S a multiple of
+    ``chunk``. Returns (y_intra [B,S,H,P] in x's dtype, Sc [B,nc,H,P,N]
+    float32, Ltot [B,nc,H] float32)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, S, H, P], got {tuple(x.shape)}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ssd_chunk takes float32 or bfloat16 x, got {x.dtype}")
+    shapes = {"dt": (dt, (B, S, H)), "A": (A, (H,)), "Bm": (Bm, (B, S, N)),
+              "Cm": (Cm, (B, S, N))}
+    for name, (t, shape) in shapes.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+    for name, t in [("x", x)] + [(n, t) for n, (t, _) in shapes.items()]:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if chunk <= 0 or S % chunk:
+        raise ValueError(f"S={S} is not a multiple of the chunk {chunk}")
+    q_max, p_max, n_max = limits()
+    if chunk > q_max or P > p_max or N > n_max:
+        raise ValueError(f"chunk {chunk}, head_dim {P}, state {N} exceed the "
+                         f"kernel's limits {q_max}, {p_max}, {n_max}")
+    # the kernel copies whole 16-byte chunks: x rows, B and C rows, Sc rows
+    if (P * x.element_size()) % 16 or N % 4:
+        raise ValueError(f"head_dim {P} ({x.dtype}) must fill whole 16-byte "
+                         f"rows and state {N} be a multiple of 4")
+    if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+        raise ValueError("x, Bm and Cm must start at 16-byte aligned addresses")
+    nc = S // chunk
+    y = torch.empty_like(x)
+    sc = torch.empty((B, nc, H, P, N), dtype=torch.float32, device=x.device)
+    ltot = torch.empty((B, nc, H), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, sc, ltot
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    hpb = heads_per_block(B * nc, H, sms)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _lib().ssd_chunk_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), sc.data_ptr(), ltot.data_ptr(),
+            _DTYPES[x.dtype], B, S, H, P, N, chunk, hpb, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
+    return y, sc, ltot

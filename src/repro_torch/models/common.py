@@ -1,5 +1,6 @@
 """Common model pieces of the port: the parameter schema, init on a
-``torch.Generator``, LayerNorm and the sinusoidal timestep embedding.
+``torch.Generator``, LayerNorm, RMSNorm and the sinusoidal timestep
+embedding.
 
 Parameters are nested dicts of tensors with the reference's names, stacked
 ``[L, ...]`` block leaves and ``[in, out]`` matrices, so weights cross from
@@ -90,6 +91,16 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = True) -> torch.Tensor:
+    """RMSNorm in float32. Gemma-style ``(1 + scale)`` when ``zero_centered``."""
+    dtype = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    w = 1.0 + scale.float() if zero_centered else scale.float()
+    return (y * w).to(dtype)
 
 
 def dtype_of(name: str) -> torch.dtype:
