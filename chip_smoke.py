@@ -7,33 +7,42 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
 1. build every CUDA kernel of the port from ``src/repro_torch/csrc/``;
 2. hold each kernel against its plain PyTorch version on the card, at
-   the JAX package's kernel-test cases and at each path's shapes;
+   the JAX package's kernel-test cases and at each path's shapes; the
+   redesigned kernels (flash attention on TMA/wgmma, the split-K cluster
+   de-embed) also against the previous kernel of the same function,
+   forced with ``variant=``;
 3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
    random trained-like weights from a seed) through
    ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
-   the attention backend: counts the kernel's launches, checks x0
+   the attention backend: counts the kernel's launches (every one on the
+   TMA/wgmma variant), checks x0
    against the dense backend, and checks that repeats and budget
    switches build no runner;
 4. tokenize and de-tokenize a B=8 latent with those DiT-XL/2 weights at
    each patch size through ``kernels/patch_embed/ops`` (the patch
-   embed / de-embed kernels), held against ``core/patch.py``;
+   embed / de-embed kernels; every de-embed on the cluster variant), held
+   against ``core/patch.py``;
 5. run one Mamba2 layer at mamba2-130m width (d=768, 24 SSD heads x 64,
    state 128, chunk 128, bf16) through ``ssm_apply(use_kernel=True)``
    (the SSD kernel) at B=4, S=2048 and S=2000, held against
    ``use_kernel=False``;
 6. time each kernel, its plain version and the PyTorch library call at
-   its path's shapes (CUDA graphs, CUDA events).
+   its path's shapes (CUDA graphs, CUDA events); the redesigned kernels
+   in interleaved rounds with their previous kernel and the library call.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (``prev_ms``: the
+previous kernel of a redesigned one, timed in the same rounds); the last
+line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 there is no CUDA card or no port next to this file.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,17 +66,19 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.diffusion.schedule import linear_schedule  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops  # noqa: E402
+from repro_torch.kernels.attention.flash_attention import (  # noqa: E402
+    flash_attention_cuda, variant_of)
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.core import patch as patch_mod  # noqa: E402
 from repro_torch.kernels.patch_embed import ops as pe_ops  # noqa: E402
 from repro_torch.kernels.patch_embed.patch_embed import (  # noqa: E402
-    patch_deembed_cuda, patch_embed_cuda)
+    deembed_plan, deembed_variant_of, patch_deembed_cuda, patch_embed_cuda)
 from repro_torch.kernels.patch_embed.ref import (  # noqa: E402
     patch_deembed_ref, patch_embed_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd.ssd_chunk import ssd_chunk_cuda  # noqa: E402
-from repro_torch.kernels.timing import graph_ms  # noqa: E402
+from repro_torch.kernels.timing import graph_ms, interleaved_ms  # noqa: E402
 from repro_torch.models import dit as dit_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.common import init_tree  # noqa: E402
@@ -111,6 +122,9 @@ PE_CASES = [(512, 64, 256, torch.float32), (256, 48, 128, torch.float32),
             (1024, 128, 512, torch.bfloat16), (256, 16, 64, torch.float32)]
 PE_PATH = {"patch_embed": [(2048, 16, 1152), (512, 64, 1152)],
            "patch_deembed": [(2048, 1152, 32), (512, 1152, 128)]}
+# the cluster de-embed at a ragged N and at K not in whole 64-chunks (the
+# last slice's box partly past K)
+DEEMBED_EXTRA = [(2000, 1152, 32), (256, 1000, 64), (100, 72, 16)]
 # the JAX package's SSD_CASES (B, S, H, P, N, chunk) and one mamba2-130m
 # layer at B=4, S=2048
 SSD_CASES = [(2, 64, 4, 16, 8, 16), (1, 96, 2, 32, 16, 32),
@@ -131,19 +145,59 @@ def randn(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
 # Phase 1: build
 
 
+def kernel_resources(log: str) -> list:
+    """(kernel, registers, spill bytes) per entry function of nvcc's
+    ``-Xptxas -v`` report; template arguments kept as <a,b,...>."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            short = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            name = short.group(1) if short else mangled
+            name += f"<{','.join(args)}>" if args else ""
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name, spill = None, 0
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     report = build.build_all()
     log(f"[build] {len(report)} kernel source(s) built in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{time.perf_counter() - t0:.1f}s (one nvcc each, in parallel)")
     for name, rep in report.items():
-        regs = [ln.split("info    : ")[-1] for ln in rep["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build]   {name}: {rep['seconds']:.1f}s; " + "; ".join(regs))
+        res = kernel_resources(rep["log"])
+        log(f"[build]   {name}: {rep['seconds']:.1f}s; registers (spill bytes) "
+            "per kernel: " + "; ".join(f"{k} {r} ({sp})" for k, r, sp in res))
 
 
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
+
+
+# bf16 cases of the TMA/wgmma kernel beyond those: ragged S, GQA, causal
+# with window, softcap, hd 64 and 128, and one long causal row past the
+# 8192 tokens at which the JAX package sends every sequence to this kernel
+# (src/repro/models/attention.py:41)
+WGMMA_CASES = [
+    # B, S, H, K, hd, causal, softcap, window
+    (2, 100, 4, 4, 72, False, 0.0, 0),
+    (2, 200, 4, 4, 72, True, 0.0, 0),
+    (2, 300, 4, 4, 72, False, 0.0, 0),
+    (2, 256, 8, 2, 64, True, 0.0, 0),
+    (2, 384, 4, 2, 64, True, 0.0, 128),
+    (1, 256, 4, 4, 64, True, 50.0, 0),
+    (2, 256, 4, 4, 128, False, 0.0, 0),
+    (1, 9000, 2, 2, 64, True, 0.0, 0),
+]
+MAP_BLOCKS = [(64, 64), (48, 80), (128, 128)]
 
 
 def packed_case(gen: torch.Generator):
@@ -160,7 +214,26 @@ def packed_case(gen: torch.Generator):
                          block_map=bmap.to(DEV))
 
 
-def phase_kernel_checks(gen: torch.Generator) -> float:
+def packed_map_case(gen: torch.Generator, bq: int, bk: int):
+    """Packed causal rows of 200 tokens with padding and a random caller's
+    map at block_q x block_k (48 x 80 straddles the kernel's tiles)."""
+    B, S, H, hd = 2, 200, 4, 72
+    seg = torch.full((B, S), -1, dtype=torch.int32)
+    seg[0, :70], seg[0, 70:150] = 0, 1
+    seg[1, :30], seg[1, 30:190] = 0, 1
+    bmap = (torch.rand((B, -(-S // bq), -(-S // bk)), generator=gen,
+                       device=DEV) < 0.7).to(torch.int32)
+    q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+    return q, k, v, dict(causal=True, segment_ids=seg.to(DEV), block_map=bmap,
+                         block_q=bq, block_k=bk)
+
+
+def phase_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> float:
+    """Flash attention against its plain version; every bf16 case also
+    against the previous (mma.sync) kernel, and every bf16 case with rows
+    of whole 16-byte chunks must select the TMA/wgmma kernel. The cases
+    added with the TMA/wgmma kernel draw from ``gen_new``, so the earlier
+    cases and the later phases keep the inputs they had."""
     worst = 0.0
     cases = [(f"B{B} S{S} H{H} K{K} hd{hd} causal={int(c)} cap={cap} "
               f"win={w} {str(dt)[6:]}",
@@ -170,6 +243,14 @@ def phase_kernel_checks(gen: torch.Generator) -> float:
     q, k, v, kw = packed_case(gen)
     cases.append(("packed B2 S256 3 segments + padding + block map bf16",
                   [q, k, v], kw))
+    cases += [(f"B{B} S{S} H{H} K{K} hd{hd} causal={int(c)} cap={cap} "
+               f"win={w} bfloat16",
+               [randn(gen_new, (B, S, h, hd), torch.bfloat16) for h in (H, K, K)],
+               dict(causal=c, softcap=cap, window=w))
+              for B, S, H, K, hd, c, cap, w in WGMMA_CASES]
+    for bq, bk in MAP_BLOCKS:
+        q, k, v, kw = packed_map_case(gen_new, bq, bk)
+        cases.append((f"packed B2 S200 causal, map {bq}x{bk} bf16", [q, k, v], kw))
     for name, (q, k, v), kw in cases:
         got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -177,11 +258,24 @@ def phase_kernel_checks(gen: torch.Generator) -> float:
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[q.dtype]
         worst = max(worst, err)
-        log(f"[kernel] flash_attention {name}: max|err|={err:.3e} (tol {tol})")
+        variant = variant_of(q, k, v)
+        line = f"[kernel] flash_attention ({variant}) {name}: max|err|={err:.3e}"
+        if q.dtype == torch.bfloat16:
+            if variant != "wgmma":
+                raise AssertionError(f"{name}: selects {variant}, not wgmma")
+            prev = flash_attention_cuda(q, k, v, **ops.kernel_kwargs(q, k, **kw),
+                                        variant="mma")
+            torch.cuda.synchronize()
+            err_prev = (got.float() - prev.float()).abs().max().item()
+            line += f", vs mma kernel {err_prev:.3e}"
+            if not err_prev <= tol:
+                raise AssertionError(f"wgmma and mma kernels disagree on {name}: "
+                                     f"{err_prev} > {tol}")
+        log(f"{line} (tol {tol})")
         if not err <= tol:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version on {name}: {err} > {tol}")
-        if "segment_ids" in kw:
+        if kw.get("segment_ids") is not None:
             seg = kw["segment_ids"]
             if not torch.all(got[seg < 0] == 0):
                 raise AssertionError("padding rows must return exactly 0")
@@ -202,23 +296,35 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
     return err
 
 
-def phase_new_kernel_checks(gen: torch.Generator) -> dict:
+def phase_new_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> dict:
     """The patch embed / de-embed and SSD kernels against their plain
-    versions: the JAX package's cases, then each path's shapes."""
+    versions: the JAX package's cases, then each path's shapes; the
+    cluster de-embed's extra shapes draw from ``gen_new``."""
     worst = {"patch_embed": 0.0, "patch_deembed": 0.0, "ssd_chunk": 0.0}
     kernels = {"patch_embed": (patch_embed_cuda, patch_embed_ref),
                "patch_deembed": (patch_deembed_cuda, patch_deembed_ref)}
     cases = [(name, N, K, M, dt) for N, K, M, dt in PE_CASES for name in kernels]
     cases += [(name, N, K, M, torch.bfloat16)
               for name, shapes in PE_PATH.items() for N, K, M in shapes]
-    for name, N, K, M, dt in cases:
-        x, w, b = (randn(gen, shape, dt) for shape in ((N, K), (K, M), (M,)))
+    cases += [("patch_deembed", N, K, M, torch.bfloat16) for N, K, M in DEEMBED_EXTRA]
+    for i, (name, N, K, M, dt) in enumerate(cases):
+        g = gen_new if i >= len(cases) - len(DEEMBED_EXTRA) else gen
+        x, w, b = (randn(g, shape, dt) for shape in ((N, K), (K, M), (M,)))
         kernel, plain = kernels[name]
         got = kernel(x, w, b)
         torch.cuda.synchronize()
-        worst[name] = max(worst[name], check(
-            f"{name} N{N} K{K} M{M} {str(dt)[6:]}", got, plain(x, w, b),
-            PE_TOL[dt]))
+        label = f"{name} N{N} K{K} M{M} {str(dt)[6:]}"
+        if name == "patch_deembed" and dt == torch.bfloat16:
+            variant = deembed_variant_of(x, w)
+            if variant != "cluster":
+                raise AssertionError(f"{label}: selects {variant}, not cluster")
+            plan = deembed_plan(N, K, M)
+            label += (f" (cluster {plan.cluster} x {plan.k_slice}-deep slices, "
+                      f"{plan.ctas(N, M)} CTAs)")
+            prev = patch_deembed_cuda(x, w, b, variant="mma")
+            torch.cuda.synchronize()
+            check(f"{label} vs mma kernel", got, prev, PE_TOL[dt])
+        worst[name] = max(worst[name], check(label, got, plain(x, w, b), PE_TOL[dt]))
     for case, dt in ([(c, torch.float32) for c in SSD_CASES]
                      + [(SSD_PATH, torch.float32), (SSD_PATH, torch.bfloat16)]):
         B, S, H, P, N, Q = case
@@ -292,7 +398,7 @@ def phase_main_path(gen: torch.Generator) -> dict:
     waves[1].reverse()          # the second wave switches budgets the other way
     expected = 0
     first_batch = None
-    ops.flash_attention.launches = 0
+    ops.reset_launches()
     t_serve = time.perf_counter()
     built_after_first = None
     served = 0
@@ -318,14 +424,19 @@ def phase_main_path(gen: torch.Generator) -> dict:
             built_after_first = pipe.cache_stats()["compiled"]
     wall = time.perf_counter() - t_serve
     launches = ops.flash_attention.launches
+    by_variant = dict(ops.flash_attention.launches_by_variant)
     stats = pipe.cache_stats()
     log(f"[serve] {served} requests in {wall:.2f}s ({served / wall:.2f} img/s, "
         f"first wave included); runners {stats}")
     if launches != expected:
         raise AssertionError(f"flash_attention launched {launches} times, "
                              f"expected {expected} (layers x forward calls)")
+    if by_variant["wgmma"] != launches:
+        raise AssertionError(f"flash_attention launches by variant {by_variant}: "
+                             f"not all {launches} on the TMA/wgmma kernel")
     log(f"[serve] flash_attention launches {launches} == "
-        f"{cfg.num_layers} layers x {expected // cfg.num_layers} forward calls")
+        f"{cfg.num_layers} layers x {expected // cfg.num_layers} forward calls, "
+        f"by variant {by_variant}")
     if stats["compiled"] != built_after_first or built_after_first != len(BUDGETS):
         raise AssertionError(f"repeats / budget switches built runners: {stats}")
 
@@ -379,8 +490,7 @@ def phase_tokenizer(gen: torch.Generator, pipe: FlexiPipeline) -> dict:
     x = randn(gen, (2 * BATCH,) + tuple(dit.latent_shape), torch.bfloat16)
     pp = dit.underlying_patch_size
     patches = (dit.patch_size,) + dit.flex_patch_sizes
-    pe_ops.embed_tokens_flex.launches = 0
-    pe_ops.deembed_tokens_flex.launches = 0
+    pe_ops.reset_launches()
     for p in patches:
         tok = pe_ops.embed_tokens_flex(emb["w_flex"], emb["b"], x, p, pp)
         out = pe_ops.deembed_tokens_flex(de["w_flex"], de["b_flex"], tok,
@@ -399,10 +509,15 @@ def phase_tokenizer(gen: torch.Generator, pipe: FlexiPipeline) -> dict:
         check(f"deembed_tokens_flex patch {p} vs core/patch.py", out, out_ref, 2e-2)
     launches = {"patch_embed": pe_ops.embed_tokens_flex.launches,
                 "patch_deembed": pe_ops.deembed_tokens_flex.launches}
+    by_variant = dict(pe_ops.deembed_tokens_flex.launches_by_variant)
     if any(n != len(patches) for n in launches.values()):
         raise AssertionError(f"tokenizer launches {launches}, expected "
                              f"{len(patches)} each (one per patch size)")
-    log(f"[tokenizer] launches {launches} == {len(patches)} patch sizes")
+    if by_variant["cluster"] != len(patches):
+        raise AssertionError(f"de-embed launches by variant {by_variant}: not "
+                             f"all {len(patches)} on the cluster kernel")
+    log(f"[tokenizer] launches {launches} == {len(patches)} patch sizes; "
+        f"de-embed by variant {by_variant}")
     return launches
 
 
@@ -465,23 +580,34 @@ def attention_bound_ms(B, S, H, hd, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def turns_line(t: dict) -> str:
+    return ", ".join(f"{k} {v['ms']:.4f} ms ({v['min_ms']:.4f}-{v['max_ms']:.4f})"
+                     for k, v in t.items())
+
+
 def phase_timing(gen: torch.Generator) -> dict:
+    """The flash kernel at both main-path shapes, in interleaved rounds
+    with the previous (mma.sync) kernel and SDPA; its plain version alone."""
     out = {}
     for S in (256, 64):
         B, H, hd, dt = 2 * BATCH, 16, 72, torch.bfloat16
         q, k, v = (randn(gen, (B, S, H, hd), dt) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        before = ops.flash_attention.launches
-        ms = graph_ms(lambda: ops.flash_attention(q, k, v, causal=False))
-        ops.flash_attention.launches = before    # timing launches do not count
+        kw = ops.kernel_kwargs(q, k, causal=False)
+        t = interleaved_ms({
+            "wgmma": lambda: flash_attention_cuda(q, k, v, **kw, variant="wgmma"),
+            "mma": lambda: flash_attention_cuda(q, k, v, **kw, variant="mma"),
+            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)})
         plain = graph_ms(lambda: flash_attention_ref(q, k, v, causal=False))
-        lib = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound, by = attention_bound_ms(B, S, H, hd, dt)
-        log(f"[time] flash_attention B{B} S{S} H{H} hd{hd} bf16: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
-        out[S] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                      bound_by=by)
+        ms = t["wgmma"]["ms"]
+        log(f"[time] flash_attention B{B} S{S} H{H} hd{hd} bf16, medians of "
+            f"{t['wgmma']['rounds']} interleaved rounds (fastest-slowest): "
+            f"{turns_line(t)}; plain {plain:.4f} ms; bound {bound:.4f} ms "
+            f"({by}); {bound / ms:.1%} of the bound, {t['sdpa']['ms'] / ms:.2f}x "
+            f"sdpa's speed, {t['mma']['ms'] / ms:.2f}x the mma kernel's")
+        out[S] = dict(ms=ms, prev_ms=t["mma"]["ms"], plain_ms=plain,
+                      library_ms=t["sdpa"]["ms"], bound_ms=bound, bound_by=by)
     return out[256]
 
 
@@ -502,16 +628,32 @@ def phase_new_timing(gen: torch.Generator) -> dict:
         for N, K, M in shapes:
             x, w, b = (randn(gen, shape, torch.bfloat16)
                        for shape in ((N, K), (K, M), (M,)))
-            ms = graph_ms(lambda: kernel(x, w, b))
-            plain_ms = graph_ms(lambda: plain(x, w, b))
-            lib = graph_ms(lambda: torch.addmm(b, x, w))
             bound, by = bound_ms(2 * (N * K + K * M + M + N * M), 2 * N * K * M,
                                  BF16_FLOPS)
-            log(f"[time] {name} N{N} K{K} M{M} bf16: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, addmm {lib:.4f} ms, bound {bound:.4f} ms "
-                f"({by}); {bound / ms:.1%} of the bound")
-            out.setdefault(name, dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                                      bound_ms=bound, bound_by=by))
+            plain_ms = graph_ms(lambda: plain(x, w, b))
+            if name == "patch_deembed":
+                # the redesigned kernel: interleaved with the previous one
+                t = interleaved_ms({
+                    "cluster": lambda: kernel(x, w, b, variant="cluster"),
+                    "mma": lambda: kernel(x, w, b, variant="mma"),
+                    "addmm": lambda: torch.addmm(b, x, w)})
+                ms, lib = t["cluster"]["ms"], t["addmm"]["ms"]
+                times = dict(prev_ms=t["mma"]["ms"])
+                log(f"[time] {name} N{N} K{K} M{M} bf16, medians of "
+                    f"{t['cluster']['rounds']} interleaved rounds (fastest-"
+                    f"slowest): {turns_line(t)}; plain {plain_ms:.4f} ms; "
+                    f"bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound, "
+                    f"{lib / ms:.2f}x addmm's speed, {t['mma']['ms'] / ms:.2f}x "
+                    f"the mma kernel's")
+            else:
+                ms = graph_ms(lambda: kernel(x, w, b))
+                lib = graph_ms(lambda: torch.addmm(b, x, w))
+                times = {}
+                log(f"[time] {name} N{N} K{K} M{M} bf16: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, addmm {lib:.4f} ms, bound {bound:.4f} ms "
+                    f"({by}); {bound / ms:.1%} of the bound")
+            out.setdefault(name, dict(ms=ms, **times, plain_ms=plain_ms,
+                                      library_ms=lib, bound_ms=bound, bound_by=by))
     B, S, H, P, N, Q = SSD_PATH
     nc = S // Q
     for dt in (torch.bfloat16, torch.float32):
@@ -544,9 +686,10 @@ def main() -> None:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     gen = torch.Generator(device=DEV).manual_seed(SEED)
+    gen_new = torch.Generator(device=DEV).manual_seed(SEED + 1)
     phase_build()
-    worst = phase_kernel_checks(gen)
-    worst_new = phase_new_kernel_checks(gen)
+    worst = phase_kernel_checks(gen, gen_new)
+    worst_new = phase_new_kernel_checks(gen, gen_new)
     main_path = phase_main_path(gen)
     launches = phase_tokenizer(gen, main_path.pop("pipe"))
     launches.update(phase_mamba_layer(gen))
@@ -557,7 +700,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/flash_attention.py:46",
         "launches": main_path["launches"], "max_abs_err": worst,
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "ms": times["ms"], "prev_ms": times["prev_ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": times["library_ms"]}]
     sources = {"patch_embed": ("patch_embed.cu", "patch_embed/patch_embed.py:25"),

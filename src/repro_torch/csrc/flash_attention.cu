@@ -11,46 +11,61 @@
 // What bounds it on the H100. At the DiT-XL/2 shape (B=8, S=256, H=16,
 // hd=72, bf16) the call moves ~18.9 MB (q, k, v read once, o written once):
 // ~5.6 us at 3.35 TB/s, against ~2.4 us of bf16 tensor-core work, so the
-// function is memory-bound. bf16 inputs take the tensor cores (mma.sync
-// m16n8k16, float32 accumulation); float32 inputs take the CUDA cores in
-// float32, so that they keep float32 accuracy (and stay the simple,
-// unpipelined path). TMA / wgmma with a producer warp are the later step
-// toward the byte bound.
+// function is memory-bound, and a kernel that reads K and V once per query
+// tile pays for them again from L2 each time.
 //
-// Design, rethought for the card rather than carried over from the TPU:
-//   * One CTA of 4 warps per (b*h, 64-row query tile); the TPU's sequential
-//     kv grid axis becomes a loop over 64-key tiles inside the CTA, with the
-//     running max / normaliser / accumulator in registers (online softmax in
+// Three kernels of the same function, chosen by the caller
+// (kernels/attention/flash_attention.py `select_variant`):
+//   * bf16, rows of whole 16-byte chunks, hd <= 128 (the main path):
+//     `wg::flash_fwd_wgmma_kernel`, built from TMA, mbarriers and wgmma
+//     (design at its definition). 128-row CTAs, so each head's K/V leaves
+//     L2 twice at S = 256 instead of four times, and a producer warpgroup
+//     keeps all of a head's K/V tiles in flight while two consumer
+//     warpgroups compute.
+//   * bf16 shapes a tensor map cannot describe (hd % 8 != 0 or unaligned
+//     bases): `flash_fwd_mma_kernel`, mma.sync with cp.async staging.
+//   * float32: `flash_fwd_kernel` on the CUDA cores in float32, so float32
+//     inputs keep float32 accuracy.
+//
+// Common to the three:
+//   * One CTA per (b*h, query tile); the TPU's sequential kv grid axis
+//     becomes a loop over 64-key tiles inside the CTA, with the running
+//     max / normaliser / accumulator in registers (online softmax in
 //     float32).
 //   * q, k, v are read in their [B, S, H, hd] layout with their own strides,
 //     so the wrapper makes no transposed or padded copy. Ragged tails (S, Sk
 //     not multiples of the tile) are masked here.
 //   * A kv tile is skipped before any load when the causal / window
-//     envelope or the caller's block map rules it out. When the kernel's
-//     tile straddles map entries that disagree, the map is applied per
-//     element, so any map granularity gives the reference's answer.
-//   * bf16 path: tiles are copied to shared memory as bf16 with cp.async
-//     (no registers, zero-fill past the tails), hd zero-padded to a
-//     multiple of 16 (72 -> 80); K/V tiles are double-buffered so the next
-//     visited tile's copies fly while the current one is computed. A row
-//     pitch of hd16 + 8 halves keeps every ldmatrix on distinct banks.
-//     Each warp owns 16 query rows: the Q fragments stay in registers for
-//     the whole kv loop, K and V fragments come from ldmatrix (V
-//     transposed on the fly), and the score accumulators are re-packed in
-//     registers as the A operand of P.V (P rounded to bf16, as the TPU
-//     kernel rounds it to v's dtype). Instantiated for hd <= 64, 80, 128.
-//   * float32 path: tiles staged as float32 at a pitch of round4(hd) + 4;
-//     each thread keeps an 8-row x 4-key score tile and an 8-row x
-//     4-column-chunk output tile in registers and reads shared memory 16
-//     bytes at a time.
+//     envelope or the caller's block map rules it out (`next_tile`). When
+//     the kernel's tile straddles map entries that disagree, the map is
+//     applied per element, so any map granularity gives the reference's
+//     answer.
+//
+// mma.sync path: tiles are copied to shared memory as bf16 with cp.async
+// (no registers, zero-fill past the tails), hd zero-padded to a multiple of
+// 16 (72 -> 80); K/V tiles are double-buffered so the next visited tile's
+// copies fly while the current one is computed. A row pitch of hd16 + 8
+// halves keeps every ldmatrix on distinct banks. Each warp owns 16 query
+// rows: the Q fragments stay in registers for the whole kv loop, K and V
+// fragments come from ldmatrix (V transposed on the fly), and the score
+// accumulators are re-packed in registers as the A operand of P.V (P
+// rounded to bf16, as the TPU kernel rounds it to v's dtype). Instantiated
+// for hd <= 64, 80, 128.
+//
+// float32 path: tiles staged as float32 at a pitch of round4(hd) + 4; each
+// thread keeps an 8-row x 4-key score tile and an 8-row x 4-column-chunk
+// output tile in registers and reads shared memory 16 bytes at a time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
-// Plain C interface, bound with ctypes by kernels/attention/flash_attention.py.
+// (hopper.cuh beside it). Plain C interface, bound with ctypes by
+// kernels/attention/flash_attention.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -659,6 +674,379 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_mma_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 path on TMA + wgmma: the main path's kernel.
+//
+// One CTA per (b*h, BQ = 64 * NWG query rows): NWG consumer warpgroups of
+// 64 rows each and one producer warpgroup, whose first thread issues every
+// tile copy with TMA into a ring of STAGES K/V tiles guarded by mbarriers
+// (full: bytes landed; empty: every consumer done). At S = 256 the ring
+// holds the head's four 64-key tiles, so every load is in flight from the
+// start. The tensor maps describe q, k, v in their own [B, S, heads, hd]
+// layout as dims (hd, heads, S, B), so rows past S are zero-filled by the
+// hardware and never read from the next batch.
+//
+// A head's columns are split into WIDE groups of 64, copied as 128-byte
+// rows in TMA's 128-byte swizzle (few, long copies), and TAILN columns
+// past them (72 = 64 + 8 on the main path) as 8-column boxes in the
+// no-swizzle core-matrix layout, zero past hd (hopper.cuh: layouts). Both
+// products run on wgmma with float32 accumulators: S = Q K^T (m64n64k16, A
+// and B from shared memory, K-major) and O += P V (P from registers as
+// bf16; V MN-major: m64n64k16 per 64-column group, m64nTAILNk16 for the
+// tail). The accumulator layout per warp is the m16n8k16 C layout, so the
+// per-element masks are those of the mma.sync kernel above. The softmax
+// runs in base 2 with sm_scale * log2(e) folded into one multiply.
+namespace wg {
+
+constexpr int BKV = 64;        // keys per kv tile
+constexpr int STAGES = 4;      // kv tiles in flight
+// Registers per thread after setmaxnreg. setmaxnreg moves registers within
+// the CTA's own allocation: the producer warpgroup gives back all but 24,
+// and the consumer warpgroups share the rest (Cfg::CONSUMER_REGS).
+constexpr int PRODUCER_REGS = 24;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int WIDE, int TAILN, int NWG>
+struct Cfg {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int TCH = (TAILN + 15) / 16 * 2;         // tail chunks staged (16-deep steps)
+  static constexpr int ROW_BYTES = WIDE * 128 + TCH * 16;   // shared bytes per tile row
+  static constexpr int NT = 128 * (NWG + 1);                // consumers, then the producer
+  static constexpr int Q_BYTES = BQ * ROW_BYTES;
+  static constexpr int KV_BYTES = BKV * ROW_BYTES;          // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;   // + alignment slack
+  static constexpr int NO = WIDE * 8 + TAILN / 8;           // n8 tiles of the output
+  // CTAs per SM. Two 384-thread CTAs of a head width <= 72 fit an SM (2 x
+  // 102 KB of shared memory), so S = 256 runs in one wave of 256 CTAs; the
+  // wider heads' accumulators need the registers of one CTA per SM.
+  static constexpr int MINB = NWG == 2 && WIDE * 64 + TAILN <= 72 ? 2 : 1;
+  // ptxas starts every thread at the launch bound's share (at most 240):
+  // 168 at one 384-thread CTA per SM, 80 at two. The consumers take what
+  // the producer gives back: 240 (FlashAttention-3's split) or 104.
+  static constexpr int ENTRY_REGS =
+      (65536 / (MINB * NT)) / 8 * 8 > 240 ? 240 : (65536 / (MINB * NT)) / 8 * 8;
+  static constexpr int CONSUMER_REGS_POOL =
+      (ENTRY_REGS * NT - PRODUCER_REGS * 128) / (128 * NWG) / 8 * 8;
+  static constexpr int CONSUMER_REGS = CONSUMER_REGS_POOL > 240 ? 240 : CONSUMER_REGS_POOL;
+};
+
+// Tensor maps: 64-column boxes in the 128-byte swizzle (w) and 8-column
+// boxes with no swizzle (t), over q, k and v.
+struct Maps {
+  CUtensorMap qw, qt, kw, kt, vw, vt;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int WIDE, int TAILN, int NWG>
+__global__ void __launch_bounds__(Cfg<WIDE, TAILN, NWG>::NT, Cfg<WIDE, TAILN, NWG>::MINB)
+    flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using C = Cfg<WIDE, TAILN, NWG>;
+  constexpr int NS = BKV / 8;   // n8 tiles of the score tile
+  constexpr int NO = C::NO;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = base;                   // [WIDE][BQ][128 swizzled], [TCH][BQ][16]
+  unsigned char* sKV = base + C::Q_BYTES;     // stage st: K then V, each laid out as sQ
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x % a.H;
+  const int kh = h / (a.H / a.K);
+  const int q0 = blockIdx.y * C::BQ;
+  const int q_hi = min(q0 + C::BQ, a.S) - 1;
+  const int nkt = (a.Sk + BKV - 1) / BKV;
+  const int tload = (a.hd - 64 * WIDE) / 8;   // tail chunks copied; [tload, TCH) stay zero
+
+  // Zero the tail's pad chunks once (TMA never writes them), then publish
+  // them to the async proxy that wgmma reads through.
+  for (int e = tid; e < (C::TCH - tload) * C::BQ; e += C::NT)
+    reinterpret_cast<uint4*>(sQ + WIDE * C::BQ * 128 + tload * C::BQ * 16)[e] =
+        make_uint4(0, 0, 0, 0);
+  for (int e = tid; e < 2 * STAGES * (C::TCH - tload) * BKV; e += C::NT) {
+    const int tile = e / ((C::TCH - tload) * BKV), r = e % ((C::TCH - tload) * BKV);
+    reinterpret_cast<uint4*>(sKV + tile * C::KV_BYTES + WIDE * BKV * 128 + tload * BKV * 16)[r] =
+        make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], NWG * 128);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (tid >= NWG * 128) {
+    // ---- producer warpgroup: one thread issues the TMA copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == NWG * 128) {
+      // one tile of `rows` rows from `row0` of head `head`
+      auto copy_tile = [&](unsigned char* dst, const CUtensorMap* mw, const CUtensorMap* mt,
+                           uint64_t* bar, int rows, int head, int row0) {
+        for (int g = 0; g < WIDE; ++g)
+          hopper::tma_load_4d(dst + g * rows * 128, mw, bar, 64 * g, head, row0, b);
+        for (int c = 0; c < tload; ++c)
+          hopper::tma_load_4d(dst + WIDE * rows * 128 + c * rows * 16, mt, bar,
+                              64 * WIDE + 8 * c, head, row0, b);
+      };
+      const int row_bytes = WIDE * 128 + tload * 16;   // bytes a tile row's copies bring
+      hopper::mbar_expect_tx(qbar, C::BQ * row_bytes);
+      copy_tile(sQ, &maps.qw, &maps.qt, qbar, C::BQ, h, q0);
+      bool mixed;
+      int i = 0;
+      for (int kt = next_tile(a, 0, nkt, b, q0, q_hi, &mixed); kt < nkt;
+           kt = next_tile(a, kt + 1, nkt, b, q0, q_hi, &mixed), ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) hopper::mbar_wait(&empty[st], ((i / STAGES) - 1) & 1);
+        unsigned char* sK = sKV + st * 2 * C::KV_BYTES;
+        hopper::mbar_expect_tx(&full[st], 2 * BKV * row_bytes);
+        copy_tile(sK, &maps.kw, &maps.kt, &full[st], BKV, kh, kt * BKV);
+        copy_tile(sK + C::KV_BYTES, &maps.vw, &maps.vt, &full[st], BKV, kh, kt * BKV);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+    const int wgi = tid / 128;
+    const int lane = tid % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int row0 = wgi * 64 + ((tid % 128) / 32) * 16 + g;   // rows row0, row0 + 8
+    const unsigned char* sQw = sQ + wgi * 64 * 128;                      // this warpgroup's rows
+    const unsigned char* sQt = sQ + WIDE * C::BQ * 128 + wgi * 64 * 16;
+
+    int qseg[2];
+    float m_i[2], l_i[2], acc[NO * 4], sc[NS * 4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = q0 + row0 + 8 * hh;
+      qseg[hh] = s < a.S ? (a.seg ? a.seg[(size_t)b * a.S + s] : 0) : -1;
+      m_i[hh] = NEG_INF;
+      l_i[hh] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < NO * 4; ++n) acc[n] = 0.f;
+    const float scale2 = a.sm_scale * LOG2E;
+
+    hopper::mbar_wait(qbar, 0);
+    bool mixed;
+    int i = 0;
+    for (int kt = next_tile(a, 0, nkt, b, q0, q_hi, &mixed); kt < nkt; ++i) {
+      bool mixed_next;
+      const int kt_next = next_tile(a, kt + 1, nkt, b, q0, q_hi, &mixed_next);
+      const int st = i % STAGES;
+      const unsigned char* sK = sKV + st * 2 * C::KV_BYTES;
+      const unsigned char* sV = sK + C::KV_BYTES;
+      const int k0 = kt * BKV;
+      // every (q, k) pair of the tile visible: no per-element masks
+      const bool full_tile = !mixed && !a.seg && k0 + BKV <= a.Sk && q0 + C::BQ <= a.S &&
+                             (!a.causal || q0 >= k0 + BKV - 1) &&
+                             (a.window <= 0 || (q0 + C::BQ - 1 - k0 < a.window &&
+                                                k0 + BKV - 1 - q0 < a.window));
+      hopper::mbar_wait(&full[st], (i / STAGES) & 1);
+
+      // S = Q K^T: 16-column steps over the swizzled groups, then the tail
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int gw = 0; gw < WIDE; ++gw)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::Wgmma<64>::template ss<0>(
+              sc, hopper::desc_sw128(sQw + gw * C::BQ * 128 + kk * 32),
+              hopper::desc_sw128(sK + gw * BKV * 128 + kk * 32), gw + kk > 0);
+#pragma unroll
+      for (int ks = 0; ks < C::TCH / 2; ++ks)
+        hopper::Wgmma<64>::template ss<0>(
+            sc, hopper::desc(sQt + 2 * ks * C::BQ * 16, C::BQ * 16, 128),
+            hopper::desc(sK + WIDE * BKV * 128 + 2 * ks * BKV * 16, BKV * 16, 128),
+            WIDE + ks > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+      hopper::fence_regs<NS * 4>(sc);
+
+      // softmax in base 2: log2(e) folded into the scale
+      if (a.softcap > 0.f) {
+        const float inv = a.sm_scale / a.softcap, out = a.softcap * LOG2E;
+#pragma unroll
+        for (int e = 0; e < NS * 4; ++e) sc[e] = tanhf(sc[e] * inv) * out;
+      } else {
+#pragma unroll
+        for (int e = 0; e < NS * 4; ++e) sc[e] *= scale2;
+      }
+      if (!full_tile) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = q0 + row0 + 8 * (e >> 1);
+            const int kpos = k0 + n * 8 + tg * 2 + (e & 1);
+            const int qs = qseg[e >> 1];
+            const int ks_id =
+                kpos < a.Sk ? (a.seg ? __ldg(a.seg + (size_t)b * a.Sk + kpos) : 0) : -1;
+            bool allowed = (qpos < a.S) & (qs >= 0) & (ks_id == qs) &
+                           (!a.causal | (qpos >= kpos)) &
+                           ((a.window <= 0) |
+                            ((qpos - kpos < a.window) & (kpos - qpos < a.window)));
+            if (mixed)   // positions clamped: the read stays in bounds
+              allowed &= a.bmap[((size_t)b * a.map_nq + min(qpos, a.S - 1) / a.map_bq) *
+                                    a.map_nk +
+                                min(kpos, a.Sk - 1) / a.map_bk] != 0;
+            if (!allowed) sc[4 * n + e] = NEG_INF;
+          }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+          mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * hh], sc[4 * n + 2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[hh], mx);
+        // a row with no visible key yet keeps p = 0: 2^(NEG_INF - 0) == 0
+        const float m_use = m_new == NEG_INF ? 0.f : m_new;
+        const float alpha = ex2(m_i[hh] - m_use);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(sc[4 * n + 2 * hh + e] - m_use);
+            sc[4 * n + 2 * hh + e] = p;
+            rs += p;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l_i[hh] = l_i[hh] * alpha + rs;
+        m_i[hh] = m_new;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[4 * n + 2 * hh] *= alpha;
+          acc[4 * n + 2 * hh + 1] *= alpha;
+        }
+      }
+
+      // O += P V: the score accumulators of n8 tiles 2kk, 2kk + 1, rounded
+      // to bf16, are the A fragment of the kk-th 16-key step
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      hopper::fence_regs<NO * 4>(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+        for (int gw = 0; gw < WIDE; ++gw)
+          hopper::Wgmma<64>::template rs<1>(
+              acc + 32 * gw, pa[kk], hopper::desc_sw128(sV + gw * BKV * 128 + kk * 16 * 128), 1);
+        if constexpr (TAILN > 0)
+          hopper::Wgmma<TAILN>::template rs<1>(
+              acc + 32 * WIDE, pa[kk],
+              hopper::desc(sV + WIDE * BKV * 128 + kk * 16 * 16, 128, BKV * 16), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+      hopper::fence_regs<NO * 4>(acc);
+      hopper::mbar_arrive(&empty[st]);
+      kt = kt_next;
+      mixed = mixed_next;
+    }
+
+    bf16* o = static_cast<bf16*>(a.o);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = q0 + row0 + 8 * hh;
+      if (s >= a.S) continue;
+      const float inv = 1.f / fmaxf(l_i[hh], 1e-30f);
+      bf16* row = o + ((size_t)(b * a.S + s) * a.H + h) * a.hd;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int d = n * 8 + tg * 2;
+        if (d < a.hd)
+          *reinterpret_cast<__nv_bfloat162*>(row + d) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * hh] * inv, acc[4 * n + 2 * hh + 1] * inv);
+      }
+    }
+  }
+}
+
+// A tensor map over q [B, S, H, hd] or k, v [B, Sk, K, hd] as dims (hd,
+// heads, S, B), boxes of `cols` columns x `rows` rows of one head.
+cudaError_t qkv_map(CUtensorMap* m, const void* p, int B, int S, int heads, int hd, int cols,
+                    int rows, bool swizzle128) {
+  const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)hd * 2, (uint64_t)heads * hd * 2,
+                               (uint64_t)S * heads * hd * 2};
+  const uint32_t box[4] = {(uint32_t)cols, 1, (uint32_t)rows, 1};
+  return hopper::bf16_map(m, p, 4, dims, strides, box, swizzle128);
+}
+
+template <int WIDE, int TAILN, int NWG>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using C = Cfg<WIDE, TAILN, NWG>;
+  auto kernel = flash_fwd_wgmma_kernel<WIDE, TAILN, NWG>;
+  static cudaError_t configured = cudaErrorNotReady;
+  if (configured == cudaErrorNotReady) {
+    configured = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      C::SMEM);
+    // the consumers' setmaxnreg.inc waits until the CTA's pool holds their
+    // registers: if ptxas gave the kernel fewer at entry than that needs,
+    // it would wait forever, so refuse the launch instead
+    cudaFuncAttributes fa;
+    if (configured == cudaSuccess) configured = cudaFuncGetAttributes(&fa, kernel);
+    if (configured == cudaSuccess &&
+        fa.numRegs * C::NT < 128 * (PRODUCER_REGS + C::CONSUMER_REGS * NWG))
+      configured = cudaErrorInvalidConfiguration;
+  }
+  if (configured != cudaSuccess) return configured;
+  Maps m = {};   // maps a call does not read stay zero
+  cudaError_t err = cudaSuccess;
+  const void* ptr[3] = {a.q, a.k, a.v};
+  CUtensorMap* wide[3] = {&m.qw, &m.kw, &m.vw};
+  CUtensorMap* tail[3] = {&m.qt, &m.kt, &m.vt};
+  for (int t = 0; t < 3 && err == cudaSuccess; ++t) {
+    const int S = t ? a.Sk : a.S, heads = t ? a.K : a.H, rows = t ? BKV : C::BQ;
+    if (WIDE > 0) err = qkv_map(wide[t], ptr[t], a.B, S, heads, a.hd, 64, rows, true);
+    if (err == cudaSuccess && a.hd > 64 * WIDE)
+      err = qkv_map(tail[t], ptr[t], a.B, S, heads, a.hd, 8, rows, false);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::NT, C::SMEM, stream>>>(m, a);
+  return cudaGetLastError();
+}
+
+// hd (a multiple of 8, <= 128) as 64-column groups and a tail: 72 = 64 + 8
+// on the main path; 64 and 128 have no tail, hd <= 56 is all tail.
+template <int NWG>
+cudaError_t launch_hd(const Args& a, cudaStream_t stream) {
+  if (a.hd <= 56) return launch<0, 64, NWG>(a, stream);
+  if (a.hd == 64) return launch<1, 0, NWG>(a, stream);
+  if (a.hd == 72) return launch<1, 8, NWG>(a, stream);
+  if (a.hd <= 96) return launch<1, 32, NWG>(a, stream);
+  if (a.hd <= 120) return launch<1, 64, NWG>(a, stream);
+  return launch<2, 0, NWG>(a, stream);
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // Launch
 
 // Raise a kernel's dynamic shared-memory cap once (also keeps the call out
@@ -690,15 +1078,18 @@ cudaError_t launch_hd(const Args& a, bool bf16_in, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int flash_attention_max_head_dim() { return 128; }
-
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. variant: 0 = float32 CUDA-core kernel,
+// 1 = bf16 mma.sync kernel, 2 = bf16 TMA / wgmma kernel (hd a multiple of
+// 8, 16-byte aligned bases). The caller chooses the variant; a variant
+// that does not take the inputs is refused, never replaced. Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, const void* seg, const void* bmap,
                                    int dtype, int B, int S, int Sk, int H, int K,
                                    int hd, int causal, float softcap, int window,
                                    float sm_scale, int map_bq, int map_bk,
-                                   int map_nq, int map_nk, int vec, void* stream) {
+                                   int map_nq, int map_nk, int vec, int variant,
+                                   void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -722,9 +1113,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.map_nk = map_nk;
   a.vec = vec;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hd <= 0 || hd > 128 || variant < 0 || variant > 2 || (variant == 0) != (dtype == 0) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (variant == 2) {
+    const bool aligned = hd % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(v) % 16 == 0;
+    if (!aligned) return (int)cudaErrorInvalidValue;
+    return (int)(S <= 64 ? wg::launch_hd<1>(a, st) : wg::launch_hd<2>(a, st));
+  }
   if (hd <= 64) return (int)launch_hd<64>(a, dtype == 1, st);
   if (hd <= 80) return (int)launch_hd<80>(a, dtype == 1, st);
-  if (hd <= 128) return (int)launch_hd<128>(a, dtype == 1, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_hd<128>(a, dtype == 1, st);
 }

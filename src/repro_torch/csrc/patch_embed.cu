@@ -15,10 +15,18 @@
 // bf16 tensor-core work. So the design reads each input once, keeps the
 // products on the tensor cores (the de-embed contracts over 1152, which on
 // CUDA cores would cost more than its byte bound), and gives the card
-// enough blocks: the embed tiles N and M, the de-embed (few output
-// columns) splits the contraction over the block's four warps instead.
+// enough blocks.
 //
-// Design:
+// Kernels, chosen by the caller (kernels/patch_embed/patch_embed.py):
+//   * the bf16 de-embed with K and M multiples of 8 at 16-byte aligned
+//     bases (the main path): `dk::deembed_cluster_kernel`, a split-K
+//     thread-block cluster on TMA and wgmma that sums its partials through
+//     distributed shared memory (design at its definition), with the tile
+//     plan of `deembed_plan`;
+//   * the embed, and de-embed shapes a tensor map cannot describe:
+//     `gemm_bias_mma_kernel` (bf16, mma.sync) and `gemm_bias_f32_kernel`.
+//
+// Design of the mma.sync and float32 kernels:
 //   * One block of 4 warps per (row tile, 64-column tile). The TPU's
 //     exact-tiling assert (N % bn, d % bd) is gone: ragged N, K and M are
 //     masked here, and K is zero-padded to the 16-deep MMA step in shared
@@ -43,11 +51,15 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libpatch_embed.so patch_embed.cu
+// (hopper.cuh beside it).
 // Plain C interface, bound with ctypes by kernels/patch_embed/patch_embed.py.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -306,6 +318,178 @@ int run(const void* x, const void* w, const void* b, void* o, int dtype, int N, 
   return (int)launch(a, dtype == 1, embed, static_cast<cudaStream_t>(stream));
 }
 
+// ---------------------------------------------------------------------------
+// bf16 de-embed as a split-K cluster kernel: the de-embed's main-path kernel.
+//
+// The contraction (K = d = 1152 on the path) is split across a thread
+// block cluster of CL CTAs. Each CTA owns a 64-row tile, a BN-column tile
+// and one K slice of `chunks` x 64: its one thread issues every X and W box
+// of the slice at once with TMA onto one mbarrier, so the load latency is
+// paid once, not once per chunk. X comes in 64 x 64 boxes in the 128-byte
+// swizzle (hopper.cuh: layouts), W likewise at BN = 64 and as 8-column
+// boxes with no swizzle at BN = 32. One warpgroup computes the slice with
+// wgmma (m64 nBN k16, X K-major, W MN-major, both from shared memory) into
+// float32 registers and parks the partial tile in shared memory. After a
+// cluster barrier, CTA r sums rows [r * 64 / CL, ...) of every CTA's
+// partial through distributed shared memory in the fixed rank order 0..CL-1
+// (no atomics: the result is the same from run to run), adds the bias in
+// float32, rounds once and stores. A second cluster barrier keeps each CTA
+// alive until its peers have read its partial. So W leaves L2 once per 64
+// rows (not once per 16), and X once per column tile.
+namespace dk {
+
+constexpr int BM = 64;   // rows per CTA (wgmma m64)
+constexpr int KC = 64;   // rows of one W box (one chunk of the K slice)
+
+template <int BN>
+struct Cfg {
+  static constexpr int LDP = BN + 4;   // pitch (floats) of the partial tile
+  static __host__ __device__ constexpr int x_bytes(int ks) { return ks * BM * 2; }
+  static __host__ __device__ constexpr int w_bytes(int ks) { return ks * BN * 2; }
+  static __host__ __device__ constexpr int smem(int ks) {
+    return x_bytes(ks) + w_bytes(ks) + BM * LDP * 4 + 8 + 1024;   // + alignment slack
+  }
+};
+
+// BN = 64: W in the 128-byte swizzle; BN = 32: W as 8-column chunks.
+template <int BN>
+__global__ void __launch_bounds__(128)
+    deembed_cluster_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw, const Args a, int chunks) {
+  namespace cgr = cooperative_groups;
+  using C = Cfg<BN>;
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int CL = (int)cluster.num_blocks();
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  const int KS = chunks * KC;
+  unsigned char* sX = base;                       // [chunks][BM][128 swizzled]
+  unsigned char* sW = sX + C::x_bytes(KS);        // BN 64: [KS][128 swizzled]; 32: [4][KS][16]
+  float* sP = reinterpret_cast<float*>(sW + C::w_bytes(KS));   // [BM][LDP]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sP + BM * C::LDP);
+
+  const int n0 = blockIdx.y * BM, m0 = blockIdx.z * BN;
+  const int k0 = rank * KS;
+  const int kvalid = min(KS, a.K - k0);            // > 0: the plan leaves no empty slice
+  const int ksteps = (kvalid + 15) / 16;
+  const int wchunks = (kvalid + KC - 1) / KC;      // boxes past K are not copied, nor read;
+  // inside the last box TMA zero-fills X's columns and W's rows past K
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // W's columns past M (BN = 32) only reach outputs that are not stored
+    const int wcols = BN == 64 ? 1 : min(BN, a.M - m0) / 8;
+    const int wbox = BN == 64 ? KC * 128 : KC * 16;
+    hopper::mbar_expect_tx(bar, wchunks * (BM * 128 + wcols * wbox));
+    for (int s = 0; s < wchunks; ++s) {
+      hopper::tma_load_2d(sX + s * BM * 128, &tx, bar, k0 + s * KC, n0);
+      for (int cc = 0; cc < wcols; ++cc)
+        hopper::tma_load_2d(sW + (BN == 64 ? s * wbox : cc * KS * 16 + s * wbox), &tw, bar,
+                            m0 + 8 * cc, k0 + s * KC);
+    }
+  }
+  hopper::mbar_wait(bar, 0);
+
+  float acc[BN / 2];
+  hopper::wgmma_fence();
+  for (int t = 0; t < ksteps; ++t) {
+    const uint64_t dx = hopper::desc_sw128(sX + (t / 4) * BM * 128 + (t % 4) * 32);
+    const uint64_t dw = BN == 64 ? hopper::desc_sw128(sW + t * 16 * 128)
+                                 : hopper::desc(sW + t * 16 * 16, 128, KS * 16);
+    hopper::Wgmma<BN>::template ss<1>(acc, dx, dw, t > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait0();
+  hopper::fence_regs<BN / 2>(acc);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(&sP[(warp * 16 + g + 8 * hh) * C::LDP + j * 8 + tg * 2]) =
+          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  cluster.sync();   // every partial tile of the cluster is written
+
+  const int rpr = (BM + CL - 1) / CL;
+  const int r_lo = rank * rpr, r_hi = min(BM, r_lo + rpr);
+  const bf16* bias = static_cast<const bf16*>(a.b);
+  bf16* o = static_cast<bf16*>(a.o);
+  for (int e = threadIdx.x; e < (r_hi - r_lo) * (BN / 2); e += 128) {
+    const int r = r_lo + e / (BN / 2), c = 2 * (e % (BN / 2));
+    if (n0 + r >= a.N || m0 + c >= a.M) continue;
+    // every peer's partial in flight at once, then summed in rank order
+    // (fixed: the result is the same from run to run)
+    float2 p[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < CL)
+        p[q] = *reinterpret_cast<const float2*>(cluster.map_shared_rank(sP, q) + r * C::LDP + c);
+    float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < CL) {
+        v.x += p[q].x;
+        v.y += p[q].y;
+      }
+    v.x += __bfloat162float(bias[m0 + c]);
+    v.y += __bfloat162float(bias[m0 + c + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(n0 + r) * a.M + m0 + c) =
+        __floats2bfloat162_rn(v.x, v.y);
+  }
+  cluster.sync();   // peers have read this CTA's partial before it exits
+}
+
+// 2-D tensor map over a row-major [rows, cols] bf16 matrix, boxes of
+// box_cols columns (64: in the 128-byte swizzle; 8: none) x box_rows rows.
+cudaError_t matrix_map(CUtensorMap* m, const void* p, int rows, int cols, int box_cols,
+                       int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+  return hopper::bf16_map(m, p, 2, dims, strides, box, box_cols == 64);
+}
+
+template <int BN>
+cudaError_t launch(const Args& a, int cl, int chunks, cudaStream_t stream) {
+  using C = Cfg<BN>;
+  auto kernel = deembed_cluster_kernel<BN>;
+  static cudaError_t configured = cudaErrorNotReady;
+  if (configured == cudaErrorNotReady)
+    configured = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      232448);
+  if (configured != cudaSuccess) return configured;
+  const int smem = C::smem(chunks * KC);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  cudaError_t err = matrix_map(&tx, a.x, a.N, a.K, 64, BM);
+  if (err == cudaSuccess) err = matrix_map(&tw, a.w, a.K, a.M, BN == 64 ? 64 : 8, KC);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, (a.N + BM - 1) / BM, (a.M + BN - 1) / BN);
+  cfg.blockDim = dim3(128, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, a, chunks);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace dk
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
@@ -317,4 +501,34 @@ extern "C" int patch_embed_fwd(const void* x, const void* w, const void* b, void
 extern "C" int patch_deembed_fwd(const void* x, const void* w, const void* b, void* o,
                                  int dtype, int N, int K, int M, int vec, void* stream) {
   return run(x, w, b, o, dtype, N, K, M, vec, stream, false);
+}
+
+// The bf16 de-embed on the split-K cluster kernel, with the caller's tile
+// plan: col_tile 64 (M a multiple of 64) or 32 columns, a cluster of
+// `cluster` CTAs (<= 8) along K, each taking k_slice (a multiple of 64) of
+// the contraction; the slices must cover K with none empty. K >= 64 (the
+// width of an X box), K and M multiples of 8, 16-byte aligned bases.
+// Returns a cudaError_t (0 = launched).
+extern "C" int patch_deembed_cluster_fwd(const void* x, const void* w, const void* b, void* o,
+                                         int N, int K, int M, int col_tile, int cluster,
+                                         int k_slice, void* stream) {
+  if (N <= 0 || K < 64 || M <= 0 || K % 8 || M % 8 || cluster < 1 || cluster > 8 ||
+      (col_tile == 64 && M % 64) ||
+      k_slice <= 0 || k_slice % 64 || (long)(cluster - 1) * k_slice >= K ||
+      (long)cluster * k_slice < K || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x;
+  a.w = w;
+  a.b = b;
+  a.o = o;
+  a.N = N;
+  a.K = K;
+  a.M = M;
+  a.vec = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (col_tile == 32) return (int)dk::launch<32>(a, cluster, k_slice / 64, st);
+  if (col_tile == 64) return (int)dk::launch<64>(a, cluster, k_slice / 64, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@ libraries and load them with ``ctypes``.
 
 Each source under ``src/repro_torch/csrc/`` compiles on its own, for
 ``sm_90a``, into ``build/kernels/<stem>-<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared ``*.cuh`` headers and the flags,
+so an edited source rebuilds).
 Nothing is built when a module is imported: the first launch builds, and
 :func:`build_all` builds every source at once, one ``nvcc`` each, all
 started together.
@@ -41,8 +42,11 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``source`` builds to; the name hashes the source, the shared
+    headers of ``csrc/`` and the flags."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 

@@ -6,8 +6,10 @@ Drop-in versions of ``repro_torch.core.patch.embed_tokens_flex`` /
 the weight before the kernel runs, so the kernel is patch-size-agnostic.
 
 On a CUDA tensor each launches its Hopper kernel (``patch_embed.py``) and
-counts the launch in ``.launches``; on a CPU tensor it runs the plain
-version (``ref.py``) and counts nothing. Any other device raises.
+counts the launch in ``.launches`` (the de-embed also under the variant the
+inputs select, in ``deembed_tokens_flex.launches_by_variant``); on a CPU
+tensor it runs the plain version (``ref.py``) and counts nothing. Any
+other device raises.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import torch
 
 from repro_torch.core import patch as patch_mod
 from repro_torch.core import resize
-from repro_torch.kernels.patch_embed.patch_embed import (patch_deembed_cuda,
+from repro_torch.kernels.patch_embed.patch_embed import (DEEMBED_VARIANTS,
+                                                         deembed_variant_of,
+                                                         patch_deembed_cuda,
                                                          patch_embed_cuda)
 from repro_torch.kernels.patch_embed.ref import (patch_deembed_ref,
                                                  patch_embed_ref)
@@ -65,13 +69,21 @@ def deembed_tokens_flex(w_flex: torch.Tensor, b_flex: torch.Tensor,
     if _device_kind(tok, "deembed_tokens_flex") == "cpu":
         out = patch_deembed_ref(*args)
     else:
-        out = patch_deembed_cuda(*(t.contiguous() for t in args))
+        args = tuple(t.contiguous() for t in args)
+        out = patch_deembed_cuda(*args)
         deembed_tokens_flex.launches += 1
+        deembed_tokens_flex.launches_by_variant[deembed_variant_of(*args[:2])] += 1
     # kernel output layout is [.., c*pp]; unpatchify expects [.., pp, c]
     pp = W.shape[2]
     patches = out.reshape(B, N, c_out, pp).transpose(2, 3)
     return patch_mod.unpatchify(patches, latent_shape, p)
 
 
-embed_tokens_flex.launches = 0
-deembed_tokens_flex.launches = 0
+def reset_launches() -> None:
+    """Set every launch count of the two wrappers to 0."""
+    embed_tokens_flex.launches = 0
+    deembed_tokens_flex.launches = 0
+    deembed_tokens_flex.launches_by_variant = dict.fromkeys(DEEMBED_VARIANTS, 0)
+
+
+reset_launches()

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.common import ParamSpec, rms_norm
 
 Params = Dict[str, Any]
@@ -218,7 +219,9 @@ def ssm_apply(params: Params, u: torch.Tensor, cfg: SSMConfig, d_model: int,
 
 
 def init_ssm_state(batch: int, d_model: int, cfg: SSMConfig,
-                   dtype: torch.dtype, device: Any = "cpu") -> Params:
+                   dtype: torch.dtype, device: Any = None) -> Params:
+    """Zero recurrent state, on CUDA unless ``device="cpu"`` is passed."""
+    device = resolve_device(device)
     d_in, H, P = ssm_dims(d_model, cfg)
     N = cfg.state_dim
     return {

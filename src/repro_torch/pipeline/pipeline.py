@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flexify import merge_lora
 from repro_torch.core.guidance import GuidanceConfig, make_eps_fn
 from repro_torch.core.scheduler import FlexiSchedule
+from repro_torch.device import resolve_device
 from repro_torch.diffusion import sampler
 from repro_torch.diffusion import schedule as sch
 from repro_torch.models.common import tree_map
@@ -32,15 +33,6 @@ from repro_torch.pipeline.plan import FLOW_SOLVERS, SamplingPlan
 Params = Dict[str, Any]
 # eps_transform(eps, x, t) -> eps — e.g. spectral filtering probes (Fig. 2)
 EpsTransform = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def resolve_device(device: Any = None) -> torch.device:
-    """``None`` means CUDA. Raises when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the port's plain versions on the CPU")
-    return dev
 
 
 @dataclasses.dataclass

@@ -23,9 +23,12 @@ import pytest
 import torch
 
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.attention.flash_attention import (flash_attention_cuda,
+                                                          variant_of)
 from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.kernels.patch_embed import ops as pe_ops
-from repro_torch.kernels.patch_embed.patch_embed import (patch_deembed_cuda,
+from repro_torch.kernels.patch_embed.patch_embed import (deembed_variant_of,
+                                                         patch_deembed_cuda,
                                                          patch_embed_cuda)
 from repro_torch.kernels.patch_embed.ref import (patch_deembed_ref,
                                                  patch_embed_ref)
@@ -81,6 +84,87 @@ def test_kernel_matches_plain_on_card(cuda, case):
                                rtol=TOL[dtype])
 
 
+# bf16 cases of the TMA/wgmma kernel: ragged S, GQA, causal with window,
+# softcap, hd 64 and 128, the main-path shapes, and one long causal row
+# past 8192 tokens (where the JAX package sends every sequence here)
+WGMMA_CASES = [
+    # B, S, H, K, hd, causal, softcap, window
+    (2, 100, 4, 4, 72, False, 0.0, 0),
+    (2, 200, 4, 4, 72, True, 0.0, 0),
+    (2, 300, 4, 4, 72, False, 0.0, 0),
+    (2, 256, 8, 2, 64, True, 0.0, 0),
+    (2, 384, 4, 2, 64, True, 0.0, 128),
+    (1, 256, 4, 4, 64, True, 50.0, 0),
+    (2, 256, 4, 4, 128, False, 0.0, 0),
+    (8, 256, 16, 16, 72, False, 0.0, 0),
+    (8, 64, 16, 16, 72, False, 0.0, 0),
+    (1, 9000, 2, 2, 64, True, 0.0, 0),
+]
+
+
+def _check_wgmma(q, k, v, kw):
+    """ops.flash_attention takes the TMA/wgmma kernel and counts it; it
+    agrees with the plain version and with the forced mma.sync kernel."""
+    assert variant_of(q, k, v) == "wgmma"
+    before = dict(ops.flash_attention.launches_by_variant)
+    got = ops.flash_attention(q, k, v, **kw)
+    prev = flash_attention_cuda(q, k, v, **ops.kernel_kwargs(q, k, **kw), variant="mma")
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches_by_variant["wgmma"] == before["wgmma"] + 1
+    assert ops.flash_attention.launches_by_variant["mma"] == before["mma"]
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), prev.float(), atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=[f"w{i}" for i in range(len(WGMMA_CASES))])
+def test_wgmma_kernel_matches_plain_and_mma_on_card(cuda, case):
+    B, S, H, K, hd, causal, cap, win = case
+    rng = np.random.default_rng(S + hd + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, hd), np.float32))
+               .to(cuda, torch.bfloat16) for h in (H, K, K))
+    _check_wgmma(q, k, v, dict(causal=causal, softcap=cap, window=win))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(64, 64), (48, 80), (128, 128)])
+def test_wgmma_kernel_packed_block_map_on_card(cuda, blocks):
+    """Packed causal rows with padding and the caller's map at 64, 48 x 80
+    (straddling the kernel's tiles) and 128: padding rows return 0."""
+    bq, bk = blocks
+    rng = np.random.default_rng(5)
+    B, S, H, hd = 2, 200, 4, 72
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    seg = _packed_segments(B, S).to(cuda)
+    bmap = torch.from_numpy((rng.random((B, -(-S // bq), -(-S // bk))) < 0.7)
+                            .astype(np.int32)).to(cuda)
+    for block_map in (None, bmap):
+        got = _check_wgmma(q, k, v, dict(causal=True, segment_ids=seg,
+                                         block_map=block_map, block_q=bq,
+                                         block_k=bk))
+        assert torch.all(got[1, 190:] == 0)
+
+
+@pytest.mark.gpu
+def test_flash_counts_launches_by_variant_on_card(cuda):
+    """hd 72 bf16 takes the TMA/wgmma kernel, hd 70 the mma.sync kernel,
+    float32 the CUDA-core kernel; each launch is counted under its own."""
+    ops.reset_launches()
+    for hd, dtype in ((72, torch.bfloat16), (70, torch.bfloat16),
+                      (72, torch.float32)):
+        q = torch.randn((1, 64, 2, hd), device=cuda).to(dtype)
+        ops.flash_attention(q, q, q, causal=False)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == 3
+    assert ops.flash_attention.launches_by_variant == {"f32": 1, "mma": 1,
+                                                       "wgmma": 1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("blocks", [(64, 64), (48, 80), (128, 128)])
@@ -131,6 +215,32 @@ def test_patch_kernels_match_plain_on_card(cuda, case):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), plain(x, w, b).float(),
                                    atol=PE_TOL[dtype], rtol=PE_TOL[dtype])
+
+
+# the cluster de-embed: the DiT-XL/2 path at B=8, the JAX package's bf16
+# case, a ragged N, and K not in whole 64-chunks
+CLUSTER_CASES = [(2048, 1152, 32), (512, 1152, 128), (1024, 128, 512),
+                 (2000, 1152, 32), (256, 1000, 64), (100, 72, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CLUSTER_CASES,
+                         ids=[f"c{i}" for i in range(len(CLUSTER_CASES))])
+def test_cluster_deembed_matches_plain_and_mma_on_card(cuda, case):
+    N, K, M = case
+    gen = torch.Generator(device=cuda).manual_seed(N + K + M)
+    x, w, b = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+               for shape in ((N, K), (K, M), (M,)))
+    assert deembed_variant_of(x, w) == "cluster"
+    got = patch_deembed_cuda(x, w, b)
+    prev = patch_deembed_cuda(x, w, b, variant="mma")
+    again = patch_deembed_cuda(x, w, b)
+    torch.cuda.synchronize()
+    tol = PE_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), patch_deembed_ref(x, w, b).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), prev.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)   # fixed reduction order: run to run equal
 
 
 @pytest.mark.gpu

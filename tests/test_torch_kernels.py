@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels.attention import flash_attention as jax_fa
 from repro.kernels.attention import mask as jax_mask
+from repro_torch.kernels.attention import flash_attention as tfa
 from repro_torch.kernels.attention import mask as mask_mod
 from repro_torch.kernels.attention import ops
 
@@ -124,3 +125,26 @@ def test_wrapper_counts_only_kernel_launches():
     before = ops.flash_attention.launches
     ops.flash_attention(q, q, q)
     assert ops.flash_attention.launches == before
+
+
+# the DiT-XL/2 main-path shapes (B = 2 x 4 rows under CFG, 256 tokens at
+# patch 2, 64 at patch 4) and bf16 shapes a tensor map cannot describe
+PATH_CASES = [(8, 256, 16, 16, 72, False, 0.0, 0, "bfloat16"),
+              (8, 64, 16, 16, 72, False, 0.0, 0, "bfloat16")]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + PATH_CASES,
+                         ids=[f"v{i}" for i in range(len(ATTN_CASES) + 2)])
+def test_flash_variant_selection(case):
+    """float32 keeps the CUDA-core kernel; bf16 rows of whole 16-byte
+    chunks at 16-byte aligned bases take the TMA/wgmma kernel; other bf16
+    shapes the mma.sync kernel. Decided from the inputs alone."""
+    hd, dtype = case[4], getattr(torch, case[8])
+    want = "f32" if dtype == torch.float32 else "wgmma"
+    assert tfa.select_variant(dtype, hd, aligned=True) == want
+    q = torch.zeros(case[:3] + (hd,), dtype=dtype)
+    assert tfa.variant_of(q, q, q) == want
+    if dtype == torch.bfloat16:
+        assert tfa.select_variant(dtype, hd, aligned=False) == "mma"
+        assert tfa.select_variant(dtype, hd - 2, aligned=True) == "mma"
+        assert tfa.select_variant(dtype, 136, aligned=True) == "mma"

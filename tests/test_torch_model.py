@@ -34,7 +34,7 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def to_torch(tree):
-    return convert.params_from_numpy(jax.tree.map(np.asarray, tree))
+    return convert.params_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
 
 
 def trained_like(cfg, seed: int = 0):
@@ -299,3 +299,25 @@ def test_merge_lora_matches_reference(models):
                       ("mlp", "w_out")]:
         np.testing.assert_allclose(got["blocks"][grp][name].numpy(),
                                    np.asarray(want["blocks"][grp][name]), **TOL)
+
+
+@pytest.mark.parametrize("helper", ["leaf_to_torch", "params_from_numpy",
+                                    "init_ssm_state"])
+def test_helpers_default_to_cuda(helper):
+    """The weight bridge and the SSM state land on CUDA unless the caller
+    passes device="cpu"; without CUDA the default raises."""
+    from repro_torch.models import ssm as tssm
+    cfg = tcfgs.get_config("mamba2-130m").ssm
+    calls = {
+        "leaf_to_torch": lambda **kw: convert.leaf_to_torch(np.ones(3, np.float32), **kw),
+        "params_from_numpy": lambda **kw: convert.params_from_numpy(
+            {"a": {"b": np.ones(2, np.float32)}}, **kw)["a"]["b"],
+        "init_ssm_state": lambda **kw: tssm.init_ssm_state(1, 64, cfg, torch.float32,
+                                                           **kw)["h"],
+    }
+    assert calls[helper](device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert calls[helper]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            calls[helper]()

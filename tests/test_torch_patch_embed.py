@@ -24,7 +24,9 @@ from repro.models import dit as jdit
 from repro_torch import convert
 from repro_torch.core import patch as tpatch
 from repro_torch.kernels.patch_embed import ops
+from repro_torch.kernels.patch_embed import patch_embed as tpe
 from repro_torch.kernels.patch_embed.ref import (patch_deembed_ref,
+                                                 patch_deembed_split_k,
                                                  patch_embed_ref)
 
 # the JAX package's PE_CASES (tests/test_kernels.py)
@@ -91,7 +93,7 @@ def test_flex_tokenizer_ops_match_jax_ops(xl_tokenizer, mode):
     pp = dit.underlying_patch_size
     c_out = tree["deembed"]["w_flex"].shape[1]
     jtree = jax.tree.map(jnp.asarray, tree)
-    ttree = convert.params_from_numpy(tree)
+    ttree = convert.params_from_numpy(tree, device="cpu")
     want = jops.embed_tokens_flex(jtree["embed"]["w_flex"], jtree["embed"]["b"],
                                   jnp.asarray(x), p, pp)
     got = ops.embed_tokens_flex(ttree["embed"]["w_flex"], ttree["embed"]["b"],
@@ -148,3 +150,60 @@ def test_tokenizer_wrappers_count_only_kernel_launches_and_reject_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.deembed_tokens_flex(w_de.to("meta"), b_de.to("meta"), tok.to("meta"),
                                 (1, 8, 8, 4), (1, 2, 2), (1, 4, 4), 8)
+
+
+# de-embed (N, K, M): the DiT-XL/2 path at B=8 (mode 0, mode 1), a ragged
+# N, K not in whole 64-chunks, and the JAX package's PE_CASES
+PLAN_SHAPES = [(2048, 1152, 32), (512, 1152, 128), (2000, 1152, 32),
+               (256, 1000, 64), (100, 72, 16), (100, 40, 16)] + [c[:3] for c in PE_CASES]
+# blocks the mma.sync de-embed launches at the path shapes (16-row x 64-column tiles)
+MMA_BLOCKS = {(2048, 1152, 32): 128, (512, 1152, 128): 64}
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=[f"n{n}k{k}m{m}" for n, k, m in PLAN_SHAPES])
+def test_deembed_tile_plan(shape):
+    """K slices cover K with none empty, the cluster is portable, one CTA's
+    shared memory fits, and the path shapes launch at least as many CTAs
+    as the mma.sync de-embed kernel."""
+    N, K, M = shape
+    plan = tpe.deembed_plan(N, K, M)
+    assert plan is not None
+    assert 1 <= plan.cluster <= 8 and plan.k_slice % 64 == 0
+    assert (plan.cluster - 1) * plan.k_slice < K <= plan.cluster * plan.k_slice
+    assert plan.smem_bytes() <= 227 * 1024
+    assert plan.row_tile == 64
+    assert plan.col_tile == (64 if M % 64 == 0 else 32)
+    if shape in MMA_BLOCKS:
+        assert plan.ctas(N, M) >= MMA_BLOCKS[shape]
+    if K == 1152:
+        assert (plan.cluster, plan.k_slice) == (6, 192)
+    assert tpe.select_deembed_variant(torch.bfloat16, N, K, M, True) == (
+        "cluster" if K % 8 == 0 and M % 8 == 0 and K >= 64 else "mma")
+    assert tpe.select_deembed_variant(torch.bfloat16, N, K, M, False) == "mma"
+    assert tpe.select_deembed_variant(torch.float32, N, K, M, True) == "f32"
+
+
+def test_deembed_plan_refuses_what_shared_memory_cannot_hold():
+    assert tpe.deembed_plan(64, 64 * 8 * 14, 64) is None
+    assert tpe.select_deembed_variant(torch.bfloat16, 64, 64 * 8 * 14, 64,
+                                      True) == "mma"
+
+
+@pytest.mark.parametrize("case", PE_CASES, ids=[f"s{i}" for i in range(len(PE_CASES))])
+def test_split_k_order_matches_jax_deembed(case):
+    """The cluster kernel's order of sums (per-slice float32 partials in
+    rank order, the bias, one rounding) against the JAX Pallas de-embed in
+    interpret mode, at the plan the kernel would take."""
+    N, K, M, dtype = case
+    rng = np.random.default_rng(N + K + M)
+    x, w, b = (rng.standard_normal(s).astype(np.float32)
+               for s in ((N, K), (K, M), (M,)))
+    plan = tpe.deembed_plan(N, K, M)
+    want = patch_deembed_pallas(_jax(x, dtype), _jax(w, dtype), _jax(b, dtype),
+                                block_n=min(256, N))
+    got = patch_deembed_split_k(_torch(x, dtype), _torch(w, dtype),
+                                _torch(b, dtype), plan.cluster, plan.k_slice)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])

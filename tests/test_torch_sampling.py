@@ -47,7 +47,7 @@ T = 10
 
 
 def to_torch(tree):
-    return convert.params_from_numpy(jax.tree.map(np.asarray, tree))
+    return convert.params_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -190,7 +190,7 @@ def _layer(cfg, seed: int = 0):
         p[key] = (rng.standard_normal(p[key].shape) * scale).astype(np.float32)
     p["norm"]["scale"] = (rng.standard_normal(p["norm"]["scale"].shape)
                           * 0.1).astype(np.float32)
-    return jax.tree.map(jnp.asarray, p), convert.params_from_numpy(p)
+    return jax.tree.map(jnp.asarray, p), convert.params_from_numpy(p, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -210,7 +210,7 @@ def test_ssm_schema_and_state_match_reference(mamba):
                      is_leaf=lambda s: isinstance(s, jcommon.ParamSpec))
     assert tssm.ssm_dims(cfg.d_model, cfg.ssm) == jssm.ssm_dims(cfg.d_model, cfg.ssm)
     js = jssm.init_ssm_state(2, cfg.d_model, cfg.ssm, jnp.float32)
-    ts = tssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32)
+    ts = tssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32, device="cpu")
     assert {k: tuple(v.shape) for k, v in ts.items()} == \
         {k: tuple(v.shape) for k, v in js.items()}
 
@@ -236,7 +236,7 @@ def test_ssm_apply_with_state_matches_reference(mamba):
     rng = np.random.default_rng(3)
     u = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
     js = jssm.init_ssm_state(2, cfg.d_model, cfg.ssm, jnp.float32)
-    ts = tssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32)
+    ts = tssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32, device="cpu")
     for lo, hi in ((0, 20), (20, 21), (21, 22), (22, 24)):
         jy, js = jssm.ssm_apply(jp, jnp.asarray(u[:, lo:hi]), cfg.ssm,
                                 cfg.d_model, js)
@@ -258,7 +258,7 @@ def test_streaming_state_equivalence():
     u = torch.randn((B, S, d), generator=torch.Generator().manual_seed(1))
     for use_kernel in (False, True):
         full, _ = tssm.ssm_apply(params, u, cfg, d, use_kernel=use_kernel)
-        state = tssm.init_ssm_state(B, d, cfg, torch.float32)
+        state = tssm.init_ssm_state(B, d, cfg, torch.float32, device="cpu")
         half, state = tssm.ssm_apply(params, u[:, :12], cfg, d, state)
         outs = [half]
         for i in range(12, S):
@@ -273,7 +273,7 @@ def test_kernel_branch_with_carried_state_raises(mamba):
     """The reference's kernel branch drops h0 (ssm.py:189), so the port
     refuses a carried state with S > 1 rather than differ silently."""
     cfg, _, tp = mamba
-    state = tssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32)
+    state = tssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32, device="cpu")
     u = torch.zeros((2, 5, cfg.d_model))
     with pytest.raises(NotImplementedError, match="queue 3"):
         tssm.ssm_apply(tp, u, cfg.ssm, cfg.d_model, state, use_kernel=True)
