@@ -9,8 +9,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 2. hold each kernel against its plain PyTorch version on the card, at
    the JAX package's kernel-test cases and at each path's shapes; the
    redesigned kernels (flash attention on TMA/wgmma, the split-K cluster
-   de-embed) also against the previous kernel of the same function,
-   forced with ``variant=``;
+   de-embed, the persistent TMA/wgmma embed) also against the previous
+   kernel of the same function, forced with ``variant=``;
 3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
    random trained-like weights from a seed) through
    ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
@@ -20,8 +20,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    switches build no runner;
 4. tokenize and de-tokenize a B=8 latent with those DiT-XL/2 weights at
    each patch size through ``kernels/patch_embed/ops`` (the patch
-   embed / de-embed kernels; every de-embed on the cluster variant), held
-   against ``core/patch.py``;
+   embed / de-embed kernels; every embed on the wgmma variant, every
+   de-embed on the cluster variant), held against ``core/patch.py``;
 5. run one Mamba2 layer at mamba2-130m width (d=768, 24 SSD heads x 64,
    state 128, chunk 128, bf16) through ``ssm_apply(use_kernel=True)``
    (the SSD kernel) at B=4, S=2048 and S=2000, held against
@@ -72,7 +72,8 @@ from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.core import patch as patch_mod  # noqa: E402
 from repro_torch.kernels.patch_embed import ops as pe_ops  # noqa: E402
 from repro_torch.kernels.patch_embed.patch_embed import (  # noqa: E402
-    deembed_plan, deembed_variant_of, patch_deembed_cuda, patch_embed_cuda)
+    deembed_plan, deembed_variant_of, embed_launch_plan, embed_plan,
+    embed_variant_of, patch_deembed_cuda, patch_embed_cuda)
 from repro_torch.kernels.patch_embed.ref import (  # noqa: E402
     patch_deembed_ref, patch_embed_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
@@ -125,6 +126,13 @@ PE_PATH = {"patch_embed": [(2048, 16, 1152), (512, 64, 1152)],
 # the cluster de-embed at a ragged N and at K not in whole 64-chunks (the
 # last slice's box partly past K)
 DEEMBED_EXTRA = [(2000, 1152, 32), (256, 1000, 64), (100, 72, 16)]
+# the TMA/wgmma embed at a ragged N, K = 48 (the JAX package's case) and
+# 128, M = 72 (not whole 64s), K an odd number of 8s, N at which each CTA
+# walks several row tiles, and the largest K it takes (on a 2-stage ring)
+EMBED_EXTRA = [(2000, 16, 1152), (256, 48, 128), (512, 128, 1152), (256, 16, 72),
+               (100, 24, 40), (16384, 16, 1152), (8192, 64, 1152), (256, 544, 128)]
+# the redesigned kernels: their variant on the path, and the previous one
+REDESIGNED = {"patch_embed": ("wgmma", "mma"), "patch_deembed": ("cluster", "mma")}
 # the JAX package's SSD_CASES (B, S, H, P, N, chunk) and one mamba2-130m
 # layer at B=4, S=2048
 SSD_CASES = [(2, 64, 4, 16, 8, 16), (1, 96, 2, 32, 16, 32),
@@ -298,8 +306,10 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
 
 def phase_new_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> dict:
     """The patch embed / de-embed and SSD kernels against their plain
-    versions: the JAX package's cases, then each path's shapes; the
-    cluster de-embed's extra shapes draw from ``gen_new``."""
+    versions: the JAX package's cases, then each path's shapes; every bf16
+    case of the two redesigned kernels also against the previous kernel,
+    and equal bit for bit when repeated. The cluster de-embed's and then
+    the wgmma embed's extra shapes draw from ``gen_new``."""
     worst = {"patch_embed": 0.0, "patch_deembed": 0.0, "ssd_chunk": 0.0}
     kernels = {"patch_embed": (patch_embed_cuda, patch_embed_ref),
                "patch_deembed": (patch_deembed_cuda, patch_deembed_ref)}
@@ -307,23 +317,35 @@ def phase_new_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> d
     cases += [(name, N, K, M, torch.bfloat16)
               for name, shapes in PE_PATH.items() for N, K, M in shapes]
     cases += [("patch_deembed", N, K, M, torch.bfloat16) for N, K, M in DEEMBED_EXTRA]
+    n_old = len(cases) - len(DEEMBED_EXTRA)
+    cases += [("patch_embed", N, K, M, torch.bfloat16) for N, K, M in EMBED_EXTRA]
     for i, (name, N, K, M, dt) in enumerate(cases):
-        g = gen_new if i >= len(cases) - len(DEEMBED_EXTRA) else gen
+        g = gen_new if i >= n_old else gen
         x, w, b = (randn(g, shape, dt) for shape in ((N, K), (K, M), (M,)))
         kernel, plain = kernels[name]
         got = kernel(x, w, b)
         torch.cuda.synchronize()
         label = f"{name} N{N} K{K} M{M} {str(dt)[6:]}"
-        if name == "patch_deembed" and dt == torch.bfloat16:
-            variant = deembed_variant_of(x, w)
-            if variant != "cluster":
-                raise AssertionError(f"{label}: selects {variant}, not cluster")
-            plan = deembed_plan(N, K, M)
-            label += (f" (cluster {plan.cluster} x {plan.k_slice}-deep slices, "
-                      f"{plan.ctas(N, M)} CTAs)")
-            prev = patch_deembed_cuda(x, w, b, variant="mma")
+        if dt == torch.bfloat16:
+            new, old = REDESIGNED[name]
+            if name == "patch_deembed":
+                variant = deembed_variant_of(x, w)
+                plan = deembed_plan(N, K, M)
+                label += (f" (cluster {plan.cluster} x {plan.k_slice}-deep slices, "
+                          f"{plan.ctas(N, M)} CTAs)")
+            else:
+                variant = embed_variant_of(x, w, b)
+                ctas, stages, _ = embed_launch_plan(N, K, M)
+                label += (f" ({embed_plan(N, K, M).tiles} tiles on {ctas} CTAs, "
+                          f"{stages} stages)")
+            if variant != new:
+                raise AssertionError(f"{label}: selects {variant}, not {new}")
+            prev = kernel(x, w, b, variant=old)
+            again = kernel(x, w, b)
             torch.cuda.synchronize()
-            check(f"{label} vs mma kernel", got, prev, PE_TOL[dt])
+            check(f"{label} vs {old} kernel", got, prev, PE_TOL[dt])
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two calls differ")
         worst[name] = max(worst[name], check(label, got, plain(x, w, b), PE_TOL[dt]))
     for case, dt in ([(c, torch.float32) for c in SSD_CASES]
                      + [(SSD_PATH, torch.float32), (SSD_PATH, torch.bfloat16)]):
@@ -509,15 +531,17 @@ def phase_tokenizer(gen: torch.Generator, pipe: FlexiPipeline) -> dict:
         check(f"deembed_tokens_flex patch {p} vs core/patch.py", out, out_ref, 2e-2)
     launches = {"patch_embed": pe_ops.embed_tokens_flex.launches,
                 "patch_deembed": pe_ops.deembed_tokens_flex.launches}
-    by_variant = dict(pe_ops.deembed_tokens_flex.launches_by_variant)
+    by_variant = {"patch_embed": dict(pe_ops.embed_tokens_flex.launches_by_variant),
+                  "patch_deembed": dict(pe_ops.deembed_tokens_flex.launches_by_variant)}
     if any(n != len(patches) for n in launches.values()):
         raise AssertionError(f"tokenizer launches {launches}, expected "
                              f"{len(patches)} each (one per patch size)")
-    if by_variant["cluster"] != len(patches):
-        raise AssertionError(f"de-embed launches by variant {by_variant}: not "
-                             f"all {len(patches)} on the cluster kernel")
+    for name, (new, _) in REDESIGNED.items():
+        if by_variant[name][new] != len(patches):
+            raise AssertionError(f"{name} launches by variant {by_variant[name]}: "
+                                 f"not all {len(patches)} on the {new} kernel")
     log(f"[tokenizer] launches {launches} == {len(patches)} patch sizes; "
-        f"de-embed by variant {by_variant}")
+        f"by variant {by_variant}")
     return launches
 
 
@@ -625,34 +649,25 @@ def phase_new_timing(gen: torch.Generator) -> dict:
                "patch_deembed": (patch_deembed_cuda, patch_deembed_ref)}
     for name, shapes in PE_PATH.items():
         kernel, plain = kernels[name]
+        new, old = REDESIGNED[name]
         for N, K, M in shapes:
             x, w, b = (randn(gen, shape, torch.bfloat16)
                        for shape in ((N, K), (K, M), (M,)))
             bound, by = bound_ms(2 * (N * K + K * M + M + N * M), 2 * N * K * M,
                                  BF16_FLOPS)
             plain_ms = graph_ms(lambda: plain(x, w, b))
-            if name == "patch_deembed":
-                # the redesigned kernel: interleaved with the previous one
-                t = interleaved_ms({
-                    "cluster": lambda: kernel(x, w, b, variant="cluster"),
-                    "mma": lambda: kernel(x, w, b, variant="mma"),
-                    "addmm": lambda: torch.addmm(b, x, w)})
-                ms, lib = t["cluster"]["ms"], t["addmm"]["ms"]
-                times = dict(prev_ms=t["mma"]["ms"])
-                log(f"[time] {name} N{N} K{K} M{M} bf16, medians of "
-                    f"{t['cluster']['rounds']} interleaved rounds (fastest-"
-                    f"slowest): {turns_line(t)}; plain {plain_ms:.4f} ms; "
-                    f"bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound, "
-                    f"{lib / ms:.2f}x addmm's speed, {t['mma']['ms'] / ms:.2f}x "
-                    f"the mma kernel's")
-            else:
-                ms = graph_ms(lambda: kernel(x, w, b))
-                lib = graph_ms(lambda: torch.addmm(b, x, w))
-                times = {}
-                log(f"[time] {name} N{N} K{K} M{M} bf16: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, addmm {lib:.4f} ms, bound {bound:.4f} ms "
-                    f"({by}); {bound / ms:.1%} of the bound")
-            out.setdefault(name, dict(ms=ms, **times, plain_ms=plain_ms,
+            # the redesigned kernel: interleaved with the previous one
+            t = interleaved_ms({
+                new: lambda: kernel(x, w, b, variant=new),
+                old: lambda: kernel(x, w, b, variant=old),
+                "addmm": lambda: torch.addmm(b, x, w)})
+            ms, lib = t[new]["ms"], t["addmm"]["ms"]
+            log(f"[time] {name} N{N} K{K} M{M} bf16, medians of "
+                f"{t[new]['rounds']} interleaved rounds (fastest-slowest): "
+                f"{turns_line(t)}; plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+                f"({by}); {bound / ms:.1%} of the bound, {lib / ms:.2f}x addmm's "
+                f"speed, {t[old]['ms'] / ms:.2f}x the {old} kernel's")
+            out.setdefault(name, dict(ms=ms, prev_ms=t[old]["ms"], plain_ms=plain_ms,
                                       library_ms=lib, bound_ms=bound, bound_by=by))
     B, S, H, P, N, Q = SSD_PATH
     nc = S // Q

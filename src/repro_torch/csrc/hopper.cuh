@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the port's TMA / wgmma kernels (sm_90a):
 // tensor maps (encoded through the driver entry point, cached on the host),
-// TMA tile loads onto mbarriers, mbarrier waits, wgmma descriptors for the
-// two shared-memory layouts below, and the wgmma instructions the kernels
-// use.
+// TMA tile loads onto mbarriers and tile stores in bulk groups, mbarrier
+// waits, wgmma descriptors for the two shared-memory layouts below, and the
+// wgmma instructions the kernels use.
 //
 // Two shared-memory layouts of a tile of R rows x C bf16 columns, both
 // written by TMA and read by wgmma through a matrix descriptor:
@@ -13,6 +13,12 @@
 //     1024 (next 8 rows); the k-th 16-column step starts 32 * k bytes in.
 //     MN-major operand (rows = K, columns = N): stride byte offset 1024
 //     (next 8 rows of K); the 16-row k step starts 2048 * k bytes in.
+//   * 32-byte swizzle (SW32), K-major only: a box of 16 columns (one
+//     16-deep k step) x R rows, 32 bytes a row, as TMA's
+//     CU_TENSOR_MAP_SWIZZLE_32B writes it at a 256-byte aligned address;
+//     stride byte offset 256 (next 8 rows). For K = 16 or 48, whose rows
+//     are too narrow for a 64-column box: one box a k step, in 32-byte
+//     rows, where 8-column boxes would fetch 16 bytes a row.
 //   * no swizzle ("interleave"), for column counts that are not whole
 //     64s: C / 8 column chunks, chunk j holding its R rows of 8 values (16
 //     bytes) back to back, [C / 8][R][8], as a TMA box of (8 columns, R
@@ -55,11 +61,11 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map, zero fill out of bounds, with no swizzle or the
-// 128-byte swizzle. dims innermost first; strides[i] is the byte stride of
-// dims[i + 1]. Encoded maps are cached by (address, dims, strides, box,
-// swizzle): a call that sees the same tensor again (the usual case under
-// PyTorch's caching allocator) pays a table lookup instead of an encode.
+// A bf16 tensor map, zero fill out of bounds, with the given swizzle.
+// dims innermost first; strides[i] is the byte stride of dims[i + 1].
+// Encoded maps are cached by (address, dims, strides, box, swizzle): a
+// call that sees the same tensor again (the usual case under PyTorch's
+// caching allocator) pays a table lookup instead of an encode.
 struct MapKey {
   uint64_t addr;
   int rank, swizzle;
@@ -74,8 +80,9 @@ struct MapKey {
   }
 };
 
-inline cudaError_t bf16_map(CUtensorMap* out, const void* addr, int rank, const uint64_t* dims,
-                            const uint64_t* strides, const uint32_t* box, bool swizzle128) {
+inline cudaError_t bf16_map_swizzled(CUtensorMap* out, const void* addr, int rank,
+                                     const uint64_t* dims, const uint64_t* strides,
+                                     const uint32_t* box, CUtensorMapSwizzle swizzle) {
   constexpr int SLOTS = 256;
   static MapKey keys[SLOTS];
   static CUtensorMap maps[SLOTS];
@@ -84,8 +91,8 @@ inline cudaError_t bf16_map(CUtensorMap* out, const void* addr, int rank, const 
   MapKey key{};
   key.addr = reinterpret_cast<uint64_t>(addr);
   key.rank = rank;
-  key.swizzle = swizzle128;
-  uint64_t h = (key.addr + swizzle128) * 0x9E3779B97F4A7C15ull;
+  key.swizzle = (int)swizzle;
+  uint64_t h = (key.addr + (uint64_t)swizzle) * 0x9E3779B97F4A7C15ull;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -105,14 +112,20 @@ inline cudaError_t bf16_map(CUtensorMap* out, const void* addr, int rank, const 
                         const_cast<void*>(addr), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   keys[slot] = key;
   maps[slot] = *out;
   used[slot] = true;
   return cudaSuccess;
+}
+
+// With no swizzle or the 128-byte swizzle.
+inline cudaError_t bf16_map(CUtensorMap* out, const void* addr, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box, bool swizzle128) {
+  return bf16_map_swizzled(out, addr, rank, dims, strides, box,
+                           swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // ---------------------------------------------------------------------------
@@ -184,6 +197,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "r"(c3)
       : "memory");
 }
+// A 1-D bulk copy of `bytes` (a multiple of 16, from a 16-byte aligned
+// address) from global into shared memory; completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One TMA box from shared memory to global (tensor map coordinates,
+// innermost first), in the thread's current bulk group; TMA clips what
+// lies past the tensor's edge. Rules: every thread that wrote the box
+// runs `fence_async_shared()` and the block syncs before one thread
+// issues the store; that thread then calls `bulk_commit()`, and
+// `bulk_wait_read<n>()` before the box's memory is written again (at most
+// n groups still reading), and `bulk_wait<0>()` before the block exits.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// Make this thread's generic-proxy shared-memory writes visible to the
+// async proxy (TMA stores, wgmma operands).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -202,6 +257,11 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t s
 // group an instruction reads).
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return desc(p, 16, 1024) | (1ull << 62);
+}
+// Descriptor of a K-major operand in the 32-byte swizzle layout (8-row
+// groups 256 bytes apart).
+__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
+  return desc(p, 16, 256) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

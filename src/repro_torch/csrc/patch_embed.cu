@@ -23,8 +23,19 @@
 //     thread-block cluster on TMA and wgmma that sums its partials through
 //     distributed shared memory (design at its definition), with the tile
 //     plan of `deembed_plan`;
-//   * the embed, and de-embed shapes a tensor map cannot describe:
-//     `gemm_bias_mma_kernel` (bf16, mma.sync) and `gemm_bias_f32_kernel`.
+//   * the bf16 embed with K and M multiples of 8 at 16-byte aligned bases
+//     (the main path; replaces `_embed_kernel`): `ek::embed_wgmma_kernel`,
+//     persistent CTAs that load their W slice once by TMA, keep the bias in
+//     registers, ring X row tiles through TMA, multiply with wgmma at K's
+//     own depth and store through a double-buffered TMA-store epilogue
+//     (design at its definition), on as many CTAs as the SMs hold
+//     (`ek::plan`). Its output is 85-98 % of its bytes (K = 64 / 16), so
+//     it keeps a store in flight while the next tile is loaded, multiplied
+//     and staged, and writes whole 64 x 64 boxes; at the DiT-XL/2 shapes
+//     what bounds it is the latency of the first TMA round trip, which the
+//     many CTAs in flight overlap;
+//   * other bf16 shapes: `gemm_bias_mma_kernel` (mma.sync); float32:
+//     `gemm_bias_f32_kernel`.
 //
 // Design of the mma.sync and float32 kernels:
 //   * One block of 4 warps per (row tile, 64-column tile). The TPU's
@@ -447,13 +458,17 @@ __global__ void __launch_bounds__(128)
 }
 
 // 2-D tensor map over a row-major [rows, cols] bf16 matrix, boxes of
-// box_cols columns (64: in the 128-byte swizzle; 8: none) x box_rows rows.
+// box_cols columns (64: in the 128-byte swizzle; 16: the 32-byte swizzle;
+// 8: none) x box_rows rows.
 cudaError_t matrix_map(CUtensorMap* m, const void* p, int rows, int cols, int box_cols,
                        int box_rows) {
   const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
   const uint64_t strides[1] = {(uint64_t)cols * 2};
   const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
-  return hopper::bf16_map(m, p, 2, dims, strides, box, box_cols == 64);
+  return hopper::bf16_map_swizzled(m, p, 2, dims, strides, box,
+                                   box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                    : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int BN>
@@ -489,6 +504,255 @@ cudaError_t launch(const Args& a, int cl, int chunks, cudaStream_t stream) {
 }
 
 }  // namespace dk
+
+// ---------------------------------------------------------------------------
+// bf16 embed on TMA, wgmma and a TMA-store epilogue: the embed's main-path
+// kernel.
+//
+// At K <= 64 the products are trivial and the output is 85-98 % of the
+// bytes, so the kernel streams its output while the next row tile's loads
+// and products run; at the DiT-XL/2 shapes what remains above the launch
+// is mostly the first TMA round trip (tools/embed_ablation.py), so the
+// grid favours many CTAs in flight: as many as the SMs hold, up to one a
+// tile (`plan`). Persistent CTAs of one warpgroup: CTA c owns column tile
+// c % n_ct (BN = 64 columns) and walks the row tiles rg, rg + G, ...
+// (rg = c / n_ct, G = CTAs / n_ct). Its W slice [K, BN] comes once, by
+// TMA, as 64-column boxes in the 128-byte swizzle (the MN-major B
+// operand), and its bias once, by a bulk copy on the same barrier, into
+// float32 registers. One thread keeps a ring of `stages` X row tiles
+// [64, K] in flight on mbarriers, as K-major A: K a multiple of 64 as
+// 64-column boxes in the 128-byte swizzle; other multiples of 16 (K = 16
+// on the path, 48) as 16-column boxes in the 32-byte swizzle, since TMA
+// fetches 8-column boxes 16 bytes a row; the rest as 8-column boxes in the
+// no-swizzle layout, with a zero chunk for the odd 8. The warpgroup runs
+// wgmma m64 n64 k16, K / 16 steps, no zero-padded steps at K = 16 or 64.
+// The epilogue adds the bias in float32, rounds once, and writes bf16
+// pairs into one of two staging tiles in the 128-byte swizzle (bank-
+// conflict free), which one thread stores with TMA as 64 x 64 boxes; TMA
+// clips the ragged row tile and the columns past M. The store of tile i
+// runs while tile i + 1 is waited for, multiplied and staged; the staging
+// tile is written again only once its store of two tiles back has been
+// read (bulk wait_group.read 1).
+namespace ek {
+
+constexpr int BM = 64;           // rows per tile (wgmma m64, one warpgroup)
+// Columns per tile. The loops below take any multiple of 64:
+// tools/embed_ablation.py builds copies at 128 and 192, which were slower
+// at both path shapes.
+constexpr int BN = 64;
+constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (227 KB)
+
+// Shared-memory geometry from (K, stages): the only count of it.
+struct Geo {
+  int kp;          // K rounded up to the 16-deep wgmma step
+  int wbox_rows;   // rows of one W box: min(64, kp)
+  int wrows;       // W rows held per 64-column group: whole boxes covering kp
+  int w_bytes;     // W slice
+  int x_bytes;     // one X stage
+  int o_bytes;     // one staging tile
+  int smem;        // all of it, the bias, the barriers and the alignment slack
+};
+
+__host__ __device__ inline Geo geo(int K, int stages) {
+  Geo g;
+  g.kp = (K + 15) / 16 * 16;
+  g.wbox_rows = g.kp < 64 ? g.kp : 64;
+  g.wrows = (g.kp + g.wbox_rows - 1) / g.wbox_rows * g.wbox_rows;
+  g.w_bytes = (BN / 64) * g.wrows * 128;
+  g.x_bytes = BM * g.kp * 2;
+  g.o_bytes = (BN / 64) * BM * 128;
+  g.smem = g.w_bytes + stages * g.x_bytes + 2 * g.o_bytes + BN * 2 + (stages + 1) * 8 + 1024;
+  return g;
+}
+
+// X layouts: 64-column boxes in the 128-byte swizzle (K a multiple of
+// 64), 16-column boxes in the 32-byte swizzle (K a multiple of 16), else
+// 8-column boxes with no swizzle.
+enum XLayout { X_NOSW = 0, X_SW32 = 1, X_SW128 = 2 };
+__host__ __device__ constexpr int x_box_cols(int xl) { return xl == X_SW128 ? 64 : xl == X_SW32 ? 16 : 8; }
+inline int x_layout(int K) { return K % 64 == 0 ? X_SW128 : K % 16 == 0 ? X_SW32 : X_NOSW; }
+
+template <int XL>
+__global__ void __launch_bounds__(128)
+    embed_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tw,
+                       const __grid_constant__ CUtensorMap to, const bf16* __restrict__ bias,
+                       int N, int K, int M, int stages) {
+  constexpr int NG = BN / 64;   // 64-column groups of the tile
+  const Geo G = geo(K, stages);
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sW = base;                        // [NG][wrows][128 swizzled]
+  unsigned char* sX = sW + G.w_bytes;              // a stage: [K/64][64][128], [K/16][64][32] or [kp/8][64][16]
+  unsigned char* sO = sX + stages * G.x_bytes;     // [2][NG][64][128 swizzled]
+  bf16* sB = reinterpret_cast<bf16*>(sO + 2 * G.o_bytes);     // [BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + BN);
+  uint64_t* wbar = full + stages;
+
+  const int tid = threadIdx.x;
+  const int n_ct = (M + BN - 1) / BN, n_rt = (N + BM - 1) / BM;
+  const int groups = gridDim.x / n_ct;
+  const int rg = blockIdx.x / n_ct;
+  const int m0 = (blockIdx.x % n_ct) * BN;
+  const int ntile = rg < n_rt ? (n_rt - rg + groups - 1) / groups : 0;
+  // 64-column groups that start inside M: only these are loaded and stored
+  const int mgroups = min(NG, (M - m0 + 63) / 64);
+  constexpr int XBOX = x_box_cols(XL);   // columns of an X box
+  const int xboxes = K / XBOX;   // copied per tile
+
+  // a 16-deep step's second chunk past K (K an odd number of 8s) stays zero
+  if (XL == X_NOSW && K % 16)
+    for (int e = tid; e < stages * BM; e += 128)
+      reinterpret_cast<uint4*>(sX + (e / BM) * G.x_bytes + xboxes * BM * 16)[e % BM] =
+          make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(wbar, 1);
+    hopper::mbar_fence_init();
+  }
+  hopper::fence_async_shared();
+  __syncthreads();
+
+  // the CTA's i-th row tile into stage i % stages
+  auto load_x = [&](int i) {
+    const int s = i % stages, n0 = (rg + i * groups) * BM;
+    unsigned char* dst = sX + s * G.x_bytes;
+    hopper::mbar_expect_tx(&full[s], xboxes * BM * XBOX * 2);
+    for (int c = 0; c < xboxes; ++c)
+      hopper::tma_load_2d(dst + c * BM * XBOX * 2, &tx, &full[s], XBOX * c, n0);
+  };
+  if (tid == 0 && ntile > 0) {
+    // W rows past K arrive as zeros (the box reaches past the matrix);
+    // the bias of the columns inside M comes on the same barrier
+    const int bcols = min(BN, M - m0);
+    hopper::mbar_expect_tx(wbar, mgroups * G.wrows * 128 + bcols * 2);
+    hopper::bulk_load(sB, bias + m0, bcols * 2, wbar);
+    for (int g = 0; g < mgroups; ++g)
+      for (int r = 0; r < G.wrows; r += G.wbox_rows)
+        hopper::tma_load_2d(sW + (g * G.wrows + r) * 128, &tw, wbar, m0 + 64 * g, r);
+    for (int i = 0; i < min(stages, ntile); ++i) load_x(i);
+  }
+  const int lane = tid % 32, warp = tid / 32;
+  const int g8 = lane >> 2, tg = lane & 3;
+  // the bias of this thread's columns 64 g + 8 j + 2 tg + e, in float32
+  // registers (columns past M: never stored)
+  float bv[NG * 16];
+  float acc[BN / 2];
+  const int ksteps = G.kp / 16;
+  if (ntile > 0) hopper::mbar_wait(wbar, 0);
+#pragma unroll
+  for (int c = 0; c < NG * 8; ++c) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sB[8 * c + 2 * tg]));
+    bv[2 * c] = v.x;
+    bv[2 * c + 1] = v.y;
+  }
+
+  for (int i = 0; i < ntile; ++i) {
+    const int s = i % stages;
+    const int n0 = (rg + i * groups) * BM;
+    const unsigned char* xs = sX + s * G.x_bytes;
+    hopper::mbar_wait(&full[s], (i / stages) & 1);
+    // products
+    hopper::wgmma_fence();
+    for (int t = 0; t < ksteps; ++t) {
+      const uint64_t dx = XL == X_SW128  ? hopper::desc_sw128(xs + (t / 4) * BM * 128 + (t % 4) * 32)
+                          : XL == X_SW32 ? hopper::desc_sw32(xs + t * BM * 32)
+                                         : hopper::desc(xs + 2 * t * BM * 16, BM * 16, 128);
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        hopper::Wgmma<64>::template ss<1>(
+            acc + 32 * g, dx, hopper::desc_sw128(sW + (g * G.wrows + 16 * t) * 128), t > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+    hopper::fence_regs<BN / 2>(acc);
+    // release: stage s is read, and the store of two tiles back has read
+    // the staging tile this one writes
+    if (tid == 0) hopper::bulk_wait_read<1>();
+    __syncthreads();
+    if (tid == 0 && i + stages < ntile) load_x(i + stages);
+    // epilogue: bias in float32, one rounding, into the swizzled staging
+    // tile (row r's 16-byte chunk j lands at chunk j ^ (r % 8) = j ^ g8)
+    unsigned char* so = sO + (i & 1) * G.o_bytes;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = warp * 16 + g8 + 8 * hh;
+          *reinterpret_cast<__nv_bfloat162*>(so + g * BM * 128 + r * 128 + (j ^ g8) * 16 +
+                                             tg * 4) =
+              __floats2bfloat162_rn(acc[32 * g + 4 * j + 2 * hh] + bv[16 * g + 2 * j],
+                                    acc[32 * g + 4 * j + 2 * hh + 1] + bv[16 * g + 2 * j + 1]);
+        }
+    hopper::fence_async_shared();
+    __syncthreads();
+    // store
+    if (tid == 0) {
+      for (int g = 0; g < mgroups; ++g) hopper::tma_store_2d(&to, so + g * BM * 128, m0 + 64 * g, n0);
+      hopper::bulk_commit();
+    }
+    // end of tile
+  }
+  if (tid == 0) hopper::bulk_wait<0>();   // the stores are done before the CTA exits
+}
+
+// CTAs of this kernel an SM of the current card holds at `smem` bytes.
+template <int XL>
+cudaError_t occupancy(int smem, int* per_sm) {
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      embed_wgmma_kernel<XL>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (configured != cudaSuccess) return configured;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, embed_wgmma_kernel<XL>, 128, smem);
+}
+
+// The launch for x [N, K] · w [K, M]: the deepest X ring of 4 or 2 tiles
+// that fits a CTA, and as many CTAs as the card's SMs hold at that shared
+// memory (its own occupancy query), at most one per tile, cut so that
+// every CTA of a column tile walks the same number of row tiles but the
+// last.
+struct Plan {
+  int xl, stages, smem, ctas;
+};
+
+cudaError_t plan(int N, int K, int M, Plan* p) {
+  if (N <= 0 || K <= 0 || M <= 0 || K % 8 || M % 8) return cudaErrorInvalidValue;
+  p->xl = x_layout(K);
+  p->stages = geo(K, 4).smem <= SMEM_LIMIT ? 4 : 2;
+  p->smem = geo(K, p->stages).smem;
+  if (p->smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = p->xl == X_SW128  ? occupancy<X_SW128>(p->smem, &per_sm)
+                    : p->xl == X_SW32 ? occupancy<X_SW32>(p->smem, &per_sm)
+                                      : occupancy<X_NOSW>(p->smem, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int n_rt = (N + BM - 1) / BM, n_ct = (M + BN - 1) / BN;
+  const int slots = sms * per_sm;
+  const int most = slots >= n_ct ? slots / n_ct : 1;   // row groups the slots hold
+  const int per_cta = (n_rt + most - 1) / most;
+  p->ctas = (n_rt + per_cta - 1) / per_cta * n_ct;
+  return cudaSuccess;
+}
+
+template <int XL>
+cudaError_t launch(const void* x, const void* w, const void* b, void* o, int N, int K, int M,
+                   const Plan& p, cudaStream_t stream) {
+  CUtensorMap tx, tw, to;
+  cudaError_t err = dk::matrix_map(&tx, x, N, K, x_box_cols(XL), BM);
+  if (err == cudaSuccess) err = dk::matrix_map(&tw, w, K, M, 64, geo(K, p.stages).wbox_rows);
+  if (err == cudaSuccess) err = dk::matrix_map(&to, o, N, M, 64, BM);
+  if (err != cudaSuccess) return err;
+  embed_wgmma_kernel<XL><<<p.ctas, 128, p.smem, stream>>>(tx, tw, to, static_cast<const bf16*>(b),
+                                                          N, K, M, p.stages);
+  return cudaGetLastError();
+}
+
+}  // namespace ek
 
 }  // namespace
 
@@ -531,4 +795,35 @@ extern "C" int patch_deembed_cluster_fwd(const void* x, const void* w, const voi
   if (col_tile == 32) return (int)dk::launch<32>(a, cluster, k_slice / 64, st);
   if (col_tile == 64) return (int)dk::launch<64>(a, cluster, k_slice / 64, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The plan the bf16 embed on the persistent TMA / wgmma kernel launches
+// with for x [N, K] · w [K, M] on the current card: its CTAs, X stages and
+// shared-memory bytes. Returns a cudaError_t (0 = the kernel takes these
+// sizes: K and M multiples of 8, the ring fits a CTA).
+extern "C" int patch_embed_wgmma_plan(int N, int K, int M, int* ctas, int* stages, int* smem) {
+  ek::Plan p;
+  const cudaError_t err = ek::plan(N, K, M, &p);
+  if (err != cudaSuccess) return (int)err;
+  *ctas = p.ctas;
+  *stages = p.stages;
+  *smem = p.smem;
+  return 0;
+}
+
+// The bf16 embed on the persistent TMA / wgmma kernel, with the plan of
+// `patch_embed_wgmma_plan`: K and M multiples of 8, 16-byte aligned x, w,
+// b and o. Returns a cudaError_t (0 = launched).
+extern "C" int patch_embed_wgmma_fwd(const void* x, const void* w, const void* b, void* o,
+                                     int N, int K, int M, void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(o) % 16)
+    return (int)cudaErrorInvalidValue;
+  ek::Plan p;
+  const cudaError_t err = ek::plan(N, K, M, &p);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.xl == ek::X_SW128) return (int)ek::launch<ek::X_SW128>(x, w, b, o, N, K, M, p, st);
+  if (p.xl == ek::X_SW32) return (int)ek::launch<ek::X_SW32>(x, w, b, o, N, K, M, p, st);
+  return (int)ek::launch<ek::X_NOSW>(x, w, b, o, N, K, M, p, st);
 }

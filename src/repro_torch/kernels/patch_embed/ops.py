@@ -6,10 +6,9 @@ Drop-in versions of ``repro_torch.core.patch.embed_tokens_flex`` /
 the weight before the kernel runs, so the kernel is patch-size-agnostic.
 
 On a CUDA tensor each launches its Hopper kernel (``patch_embed.py``) and
-counts the launch in ``.launches`` (the de-embed also under the variant the
-inputs select, in ``deembed_tokens_flex.launches_by_variant``); on a CPU
-tensor it runs the plain version (``ref.py``) and counts nothing. Any
-other device raises.
+counts the launch in ``.launches`` and under the variant the inputs select
+in ``.launches_by_variant``; on a CPU tensor it runs the plain version
+(``ref.py``) and counts nothing. Any other device raises.
 """
 from __future__ import annotations
 
@@ -20,7 +19,9 @@ import torch
 from repro_torch.core import patch as patch_mod
 from repro_torch.core import resize
 from repro_torch.kernels.patch_embed.patch_embed import (DEEMBED_VARIANTS,
+                                                         EMBED_VARIANTS,
                                                          deembed_variant_of,
+                                                         embed_variant_of,
                                                          patch_deembed_cuda,
                                                          patch_embed_cuda)
 from repro_torch.kernels.patch_embed.ref import (patch_deembed_ref,
@@ -48,8 +49,10 @@ def embed_tokens_flex(w_flex: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
             b.to(x.dtype))
     if _device_kind(x, "embed_tokens_flex") == "cpu":
         return patch_embed_ref(*args).reshape(B, N, d)
-    tok = patch_embed_cuda(*(t.contiguous() for t in args))
+    args = tuple(t.contiguous() for t in args)
+    tok = patch_embed_cuda(*args)
     embed_tokens_flex.launches += 1
+    embed_tokens_flex.launches_by_variant[embed_variant_of(*args)] += 1
     return tok.reshape(B, N, d)
 
 
@@ -83,6 +86,7 @@ def reset_launches() -> None:
     """Set every launch count of the two wrappers to 0."""
     embed_tokens_flex.launches = 0
     deembed_tokens_flex.launches = 0
+    embed_tokens_flex.launches_by_variant = dict.fromkeys(EMBED_VARIANTS, 0)
     deembed_tokens_flex.launches_by_variant = dict.fromkeys(DEEMBED_VARIANTS, 0)
 
 

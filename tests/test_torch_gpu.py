@@ -22,12 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import patch as patch_mod
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.attention.flash_attention import (flash_attention_cuda,
                                                           variant_of)
 from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.kernels.patch_embed import ops as pe_ops
-from repro_torch.kernels.patch_embed.patch_embed import (deembed_variant_of,
+from repro_torch.kernels.patch_embed.patch_embed import (SMEM_LIMIT,
+                                                         deembed_variant_of,
+                                                         embed_launch_plan,
+                                                         embed_plan,
+                                                         embed_variant_of,
                                                          patch_deembed_cuda,
                                                          patch_embed_cuda)
 from repro_torch.kernels.patch_embed.ref import (patch_deembed_ref,
@@ -243,6 +248,43 @@ def test_cluster_deembed_matches_plain_and_mma_on_card(cuda, case):
     assert torch.equal(got, again)   # fixed reduction order: run to run equal
 
 
+# the TMA/wgmma embed: the DiT-XL/2 path at B=8 (mode 0, mode 1), a ragged
+# N, K = 48 (the JAX package's case) and 128, M = 72 (not whole 64s), the
+# JAX package's bf16 case, K an odd number of 8s with M < 64, and shapes
+# whose CTAs walk several row tiles (the ring and the staging tiles wrap),
+# and the largest K the kernel takes (EMBED_MAX_K, on a 2-stage ring)
+WGMMA_EMBED_CASES = [(2048, 16, 1152), (512, 64, 1152), (2000, 16, 1152),
+                     (256, 48, 128), (512, 128, 1152), (256, 16, 72),
+                     (1024, 128, 512), (100, 24, 40), (16384, 16, 1152),
+                     (8192, 64, 1152), (4096, 256, 1152), (256, 544, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_EMBED_CASES,
+                         ids=[f"e{i}" for i in range(len(WGMMA_EMBED_CASES))])
+def test_wgmma_embed_matches_plain_and_mma_on_card(cuda, case):
+    N, K, M = case
+    gen = torch.Generator(device=cuda).manual_seed(N + K + M)
+    x, w, b = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+               for shape in ((N, K), (K, M), (M,)))
+    assert embed_variant_of(x, w, b) == "wgmma"
+    got = patch_embed_cuda(x, w, b)
+    prev = patch_embed_cuda(x, w, b, variant="mma")
+    again = patch_embed_cuda(x, w, b)
+    torch.cuda.synchronize()
+    tol = PE_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), patch_embed_ref(x, w, b).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), prev.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
+    ctas, stages, smem = embed_launch_plan(N, K, M)
+    tiles = embed_plan(N, K, M)
+    assert ctas % tiles.col_tiles == 0 and ctas <= tiles.tiles
+    assert smem <= SMEM_LIMIT and stages == (4 if K <= 320 else 2)   # 4 fit to K 320
+    if N >= 4096:   # each CTA walks several row tiles
+        assert ctas < tiles.tiles
+
+
 @pytest.mark.gpu
 def test_flexi_tokenizer_counts_launches_on_card(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -260,6 +302,24 @@ def test_flexi_tokenizer_counts_launches_on_card(cuda):
     torch.cuda.synchronize()
     assert pe_ops.embed_tokens_flex.launches == e0 + 2
     assert pe_ops.deembed_tokens_flex.launches == d0 + 2
+
+
+@pytest.mark.gpu
+def test_flexi_tokenizer_bf16_embeds_run_on_wgmma_on_card(cuda):
+    """Both patch sizes of a bf16 tokenizer go to the TMA/wgmma embed."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 1, 16, 16, 4), generator=gen, device=cuda).to(torch.bfloat16)
+    w_flex = torch.randn((16, 4, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn((64,), generator=gen, device=cuda).to(torch.bfloat16)
+    pe_ops.reset_launches()
+    for p in [(1, 2, 2), (1, 4, 4)]:
+        tok = pe_ops.embed_tokens_flex(w_flex, b, x, p, (1, 4, 4))
+        torch.cuda.synchronize()
+        want = patch_mod.embed_tokens_flex(w_flex, b, x, p, (1, 4, 4))
+        torch.testing.assert_close(tok.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert pe_ops.embed_tokens_flex.launches == 2
+    assert pe_ops.embed_tokens_flex.launches_by_variant == {"wgmma": 2, "mma": 0,
+                                                            "f32": 0}
 
 
 # the JAX package's SSD_CASES (B, S, H, P, N, chunk) and one mamba2-130m

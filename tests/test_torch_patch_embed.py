@@ -207,3 +207,80 @@ def test_split_k_order_matches_jax_deembed(case):
     assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# embed (N, K, M) -> (row tiles, column tiles): the DiT-XL/2 path at B=8
+# (mode 0, mode 1) and the JAX package's bf16 case
+EMBED_PLANS = {(2048, 16, 1152): (32, 18), (512, 64, 1152): (8, 18),
+               (1024, 128, 512): (16, 8)}
+# and shapes whose CTAs walk several row tiles, a ragged N, M = 72
+EMBED_SHAPES = list(EMBED_PLANS) + [(16384, 16, 1152), (8192, 64, 1152),
+                                    (4096, 256, 1152), (2000, 16, 1152),
+                                    (256, 48, 128), (256, 16, 72), (100, 24, 40)]
+
+
+@pytest.mark.parametrize("shape", EMBED_SHAPES,
+                         ids=[f"n{n}k{k}m{m}" for n, k, m in EMBED_SHAPES])
+def test_embed_tile_plan(shape):
+    """64 x 64 tiles that cover the output, no more than one tile past it
+    either way, and the path shapes' tile counts (576 and 144)."""
+    N, K, M = shape
+    plan = tpe.embed_plan(N, K, M)
+    assert plan is not None
+    assert (plan.row_tile, plan.col_tile) == (64, tpe.EMBED_COL_TILE) == (64, 64)
+    assert plan.row_tiles * 64 >= N > (plan.row_tiles - 1) * 64
+    assert plan.col_tiles * 64 >= M > (plan.col_tiles - 1) * 64
+    assert plan.tiles == plan.row_tiles * plan.col_tiles
+    if shape in EMBED_PLANS:
+        assert (plan.row_tiles, plan.col_tiles) == EMBED_PLANS[shape]
+    assert {(2048, 16, 1152): 576, (512, 64, 1152): 144}.get(shape, plan.tiles) \
+        == plan.tiles
+    assert tpe.select_embed_variant(torch.bfloat16, N, K, M, True) == "wgmma"
+
+
+def test_embed_plan_shared_memory_by_hand():
+    """EMBED_MAX_K is the largest K whose 2-stage ring fits 227 KB, as
+    ``ek::geo`` counts it: W in whole 64-row boxes of 128 B rows, two X
+    stages of 64 rows, two 64 x 64 staging tiles, 64 bf16 biases, three
+    barriers, 1 KB alignment slack. K = 544 (34 steps of 16, W 576 rows)
+    fits; K = 552 (35 steps) does not."""
+    def two_stage_bytes(K):
+        kp = -(-K // 16) * 16
+        return -(-kp // 64) * 64 * 128 + 2 * 64 * kp * 2 + 2 * 64 * 128 + 128 + 24 + 1024
+    assert two_stage_bytes(544) == 73728 + 139264 + 16384 + 1176 <= tpe.SMEM_LIMIT
+    assert two_stage_bytes(552) > tpe.SMEM_LIMIT
+    assert tpe.EMBED_MAX_K == 544
+    assert tpe.embed_plan(100, 544, 64) is not None
+    assert tpe.embed_plan(100, 552, 64) is None
+
+
+@pytest.mark.parametrize("case", [
+    (torch.float32, 2048, 16, 1152, True, "f32"),
+    (torch.bfloat16, 2048, 16, 1152, False, "mma"),     # misaligned base
+    (torch.bfloat16, 2048, 20, 1152, True, "mma"),      # K not a multiple of 8
+    (torch.bfloat16, 2048, 16, 1150, True, "mma"),      # M not a multiple of 8
+    (torch.bfloat16, 64, 1024, 64, True, "mma"),        # plan exceeds shared memory
+    (torch.bfloat16, 512, 64, 1152, True, "wgmma"),
+], ids=["f32", "misaligned", "k20", "m1150", "k1024", "path"])
+def test_select_embed_variant(case):
+    dtype, N, K, M, aligned, want = case
+    assert tpe.select_embed_variant(dtype, N, K, M, aligned) == want
+    if K == 1024:
+        assert tpe.embed_plan(N, K, M) is None
+
+
+def test_embed_launches_by_variant_stay_zero_on_cpu_and_reset():
+    """CPU tensors run the plain version and count no variant;
+    reset_launches() sets every count back to 0."""
+    ops.reset_launches()
+    x = torch.zeros(1, 1, 8, 8, 4, dtype=torch.bfloat16)
+    w, b = torch.zeros(16, 4, 32), torch.zeros(32)
+    ops.embed_tokens_flex(w, b, x, (1, 2, 2), (1, 4, 4))
+    assert ops.embed_tokens_flex.launches_by_variant == {"wgmma": 0, "mma": 0,
+                                                         "f32": 0}
+    ops.embed_tokens_flex.launches_by_variant["wgmma"] = 3
+    ops.embed_tokens_flex.launches = 3
+    ops.reset_launches()
+    assert ops.embed_tokens_flex.launches == 0
+    assert set(ops.embed_tokens_flex.launches_by_variant.values()) == {0}
+    assert tuple(ops.embed_tokens_flex.launches_by_variant) == tpe.EMBED_VARIANTS
