@@ -9,8 +9,9 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 2. hold each kernel against its plain PyTorch version on the card, at
    the JAX package's kernel-test cases and at each path's shapes; the
    redesigned kernels (flash attention on TMA/wgmma, the split-K cluster
-   de-embed, the persistent TMA/wgmma embed) also against the previous
-   kernel of the same function, forced with ``variant=``;
+   de-embed, the persistent TMA/wgmma embed, the bf16 SSD on wgmma in
+   split-bf16 pieces) also against the previous kernel of the same
+   function, forced with ``variant=``;
 3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
    random trained-like weights from a seed) through
    ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
@@ -24,8 +25,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    de-embed on the cluster variant), held against ``core/patch.py``;
 5. run one Mamba2 layer at mamba2-130m width (d=768, 24 SSD heads x 64,
    state 128, chunk 128, bf16) through ``ssm_apply(use_kernel=True)``
-   (the SSD kernel) at B=4, S=2048 and S=2000, held against
-   ``use_kernel=False``;
+   (the SSD kernel; both calls on its wgmma variant) at B=4, S=2048 and
+   S=2000, held against ``use_kernel=False``;
 6. time each kernel, its plain version and the PyTorch library call at
    its path's shapes (CUDA graphs, CUDA events); the redesigned kernels
    in interleaved rounds with their previous kernel and the library call.
@@ -78,7 +79,8 @@ from repro_torch.kernels.patch_embed.ref import (  # noqa: E402
     patch_deembed_ref, patch_embed_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_chunked  # noqa: E402
-from repro_torch.kernels.ssd.ssd_chunk import ssd_chunk_cuda  # noqa: E402
+from repro_torch.kernels.ssd.ssd_chunk import (  # noqa: E402
+    ssd_chunk_cuda, ssd_variant_of)
 from repro_torch.kernels.timing import graph_ms, interleaved_ms  # noqa: E402
 from repro_torch.models import dit as dit_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -132,12 +134,19 @@ DEEMBED_EXTRA = [(2000, 1152, 32), (256, 1000, 64), (100, 72, 16)]
 EMBED_EXTRA = [(2000, 16, 1152), (256, 48, 128), (512, 128, 1152), (256, 16, 72),
                (100, 24, 40), (16384, 16, 1152), (8192, 64, 1152), (256, 544, 128)]
 # the redesigned kernels: their variant on the path, and the previous one
-REDESIGNED = {"patch_embed": ("wgmma", "mma"), "patch_deembed": ("cluster", "mma")}
+REDESIGNED = {"patch_embed": ("wgmma", "mma"), "patch_deembed": ("cluster", "mma"),
+              "ssd_chunk": ("wgmma", "simt")}
 # the JAX package's SSD_CASES (B, S, H, P, N, chunk) and one mamba2-130m
 # layer at B=4, S=2048
 SSD_CASES = [(2, 64, 4, 16, 8, 16), (1, 96, 2, 32, 16, 32),
              (2, 48, 3, 8, 8, 16), (1, 128, 4, 16, 32, 64)]
 SSD_PATH = (4, 2048, 24, 64, 128, 128)
+# the bf16 wgmma SSD beyond the path (B, S, H, P, N, chunk, dt scale):
+# chunk 64, P = 32, N = 64, H = 25 (a ragged last head group), B nc = 1,
+# and time steps 1.6x as large (|L| reaches ~440 within a chunk)
+SSD_WGMMA_EXTRA = [(2, 512, 8, 64, 128, 64, 1.0), (2, 512, 8, 32, 128, 128, 1.0),
+                   (2, 256, 4, 64, 64, 128, 1.0), (2, 512, 25, 64, 128, 128, 1.0),
+                   (1, 128, 4, 64, 128, 128, 1.0), (2, 1024, 8, 64, 128, 128, 1.6)]
 SSM_SEQS = (2048, 2000)             # the layer path: whole chunks, then padded
 
 
@@ -290,9 +299,9 @@ def phase_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> float
     return worst
 
 
-def ssd_inputs(gen: torch.Generator, B, S, H, P, N, dtype):
+def ssd_inputs(gen: torch.Generator, B, S, H, P, N, dtype, dt_scale=1.0):
     x = randn(gen, (B, S, H, P), dtype)
-    dt = F.softplus(randn(gen, (B, S, H)))
+    dt = F.softplus(randn(gen, (B, S, H))) * dt_scale
     A = -torch.exp(randn(gen, (H,)) * 0.5)
     return x, dt, A, randn(gen, (B, S, N)), randn(gen, (B, S, N))
 
@@ -307,9 +316,9 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
 def phase_new_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> dict:
     """The patch embed / de-embed and SSD kernels against their plain
     versions: the JAX package's cases, then each path's shapes; every bf16
-    case of the two redesigned kernels also against the previous kernel,
-    and equal bit for bit when repeated. The cluster de-embed's and then
-    the wgmma embed's extra shapes draw from ``gen_new``."""
+    case of the three redesigned kernels also against the previous kernel,
+    and equal bit for bit when repeated. The cluster de-embed's, the wgmma
+    embed's and then the wgmma SSD's extra shapes draw from ``gen_new``."""
     worst = {"patch_embed": 0.0, "patch_deembed": 0.0, "ssd_chunk": 0.0}
     kernels = {"patch_embed": (patch_embed_cuda, patch_embed_ref),
                "patch_deembed": (patch_deembed_cuda, patch_deembed_ref)}
@@ -347,17 +356,37 @@ def phase_new_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> d
             if not torch.equal(got, again):
                 raise AssertionError(f"{label}: two calls differ")
         worst[name] = max(worst[name], check(label, got, plain(x, w, b), PE_TOL[dt]))
-    for case, dt in ([(c, torch.float32) for c in SSD_CASES]
-                     + [(SSD_PATH, torch.float32), (SSD_PATH, torch.bfloat16)]):
-        B, S, H, P, N, Q = case
-        x, dts, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dt)
+    ssd_cases = ([(c + (1.0,), torch.float32, gen) for c in SSD_CASES]
+                 + [(SSD_PATH + (1.0,), torch.float32, gen),
+                    (SSD_PATH + (1.0,), torch.bfloat16, gen)]
+                 + [(c, torch.bfloat16, gen_new) for c in SSD_WGMMA_EXTRA])
+    for case, dt, g in ssd_cases:
+        B, S, H, P, N, Q, scale = case
+        x, dts, A, Bm, Cm = ssd_inputs(g, B, S, H, P, N, dt, scale)
         got = ssd_chunk_cuda(x, dts, A, Bm, Cm, Q)
         torch.cuda.synchronize()
         want = ssd_chunk_ref(x, dts, A, Bm, Cm, Q)
-        label = f"ssd_chunk B{B} S{S} H{H} P{P} N{N} Q{Q} {str(dt)[6:]}"
-        errs = [check(f"{label} y", got[0], want[0], SSD_TOL[dt])]
-        errs += [check(f"{label} {part}", g, w, SSD_TOL[torch.float32])
+        label = (f"ssd_chunk B{B} S{S} H{H} P{P} N{N} Q{Q} {str(dt)[6:]}"
+                 f"{f' dt x{scale} (max|Ltot| {want[2].abs().max().item():.1f})' if scale != 1 else ''}")
+        variant = ssd_variant_of(x, Bm, Cm, Q)
+        if dt == torch.bfloat16:
+            new, old = REDESIGNED["ssd_chunk"]
+            if variant != new:
+                raise AssertionError(f"{label}: selects {variant}, not {new}")
+            prev = ssd_chunk_cuda(x, dts, A, Bm, Cm, Q, variant=old)
+            again = ssd_chunk_cuda(x, dts, A, Bm, Cm, Q)
+            torch.cuda.synchronize()
+            for part, gp, pp, tol in zip(("y", "Sc", "Ltot"), got, prev,
+                                         (SSD_TOL[dt],) + (SSD_TOL[torch.float32],) * 2):
+                check(f"{label} {part} ({new}) vs {old} kernel", gp, pp, tol)
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"{label}: two calls differ")
+        errs = [check(f"{label} y ({variant})", got[0], want[0], SSD_TOL[dt])]
+        errs += [check(f"{label} {part} ({variant})", g, w, SSD_TOL[torch.float32])
                  for part, g, w in zip(("Sc", "Ltot"), got[1:], want[1:])]
+        if case[:6] == SSD_PATH:
+            log(f"[kernel] ssd_chunk path shape {str(dt)[6:]} ({variant}): max|err| y "
+                f"{errs[0]:.3e}, Sc {errs[1]:.3e}, Ltot {errs[2]:.3e}")
         worst["ssd_chunk"] = max([worst["ssd_chunk"]] + errs)
     # S not a multiple of the chunk, with a carried state: ops.ssd pads
     B, S, H, P, N, Q = 2, 200, 4, 64, 128, 128
@@ -536,7 +565,8 @@ def phase_tokenizer(gen: torch.Generator, pipe: FlexiPipeline) -> dict:
     if any(n != len(patches) for n in launches.values()):
         raise AssertionError(f"tokenizer launches {launches}, expected "
                              f"{len(patches)} each (one per patch size)")
-    for name, (new, _) in REDESIGNED.items():
+    for name in launches:
+        new = REDESIGNED[name][0]
         if by_variant[name][new] != len(patches):
             raise AssertionError(f"{name} launches by variant {by_variant[name]}: "
                                  f"not all {len(patches)} on the {new} kernel")
@@ -564,7 +594,7 @@ def phase_mamba_layer(gen: torch.Generator) -> dict:
         f"{P}, state {scfg.state_dim}, chunk {scfg.chunk_size}, bf16")
     B = 4
     inputs = {S: randn(gen, (B, S, d), torch.bfloat16) for S in SSM_SEQS}
-    ssd_ops.ssd.launches = 0
+    ssd_ops.reset_launches()
     outs = {}
     for S, u in inputs.items():
         t0 = time.perf_counter()
@@ -573,6 +603,7 @@ def phase_mamba_layer(gen: torch.Generator) -> dict:
         log(f"[mamba] B{B} S{S}: ssm_apply(use_kernel=True) in "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call of the shape)")
     launches = ssd_ops.ssd.launches
+    by_variant = dict(ssd_ops.ssd.launches_by_variant)
     for S, u in inputs.items():
         out, state = outs[S]
         ref, ref_state = ssm_mod.ssm_apply(params, u, scfg, d, use_kernel=False)
@@ -585,7 +616,12 @@ def phase_mamba_layer(gen: torch.Generator) -> dict:
     if launches != len(SSM_SEQS):
         raise AssertionError(f"ssd launched {launches} times, expected "
                              f"{len(SSM_SEQS)} (one per layer call)")
-    log(f"[mamba] ssd launches {launches} == {len(SSM_SEQS)} layer calls")
+    new, old = REDESIGNED["ssd_chunk"]
+    if by_variant != {new: len(SSM_SEQS), old: 0}:
+        raise AssertionError(f"ssd launches by variant {by_variant}: not all "
+                             f"{len(SSM_SEQS)} on the {new} kernel")
+    log(f"[mamba] ssd launches {launches} == {len(SSM_SEQS)} layer calls, "
+        f"by variant {by_variant}")
     return {"ssd_chunk": launches}
 
 
@@ -671,9 +707,18 @@ def phase_new_timing(gen: torch.Generator) -> dict:
                                       library_ms=lib, bound_ms=bound, bound_by=by))
     B, S, H, P, N, Q = SSD_PATH
     nc = S // Q
+    new, old = REDESIGNED["ssd_chunk"]
     for dt in (torch.bfloat16, torch.float32):
         x, dts, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dt)
-        ms = graph_ms(lambda: ssd_chunk_cuda(x, dts, A, Bm, Cm, Q))
+        variant = ssd_variant_of(x, Bm, Cm, Q)
+        if dt == torch.bfloat16:   # the redesigned kernel: interleaved with the previous one
+            t = interleaved_ms({
+                new: lambda: ssd_chunk_cuda(x, dts, A, Bm, Cm, Q, variant=new),
+                old: lambda: ssd_chunk_cuda(x, dts, A, Bm, Cm, Q, variant=old)})
+            ms, prev, rounds = t[new]["ms"], t[old]["ms"], f"{turns_line(t)}"
+        else:
+            ms = graph_ms(lambda: ssd_chunk_cuda(x, dts, A, Bm, Cm, Q))
+            prev, rounds = None, f"{variant} {ms:.4f} ms"
         plain_ms = graph_ms(lambda: ssd_chunk_ref(x, dts, A, Bm, Cm, Q), calls=3,
                             replays=3)
         isz = x.element_size()
@@ -682,13 +727,18 @@ def phase_new_timing(gen: torch.Generator) -> dict:
         # multiply-adds the function needs: C.B and M.x over k <= q only
         tri = Q * (Q + 1) // 2
         flops = 2 * B * nc * (tri * N + H * tri * P + H * Q * P * N)
-        bound, by = bound_ms(nbytes, flops, F32_FLOPS)
+        # float32-level accuracy on the tensor cores: three bf16 passes
+        bound, by = bound_ms(nbytes, 3 * flops, BF16_FLOPS)
+        f32_core_ms = flops / F32_FLOPS * 1e3
         log(f"[time] ssd_chunk B{B} S{S} H{H} P{P} N{N} Q{Q} x {str(dt)[6:]}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at the f32 "
-            f"CUDA-core peak); {bound / ms:.1%} of the bound")
-        out.setdefault("ssd_chunk", dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                         bound_ms=bound, bound_by=by))
+            f"{rounds}; plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.3f} GFLOP take "
+            f"{3 * flops / BF16_FLOPS * 1e3:.4f} ms as three bf16 passes, "
+            f"{f32_core_ms:.4f} ms on the f32 CUDA cores); {bound / ms:.1%} of "
+            f"the bound" + (f", {prev / ms:.2f}x the {old} kernel's speed"
+                            if prev else ""))
+        out.setdefault("ssd_chunk", dict(ms=ms, prev_ms=prev, plain_ms=plain_ms,
+                                         library_ms=None, bound_ms=bound, bound_by=by))
     return out
 
 

@@ -13,6 +13,10 @@
 //     1024 (next 8 rows); the k-th 16-column step starts 32 * k bytes in.
 //     MN-major operand (rows = K, columns = N): stride byte offset 1024
 //     (next 8 rows of K); the 16-row k step starts 2048 * k bytes in.
+//   * 64-byte swizzle (SW64), MN-major: a box of 32 columns x R rows, 64
+//     bytes a row, as CU_TENSOR_MAP_SWIZZLE_64B writes it at a 1024-byte
+//     aligned address; stride byte offset 512 (next 8 rows of K), the
+//     16-row k step 1024 bytes in. For 32-wide N (the SSD's x at P = 32).
 //   * 32-byte swizzle (SW32), K-major only: a box of 16 columns (one
 //     16-deep k step) x R rows, 32 bytes a row, as TMA's
 //     CU_TENSOR_MAP_SWIZZLE_32B writes it at a 256-byte aligned address;
@@ -61,18 +65,20 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map, zero fill out of bounds, with the given swizzle.
-// dims innermost first; strides[i] is the byte stride of dims[i + 1].
-// Encoded maps are cached by (address, dims, strides, box, swizzle): a
-// call that sees the same tensor again (the usual case under PyTorch's
-// caching allocator) pays a table lookup instead of an encode.
+// A bf16 or float32 tensor map, zero fill out of bounds, with the given
+// swizzle. dims innermost first; strides[i] is the byte stride of
+// dims[i + 1]. Encoded maps are cached by (address, type, dims, strides,
+// box, swizzle): a call that sees the same tensor again (the usual case
+// under PyTorch's caching allocator) pays a table lookup instead of an
+// encode.
 struct MapKey {
   uint64_t addr;
-  int rank, swizzle;
+  int rank, swizzle, dtype;
   uint64_t dims[5], strides[4];
   uint32_t box[5];
   bool operator==(const MapKey& o) const {
-    if (addr != o.addr || rank != o.rank || swizzle != o.swizzle) return false;
+    if (addr != o.addr || rank != o.rank || swizzle != o.swizzle || dtype != o.dtype)
+      return false;
     for (int i = 0; i < rank; ++i)
       if (dims[i] != o.dims[i] || box[i] != o.box[i] || (i + 1 < rank && strides[i] != o.strides[i]))
         return false;
@@ -80,9 +86,9 @@ struct MapKey {
   }
 };
 
-inline cudaError_t bf16_map_swizzled(CUtensorMap* out, const void* addr, int rank,
-                                     const uint64_t* dims, const uint64_t* strides,
-                                     const uint32_t* box, CUtensorMapSwizzle swizzle) {
+inline cudaError_t typed_map(CUtensorMap* out, CUtensorMapDataType dtype, const void* addr,
+                             int rank, const uint64_t* dims, const uint64_t* strides,
+                             const uint32_t* box, CUtensorMapSwizzle swizzle) {
   constexpr int SLOTS = 256;
   static MapKey keys[SLOTS];
   static CUtensorMap maps[SLOTS];
@@ -92,7 +98,8 @@ inline cudaError_t bf16_map_swizzled(CUtensorMap* out, const void* addr, int ran
   key.addr = reinterpret_cast<uint64_t>(addr);
   key.rank = rank;
   key.swizzle = (int)swizzle;
-  uint64_t h = (key.addr + (uint64_t)swizzle) * 0x9E3779B97F4A7C15ull;
+  key.dtype = (int)dtype;
+  uint64_t h = (key.addr + (uint64_t)swizzle + 8 * (uint64_t)dtype) * 0x9E3779B97F4A7C15ull;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -108,7 +115,7 @@ inline cudaError_t bf16_map_swizzled(CUtensorMap* out, const void* addr, int ran
   EncodeTiledFn fn = encode_fn();
   if (!fn) return cudaErrorNotSupported;
   cuuint32_t estride[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = fn(out, dtype, (cuuint32_t)rank,
                         const_cast<void*>(addr), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), estride,
@@ -119,6 +126,19 @@ inline cudaError_t bf16_map_swizzled(CUtensorMap* out, const void* addr, int ran
   maps[slot] = *out;
   used[slot] = true;
   return cudaSuccess;
+}
+
+inline cudaError_t bf16_map_swizzled(CUtensorMap* out, const void* addr, int rank,
+                                     const uint64_t* dims, const uint64_t* strides,
+                                     const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return typed_map(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, addr, rank, dims, strides, box,
+                   swizzle);
+}
+inline cudaError_t f32_map_swizzled(CUtensorMap* out, const void* addr, int rank,
+                                    const uint64_t* dims, const uint64_t* strides,
+                                    const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return typed_map(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, addr, rank, dims, strides, box,
+                   swizzle);
 }
 
 // With no swizzle or the 128-byte swizzle.
@@ -257,6 +277,11 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t s
 // group an instruction reads).
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return desc(p, 16, 1024) | (1ull << 62);
+}
+// Descriptor of an MN-major operand in the 64-byte swizzle layout (8-row
+// groups of K 512 bytes apart; one 32-column group an instruction).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  return desc(p, 16, 512) | (2ull << 62);
 }
 // Descriptor of a K-major operand in the 32-byte swizzle layout (8-row
 // groups 256 bytes apart).

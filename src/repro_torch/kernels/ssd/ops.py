@@ -2,7 +2,8 @@
 ``repro_torch.models.ssm.ssd_chunked``.
 
 On a CUDA tensor the intra-chunk part launches the Hopper kernel
-(``ssd_chunk.py``) and counts the launch in ``ssd.launches``; on a CPU
+(``ssd_chunk.py``) and counts the launch in ``ssd.launches`` and under
+the variant the inputs select in ``ssd.launches_by_variant``; on a CPU
 tensor it runs the plain version (``ref.ssd_chunk_ref``) and counts
 nothing. Any other device raises. The inter-chunk recurrence and the
 carried-state term stay plain PyTorch, as they stay outside the kernel in
@@ -15,7 +16,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
-from repro_torch.kernels.ssd.ssd_chunk import ssd_chunk_cuda
+from repro_torch.kernels.ssd.ssd_chunk import (SSD_VARIANTS, ssd_chunk_cuda,
+                                               ssd_variant_of)
 from repro_torch.models.ssm import pad_to_chunks, ssd_inter_chunk
 
 
@@ -30,10 +32,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if x.device.type == "cpu":
         y_intra, Sc, Ltot = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
     elif x.device.type == "cuda":
-        y_intra, Sc, Ltot = ssd_chunk_cuda(
-            x.contiguous(), *(t.float().contiguous() for t in (dt, A, Bm, Cm)),
-            chunk)
+        args = (x.contiguous(),
+                *(t.float().contiguous() for t in (dt, A, Bm, Cm)))
+        y_intra, Sc, Ltot = ssd_chunk_cuda(*args, chunk)
         ssd.launches += 1
+        ssd.launches_by_variant[ssd_variant_of(args[0], args[3], args[4], chunk)] += 1
     else:
         raise ValueError(f"ssd runs on cuda or cpu tensors, got {x.device}")
     L = torch.cumsum((dt.float() * A.float()[None, None, :])
@@ -44,4 +47,10 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     return y[:, :S], h_final
 
 
-ssd.launches = 0
+def reset_launches() -> None:
+    """Set the launch count and the counts by variant to 0."""
+    ssd.launches = 0
+    ssd.launches_by_variant = dict.fromkeys(SSD_VARIANTS, 0)
+
+
+reset_launches()

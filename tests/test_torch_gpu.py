@@ -16,7 +16,9 @@ another order; bf16 outputs differ by at most one rounding). SSD: f32
 log decay L of a 128-step chunk in another order than torch.cumsum, and
 |L| reaches ~150 here, where a float32 ulp is 1.5e-5; exp(L_q - L_k)
 turns a few ulps into ~1e-4 relative (seen: 2.7e-4 on 14 of 10^6
-elements of y). The JAX package holds its own SSD kernel at 2e-3.
+elements of y). The JAX package holds its own SSD kernel at 2e-3. The
+bf16 SSD's wgmma kernel is held at the same levels: its split-bf16
+pieces keep Sc at float32 level and y far under its own bf16 rounding.
 """
 import numpy as np
 import pytest
@@ -39,7 +41,7 @@ from repro_torch.kernels.patch_embed.ref import (patch_deembed_ref,
                                                  patch_embed_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_chunked
-from repro_torch.kernels.ssd.ssd_chunk import ssd_chunk_cuda
+from repro_torch.kernels.ssd.ssd_chunk import ssd_chunk_cuda, ssd_variant_of
 
 # the JAX package's ATTN_CASES (tests/test_kernels.py), a ragged hd-72
 # case, and the DiT-XL/2 main-path shapes (B = 2 x 4 rows under CFG)
@@ -330,13 +332,13 @@ SSD_CASES = [(2, 64, 4, 16, 8, 16), (1, 96, 2, 32, 16, 32),
 SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 
 
-def _ssd_inputs(device, B, S, H, P, N, dtype, seed):
+def _ssd_inputs(device, B, S, H, P, N, dtype, seed, dt_scale=1.0):
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device)
     x = rnd(B, S, H, P).to(getattr(torch, dtype))
-    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    dt = torch.nn.functional.softplus(rnd(B, S, H)) * dt_scale
     A = -torch.exp(rnd(H) * 0.5)
     return x, dt, A, rnd(B, S, N), rnd(B, S, N)
 
@@ -373,3 +375,69 @@ def test_ssd_ops_padded_with_state_on_card(cuda, S):
     tol = SSD_TOL["float32"]
     torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_ref, atol=tol, rtol=tol)
+
+
+# the bf16 wgmma kernel (B, S, H, P, N, chunk, dt scale): the path shape,
+# Q = 64, P = 32, N = 64, H = 25 (the last head group ragged), B nc = 1,
+# and dt 1.6x as large (|L| reaches ~440 within a chunk; on the card)
+WGMMA_SSD_CASES = [(4, 2048, 24, 64, 128, 128, 1.0), (2, 512, 8, 64, 128, 64, 1.0),
+                   (2, 512, 8, 32, 128, 128, 1.0), (2, 256, 4, 64, 64, 128, 1.0),
+                   (2, 512, 25, 64, 128, 128, 1.0), (1, 128, 4, 64, 128, 128, 1.0),
+                   (2, 1024, 8, 64, 128, 128, 1.6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_SSD_CASES,
+                         ids=[f"w{i}" for i in range(len(WGMMA_SSD_CASES))])
+def test_ssd_wgmma_matches_plain_and_simt_on_card(cuda, case):
+    """The wgmma kernel against its plain version and the forced simt
+    kernel, and equal bit for bit when repeated."""
+    B, S, H, P, N, chunk, dt_scale = case
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N, "bfloat16", S + H + P,
+                                   dt_scale)
+    assert ssd_variant_of(x, Bm, Cm, chunk) == "wgmma"
+    got = ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk)
+    again = ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk, variant="wgmma")
+    simt = ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk, variant="simt")
+    torch.cuda.synchronize()
+    want = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
+    if dt_scale > 1:
+        assert want[2].abs().max().item() > 140
+    for other in (want, simt):
+        torch.testing.assert_close(got[0].float(), other[0].float(),
+                                   atol=SSD_TOL["bfloat16"], rtol=SSD_TOL["bfloat16"])
+        for g, w in zip(got[1:], other[1:]):
+            torch.testing.assert_close(g, w, atol=SSD_TOL["float32"],
+                                       rtol=SSD_TOL["float32"])
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_ssd_wgmma_refuses_what_it_does_not_take_on_card(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 128, 2, 16, 128, "bfloat16", 0)
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        ssd_chunk_cuda(x, dt, A, Bm, Cm, 128, variant="wgmma")
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 128, 2, 64, 128, "float32", 0)
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        ssd_chunk_cuda(x, dt, A, Bm, Cm, 128, variant="wgmma")
+
+
+@pytest.mark.gpu
+def test_ssd_ops_bf16_padded_with_state_runs_on_wgmma_on_card(cuda):
+    """ops.ssd at S = 2000 (padded to whole chunks) with a carried state,
+    bf16 x: counted under the wgmma kernel, held against ssd_chunked. y is
+    the sum of two bf16-rounded parts (intra- and inter-chunk) that can
+    cancel, so it is held on its own scale: max|err| <= 2e-2 max|y|."""
+    B, S, H, P, N, chunk = 2, 2000, 4, 64, 128, 128
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N, "bfloat16", S)
+    h0 = torch.randn((B, H, P, N), device=cuda) * 0.1
+    ssd_ops.reset_launches()
+    y, h = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk, h0)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == 1
+    assert ssd_ops.ssd.launches_by_variant == {"wgmma": 1, "simt": 0}
+    y_ref, h_ref = ssd_chunked(x, dt, A, Bm, Cm, chunk, h0)
+    err = (y.float() - y_ref.float()).abs().max().item()
+    assert err <= SSD_TOL["bfloat16"] * y_ref.float().abs().max().item()
+    torch.testing.assert_close(h, h_ref, atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])

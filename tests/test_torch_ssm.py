@@ -12,6 +12,9 @@ and exp(L_q - L_k) passes that on (seen: 1.7e-5 on one element of 8192,
 chunk 64). 1e-4 where the chunked algorithm is held against the
 sequential recurrence (another algorithm: exp of a cumulative sum
 against a product of exps over up to 64 steps), port against port.
+The split-bf16 emulation of the ``"wgmma"`` kernel (bf16 x) is held
+against the JAX kernel at the card's SSD levels, 2e-2 for bf16 y (one
+rounding) and 1e-3 for Sc and Ltot, and its float32 parts also at 5e-5.
 """
 import dataclasses
 
@@ -31,11 +34,16 @@ from repro_torch import configs as tcfgs
 from repro_torch import convert
 from repro_torch.kernels.ssd import ops
 from repro_torch.kernels.ssd import ref
+from repro_torch.kernels.ssd.ssd_chunk import select_ssd_variant, ssd_variant_of
 from repro_torch.models import common as tcommon
 from repro_torch.models import ssm as tssm
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SSD_TOL = dict(atol=5e-5, rtol=5e-5)
+CARD_SSD_TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
+                "float32": dict(atol=1e-3, rtol=1e-3)}
+# one mamba2-130m layer at B=4, S=2048 (B, S, H, P, N, chunk)
+SSD_PATH = (4, 2048, 24, 64, 128, 128)
 
 # the JAX package's SSD_CASES (B, S, H, P, N, chunk), plus a padded one
 SSD_CASES = [(2, 64, 4, 16, 8, 16), (1, 96, 2, 32, 16, 32),
@@ -167,11 +175,105 @@ def test_ssd_recurrent_step_matches_jax():
 
 def test_ssd_ops_counts_nothing_on_cpu_and_rejects_devices():
     x, dt, A, Bm, Cm, _ = _ssd_inputs(SSD_CASES[0])
-    before = ops.ssd.launches
+    ops.reset_launches()
     ops.ssd(*_t(x, dt, A, Bm, Cm), 16)
-    assert ops.ssd.launches == before
+    ops.ssd(torch.from_numpy(x).bfloat16(), *_t(dt, A, Bm, Cm), 16)
+    assert ops.ssd.launches == 0
+    assert ops.ssd.launches_by_variant == {"wgmma": 0, "simt": 0}
+    ops.ssd.launches, ops.ssd.launches_by_variant["wgmma"] = 3, 2
+    ops.reset_launches()
+    assert ops.ssd.launches == 0
+    assert ops.ssd.launches_by_variant == {"wgmma": 0, "simt": 0}
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.ssd(*(t.to("meta") for t in _t(x, dt, A, Bm, Cm)), 16)
+
+
+# ---------------------------------------------------------------------------
+# The wgmma kernel's selection and its split-bf16 arithmetic
+
+
+@pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+def test_ssd_variant_at_the_path_shape(dtype, want):
+    B, S, H, P, N, chunk = SSD_PATH
+    assert select_ssd_variant(dtype, S, H, P, N, chunk, True) == want
+    x = torch.zeros((B, 256, H, P), dtype=dtype)
+    Bm = torch.zeros((B, 256, N))
+    assert ssd_variant_of(x, Bm, Bm.clone(), chunk) == want
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=[f"s{i}" for i in range(len(SSD_CASES))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_variant_at_the_jax_cases_is_simt(case, dtype):
+    """The JAX package's SSD_CASES are narrower than the wgmma tiles
+    (P <= 32 with N <= 32, chunks of 16 to 64)."""
+    B, S, H, P, N, chunk = case
+    assert select_ssd_variant(dtype, S, H, P, N, chunk, True) == "simt"
+
+
+@pytest.mark.parametrize("change, want", [
+    ({}, "wgmma"),
+    (dict(chunk=64), "wgmma"),
+    (dict(P=32), "wgmma"),
+    (dict(N=64), "wgmma"),
+    (dict(H=25), "wgmma"),
+    (dict(aligned=False), "simt"),
+    (dict(P=16), "simt"),
+    (dict(N=8), "simt"),
+    (dict(chunk=32), "simt"),
+    (dict(P=128), "simt"),
+    (dict(N=96), "simt"),
+    (dict(S=2000), "simt"),
+])
+def test_select_ssd_variant_bounds(change, want):
+    B, S, H, P, N, chunk = SSD_PATH
+    kw = dict(dtype=torch.bfloat16, S=S, H=H, P=P, N=N, chunk=chunk, aligned=True)
+    kw.update(change)
+    assert select_ssd_variant(**kw) == want
+
+
+def test_ssd_variant_of_sees_a_misaligned_base():
+    B, S, H, P, N, chunk = 1, 128, 2, 64, 128, 128
+    x = torch.zeros((B, S, H, P), dtype=torch.bfloat16)
+    Bm = torch.zeros((B, S, N))
+    Cm = torch.zeros(B * S * N + 1)[1:].reshape(B, S, N)   # 4 bytes past an aligned base
+    assert ssd_variant_of(x, Bm, Bm.clone(), chunk) == "wgmma"
+    assert ssd_variant_of(x, Bm, Cm, chunk) == "simt"
+
+
+@pytest.mark.parametrize("pieces, bits", [(2, 16), (3, 24)])
+def test_split_bf16_reconstructs_float32(pieces, bits):
+    rng = np.random.default_rng(pieces)
+    v = torch.from_numpy((rng.standard_normal(4096)
+                          * np.exp(rng.uniform(-20, 20, 4096))).astype(np.float32))
+    parts = ref.split_bf16(v, pieces)
+    assert len(parts) == pieces and all(p.dtype == torch.bfloat16 for p in parts)
+    back = sum(p.float() for p in parts)
+    # at most half a unit in the last of `bits` significant bits, so
+    # 2^-bits relative (3 pieces reach float32's own 2^-24: a few ulps)
+    err = (back - v).abs() / v.abs()
+    assert err.max().item() <= 2.0 ** -bits
+    if pieces == 3:
+        assert (back - v).abs().max().item() <= 4 * 2.0 ** -24 * v.abs().max().item()
+
+
+@pytest.mark.parametrize("case", SSD_CASES[:4], ids=[f"s{i}" for i in range(4)])
+def test_split_ssd_chunk_matches_jax_kernel_in_bf16(case):
+    """The wgmma kernel's arithmetic (M in 2 bf16 pieces, B^T w in 3,
+    bf16 x) against ssd_chunk_pallas (interpret) with the same bf16 x."""
+    chunk = case[-1]
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(case)
+    xb = torch.from_numpy(x).bfloat16()
+    want = ssd_chunk_pallas(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+                            *_j(dt, A, Bm, Cm), chunk=chunk, interpret=True)
+    got = ref.ssd_chunk_split_ref(xb, *_t(dt, A, Bm, Cm), chunk)
+    assert got[0].dtype == torch.bfloat16
+    for g, w, kind in zip(got, want, ("bfloat16", "float32", "float32")):
+        assert tuple(g.shape) == tuple(w.shape)
+        _close(g.float().numpy(), np.asarray(w, dtype=np.float32), **CARD_SSD_TOL[kind])
+    # Sc (3 pieces) and Ltot stay at the float32 level of the plain version
+    for g, w in zip(got[1:], want[1:]):
+        _close(g.numpy(), w, **SSD_TOL)
 
 
 # ---------------------------------------------------------------------------
