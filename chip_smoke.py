@@ -29,7 +29,25 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    S=2000, held against ``use_kernel=False``;
 6. time each kernel, its plain version and the PyTorch library call at
    its path's shapes (CUDA graphs, CUDA events); the redesigned kernels
-   in interleaved rounds with their previous kernel and the library call.
+   in interleaved rounds with their previous kernel and the library call;
+7. serve the same DiT-XL/2 weights through the port's ``ServingEngine``
+   (the packed mixed-mode path: requests at different budgets, modes and
+   denoise steps share rows of 256 tokens, segment ids keep them apart,
+   every block's attention on the flash kernel with the tile map derived
+   from the ids): first the flash kernel alone at a served layout (ids
+   from the engine's row planner, padding tail included) against its
+   plain version; then a wave of 12 requests with 3 joining after two
+   engine steps, and the same wave again. Checks every flash launch is on
+   the TMA/wgmma variant and their count is 28 x the packed forwards, the
+   replay builds nothing, each x0 holds against ``FlexiPipeline.sample``
+   for the same request (and the same check fails every request with
+   weak steps when the segment ids are planted to 0), activation-cache
+   serving at ``interval=1`` equals uncached serving bit for bit,
+   ``interval=2`` releases every cache slot, a short DDPM wave finishes
+   finite, and ``python -m repro_torch.launch.serve --arch dit-xl-2``
+   runs in-process, with ``--smoke`` and at full width. Prints served
+   img/s, latency p50/p99, packing efficiency, the attention block skip
+   rate and the cache hit rate beside the card's name and power limit.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -86,6 +104,7 @@ from repro_torch.models import dit as dit_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.common import init_tree  # noqa: E402
 from repro_torch.pipeline import FlexiPipeline, SamplingPlan  # noqa: E402
+from repro_torch.serving import CacheSpec, ServingEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -148,6 +167,25 @@ SSD_WGMMA_EXTRA = [(2, 512, 8, 64, 128, 64, 1.0), (2, 512, 8, 32, 128, 128, 1.0)
                    (2, 256, 4, 64, 64, 128, 1.0), (2, 512, 25, 64, 128, 128, 1.0),
                    (1, 128, 4, 64, 128, 128, 1.0), (2, 1024, 8, 64, 128, 128, 1.6)]
 SSM_SEQS = (2048, 2000)             # the layer path: whole chunks, then padded
+# the serving phase: a wave of 12 requests over the budget menu, 3 more
+# joining after two engine steps; steps_per_dispatch 8, the default
+# max_tokens_per_step (4 CFG pairs of 256 tokens = 2048 tokens a step)
+SERVE_WAVE, SERVE_JOIN, SERVE_K = 12, 3, 8
+# x0 of a packed request against the same request sampled alone: both run
+# the bf16 flash kernel, on other GEMM shapes and other tile groupings
+# (four 64-token segments share a 128-row tile), and DDIM amplifies each
+# rounding (PERF.md §7); held as ||x0 - ref|| / ||ref|| per request, a
+# ratio that a few large entries do not set. The phase also serves the
+# wave with every segment id planted to 0 (a wrong packing) and fails
+# unless every request with weak steps then reads over the limit. On an
+# H100 80GB HBM3 (700 W) sound requests read at most 1.1e-3 and the
+# planted fault 9.2e-3 to 1.6e-2 (PERF.md §6): the limit sits between.
+SERVE_X0_TOL = 3e-3
+# a served layout for the kernel check at the engine's shapes: 6 mode-0
+# and 7 mode-1 requests, CFG-doubled, first-fit into rows of 256 tokens:
+# 12 full mode-0 rows, 3 rows of four 64-token segments, and one row of
+# two segments and a 128-token padding tail (16 rows)
+SERVED_GROUPS = ((256, 12), (64, 14))
 
 
 def log(msg: str) -> None:
@@ -742,6 +780,242 @@ def phase_new_timing(gen: torch.Generator) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the serving engine
+
+
+def serve_wave(engine: ServingEngine, wave) -> list:
+    """Submit the wave's first SERVE_WAVE requests, step twice, join the
+    rest, drain. ``wave``: [(label, budget)]."""
+    out = []
+    for label, b in wave[:SERVE_WAVE]:
+        engine.submit(cond=label, budget=b)
+    for _ in range(2):
+        out += engine.step()
+    for label, b in wave[SERVE_WAVE:]:
+        engine.submit(cond=label, budget=b)
+    return out + engine.run()
+
+
+def phase_served_attention(cfg) -> float:
+    """The flash kernel at a served layout's shapes: segment ids from the
+    engine's own row planner (``core/packing._pack_plan``), the tile map
+    derived from them by ``kernels/attention/ops.kernel_kwargs``, held
+    against the plain version; padding rows must come out exactly 0."""
+    from repro_torch.core import packing
+    plan = packing._pack_plan(SERVED_GROUPS, 256)
+    ids = torch.from_numpy(plan.segment_ids).to(DEV)
+    B, S = ids.shape
+    H = cfg.attn.num_heads
+    hd = cfg.d_model // H
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=False, segment_ids=ids)
+    torch.cuda.synchronize()
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    want = flash_attention_ref(q, k, v, causal=False, segment_ids=ids)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[torch.bfloat16]
+    name = (f"served layout B{B} S{S} H{H} hd{hd}, {plan.n_seg} segments "
+            f"({SERVED_GROUPS}), {int((ids < 0).sum())} padding tokens")
+    log(f"[engine] flash_attention {name}: max|err|={err:.3e} (tol {tol}), "
+        f"launches by variant {by_variant}")
+    if by_variant["wgmma"] != 1 or ops.flash_attention.launches != 1:
+        raise AssertionError(f"{name}: launches {by_variant}, not one wgmma")
+    if not err <= tol:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version on {name}: {err} > {tol}")
+    if not torch.all(got[ids < 0] == 0):
+        raise AssertionError(f"{name}: padding rows must return exactly 0")
+    return err
+
+
+def x0_errors(results, refs) -> dict:
+    """||x0 - ref|| / ||ref|| of each served request."""
+    return {r.request.id: ((r.x0.float() - refs[r.request.id]).norm()
+                           / refs[r.request.id].norm()).item()
+            for r in results}
+
+
+def phase_serving(pipe: FlexiPipeline, smi: str) -> dict:
+    cfg = pipe.cfg
+    L = cfg.num_layers
+    served_err = phase_served_attention(cfg)
+    plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
+             for b in BUDGETS}
+    rng = np.random.default_rng(SEED + 7)
+    wave = [(int(rng.integers(0, cfg.dit.num_classes)), BUDGETS[i % 3])
+            for i in range(SERVE_WAVE + SERVE_JOIN)]
+    engine = ServingEngine(pipe, plans, steps_per_dispatch=SERVE_K)
+    log(f"[engine] {engine.menu.describe()}")
+    t0 = time.perf_counter()
+    n_pre = engine.precapture_warm_set(max_per_mode=1)
+    log(f"[engine] warm set: {n_pre} small-cohort runners built and run once "
+        f"in {time.perf_counter() - t0:.2f}s")
+    ops.reset_launches()
+    f0, p0 = engine.packed_forwards, engine.block_passes
+    walls, waves = [], []
+    for w in range(2):
+        t1 = time.perf_counter()
+        res = serve_wave(engine, wave)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        waves.append(res)
+        if w == 0:
+            built = engine.cache_stats()["compiled"]
+    launches = ops.flash_attention.launches
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    forwards = engine.packed_forwards - f0
+    if launches != L * forwards or engine.block_passes - p0 != launches:
+        raise AssertionError(f"engine: {launches} flash launches for {forwards} "
+                             f"packed forwards of {L} layers")
+    if by_variant["wgmma"] != launches:
+        raise AssertionError(f"engine flash launches by variant {by_variant}: "
+                             f"not all on the TMA/wgmma kernel")
+    stats = engine.cache_stats()
+    if stats["compiled"] != built:
+        raise AssertionError(f"the replayed wave built runners: {built} -> "
+                             f"{stats['compiled']}")
+    shape = tuple(cfg.dit.latent_shape)
+    for r in waves[0] + waves[1]:
+        if tuple(r.x0.shape) != shape or not torch.isfinite(r.x0).all():
+            raise AssertionError(f"request {r.request.id}: x0 not finite or "
+                                 f"not {shape}")
+    n = SERVE_WAVE + SERVE_JOIN
+    if any(len(res) != n for res in waves):
+        raise AssertionError(f"waves served {[len(r) for r in waves]}, not {n}")
+    m = engine.metrics.summary()
+    lat = np.asarray([r.record.latency for r in waves[1]])
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    log(f"[engine] flash_attention launches {launches} == {L} layers x "
+        f"{forwards} packed forwards, by variant {by_variant}; runners "
+        f"{stats}, the replay built none")
+    log(f"[engine] wave 0 (builds its layouts): {n} requests in "
+        f"{walls[0]:.3f}s; wave 1 (replay): {n} in {walls[1]:.3f}s = "
+        f"{n / walls[1]:.2f} img/s, latency p50 {p50:.3f}s p99 {p99:.3f}s, "
+        f"{m['steps'] / 2:.0f} dispatches a wave; packing efficiency "
+        f"{m['packing_efficiency']:.4f}, attention block skip rate "
+        f"{m['attn_block_skip_rate']:.4f} ({smi})")
+
+    # every served x0 against the same request sampled alone (every engine
+    # here seeds request i alike, so ids 0..n-1 share these references)
+    refs = {}
+    for r in waves[0] + waves[1]:
+        refs[r.request.id] = pipe.sample(
+            plans[r.budget_served], 1,
+            torch.Generator(device=DEV).manual_seed(
+                engine.request_seed(r.request.id)),
+            cond=torch.tensor([r.request.cond], device=DEV)).x0[0].float()
+    errs = x0_errors(waves[0] + waves[1], refs)
+    bad = {i: e for i, e in errs.items() if not e <= SERVE_X0_TOL}
+    if bad:
+        raise AssertionError(f"engine x0 differs from FlexiPipeline.sample: "
+                             f"||x0 - ref|| / ||ref|| {bad} > {SERVE_X0_TOL}")
+    log(f"[engine] x0 vs FlexiPipeline.sample per request ({len(errs)} "
+        f"requests): ||x0 - ref|| / ||ref|| max {max(errs.values()):.3e}, "
+        f"median {float(np.median(list(errs.values()))):.3e} "
+        f"(tol {SERVE_X0_TOL}); sorted "
+        f"{sorted(round(e, 5) for e in errs.values())}")
+
+    # activation cache: interval=1 equals uncached serving bit for bit
+    # (fresh runner caches, so both plan from the same warm set)
+    x0s = []
+    for cache in (None, CacheSpec(policy="interval", interval=1)):
+        eng = ServingEngine(FlexiPipeline(pipe.params, cfg, pipe.sched,
+                                          device=DEV), plans,
+                            steps_per_dispatch=SERVE_K, cache=cache)
+        x0s.append({r.request.id: r.x0 for r in serve_wave(eng, wave)})
+    if sorted(x0s[0]) != sorted(x0s[1]) or not all(
+            torch.equal(x0s[0][i], x0s[1][i]) for i in x0s[0]):
+        raise AssertionError("interval=1 cache serving differs from uncached "
+                             "serving")
+    log(f"[engine] interval=1 cache serving == uncached serving bit for bit "
+        f"({len(x0s[0])} requests)")
+    eng = ServingEngine(pipe, plans, steps_per_dispatch=SERVE_K,
+                        cache=CacheSpec(policy="interval", interval=2))
+    ops.reset_launches()
+    p0 = eng.block_passes
+    res = serve_wave(eng, wave)
+    torch.cuda.synchronize()
+    cs = eng.metrics.cache_summary()
+    if eng.store.n_active != 0 or len(res) != n:
+        raise AssertionError(f"interval=2: {eng.store.n_active} slots held "
+                             f"after the drain, {len(res)} served")
+    if ops.flash_attention.launches != eng.block_passes - p0:
+        raise AssertionError("interval=2: flash launches != block passes")
+    log(f"[engine] interval=2 (split {eng.cache_split}/{L}): cache hit rate "
+        f"{cs['hit_rate']:.4f}, refreshes {cs['refreshes']}, skips "
+        f"{cs['skips']}, {eng.block_passes - p0} block passes for "
+        f"{eng.packed_forwards} packed forwards, all slots released ({smi})")
+
+    # a short DDPM wave
+    ddpm = ServingEngine(pipe, {b: SamplingPlan(T=T_STEPS, budget=b,
+                                                solver="ddpm",
+                                                attn_backend="pallas")
+                                for b in BUDGETS})
+    for i, b in enumerate(BUDGETS):
+        ddpm.submit(cond=i, budget=b)
+    res = ddpm.run()
+    if len(res) != 3 or not all(torch.isfinite(r.x0).all() for r in res):
+        raise AssertionError("the DDPM wave did not finish with finite x0")
+    log(f"[engine] DDPM wave: 3 requests, x0 finite, std "
+        f"{torch.stack([r.x0 for r in res]).float().std().item():.4f}")
+
+    # the serving CLI, in-process: the reduced config (f32), then DiT-XL/2
+    # at full width (bf16, every block's attention on the wgmma kernel)
+    from repro_torch.launch import serve as serve_mod
+    for argv, want in ((["--smoke", "--requests", "6"], 12),
+                       (["--requests", "3", "--T", "4"], 6)):
+        ops.reset_launches()
+        cli = serve_mod.main(["--arch", "dit-xl-2"] + argv)
+        by_variant = dict(ops.flash_attention.launches_by_variant)
+        if cli["served"] != want:
+            raise AssertionError(f"serve.main {argv} served {cli['served']}, "
+                                 f"not {want}")
+        if "--smoke" not in argv and not (
+                0 < by_variant["wgmma"] == ops.flash_attention.launches):
+            raise AssertionError(f"serve.main {argv}: flash launches by "
+                                 f"variant {by_variant}, not all wgmma")
+        log(f"[engine] repro_torch.launch.serve --arch dit-xl-2 "
+            f"{' '.join(argv)}: served {want}, flash launches by variant "
+            f"{by_variant}")
+    # the x0 check must see a wrong packing: every segment id planted to
+    # 0, so segments that share a row attend to each other and to padding
+    from repro_torch.core import packing
+    sound_plan = packing._device_plan
+
+    def planted(*args):
+        plan, gather, ids, *rest = sound_plan(*args)
+        return (plan, gather, torch.zeros_like(ids), *rest)
+
+    packing._device_plan = planted
+    try:
+        eng = ServingEngine(FlexiPipeline(pipe.params, cfg, pipe.sched,
+                                          device=DEV), plans,
+                            steps_per_dispatch=SERVE_K)
+        faulty = x0_errors(serve_wave(eng, wave), refs)
+    finally:
+        packing._device_plan = sound_plan
+    weak = {r.request.id for r in waves[0]
+            if any(m and n for m, n in
+                   plans[r.budget_served].resolve_schedule(cfg).phases)}
+    missed = sorted(i for i in weak if not faulty[i] > SERVE_X0_TOL)
+    log(f"[engine] planted fault (segment ids all 0): ||x0 - ref|| / ||ref|| "
+        f"of the {len(weak)} requests with weak steps: min "
+        f"{min(faulty[i] for i in weak):.3e}, max "
+        f"{max(faulty[i] for i in weak):.3e}; the others (mode 0 only, a "
+        f"row each, out of the fault's reach): max "
+        f"{max([faulty[i] for i in faulty if i not in weak] or [0.0]):.3e} "
+        f"(tol {SERVE_X0_TOL})")
+    if not weak or missed:
+        raise AssertionError(f"the x0 check does not see a planted packing "
+                             f"fault on requests {missed} of {sorted(weak)}")
+
+    return {"launches": launches, "img_per_s": n / walls[1], "p50": p50,
+            "p99": p99, "max_abs_err": served_err}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -756,15 +1030,20 @@ def main() -> None:
     worst = phase_kernel_checks(gen, gen_new)
     worst_new = phase_new_kernel_checks(gen, gen_new)
     main_path = phase_main_path(gen)
-    launches = phase_tokenizer(gen, main_path.pop("pipe"))
+    pipe = main_path.pop("pipe")
+    launches = phase_tokenizer(gen, pipe)
     launches.update(phase_mamba_layer(gen))
     times = phase_timing(gen)
     new_times = phase_new_timing(gen)
+    serving = phase_serving(pipe, smi)
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/flash_attention.py:46",
-        "launches": main_path["launches"], "max_abs_err": worst,
+        "launches": main_path["launches"] + serving["launches"],
+        "launches_by_path": {"pipeline": main_path["launches"],
+                             "engine": serving["launches"]},
+        "max_abs_err": max(worst, serving["max_abs_err"]),
         "ms": times["ms"], "prev_ms": times["prev_ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": times["library_ms"]}]

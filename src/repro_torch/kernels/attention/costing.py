@@ -1,8 +1,7 @@
 """Analytic FLOPs of dense vs block-sparse attention, priced from the same
 block-map code the kernel's wrapper runs (``kernels.attention.mask``), on
 the host with numpy. Counts are per layer, batch 1, mul+add counted
-separately, as in ``core.scheduler``. The pack-level statistics of the
-reference (``pack_attention_stats``) come with the packed-step slice."""
+separately, as in ``core.scheduler``."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -72,3 +71,21 @@ def block_sparse_attention_flops(seg_lengths: Sequence[int], capacity: int,
     active, _total, bq, bk = block_map_counts(ids, block_q=block_q,
                                               block_k=block_k)
     return float(active) * dense_attention_flops(bq, bk, d_model)
+
+
+def pack_attention_stats(row_seg_lengths: Sequence[Sequence[int]],
+                         capacity: int, *,
+                         block_q: int = DEFAULT_BLOCK_Q,
+                         block_k: int = DEFAULT_BLOCK_K
+                         ) -> Tuple[int, int]:
+    """(active, total) block visits for a whole pack, one entry per row,
+    each a list of segment lengths. ``1 - active/total`` is the skip rate
+    ``serving.metrics`` reports per engine step."""
+    active = total = 0
+    for lengths in row_seg_lengths:
+        ids = segments_to_ids(lengths, capacity)
+        a, t, _bq, _bk = block_map_counts(ids, block_q=block_q,
+                                          block_k=block_k)
+        active += a
+        total += t
+    return active, total

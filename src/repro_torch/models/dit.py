@@ -199,7 +199,7 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
          attn_backend: str = "auto") -> torch.Tensor:
     if parallel is not None:
         raise NotImplementedError("sequence-parallel attention comes with the "
-                                  "distributed slice (ROADMAP queue 1, item 9)")
+                                  "distributed slice of the port")
     B, N, d = x.shape
     hd = d // num_heads
     la = lora or {}
@@ -214,7 +214,8 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
                                      segment_ids=segment_ids)
     elif resolved == "xla-blocked":
         raise NotImplementedError("the blocked long-sequence attention path "
-                                  "is not ported yet (ROADMAP queue 1, item 12)")
+                                  "comes with the language-model slice of "
+                                  "the port")
     else:
         bias = None
         if segment_ids is not None:
@@ -352,6 +353,13 @@ def _layer(blocks: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], blocks)
 
 
+def split_blocks(blocks: Params, split: int) -> Tuple[Params, Params]:
+    """Slice a stacked block tree into (shallow [0, split), deep
+    [split, L)) for the cached forward path (views, no copies)."""
+    return (tree_map(lambda a: a[:split], blocks),
+            tree_map(lambda a: a[split:], blocks))
+
+
 def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,
                 cfg: ModelConfig, *, mode: int = 0,
                 text_mask: Optional[torch.Tensor] = None,
@@ -368,7 +376,7 @@ def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,
     only the shallow blocks run and the cached delta is replayed."""
     if parallel is not None:
         raise NotImplementedError("sequence-parallel execution comes with the "
-                                  "distributed slice (ROADMAP queue 1, item 9)")
+                                  "distributed slice of the port")
     dit = cfg.dit
     ls = latent_shape or dit.latent_shape
     dtype = dtype_of(cfg.compute_dtype)

@@ -9,17 +9,20 @@ was built. ``cache_stats()["compiled"]`` counts runners built.
 
 The pipeline runs on CUDA unless the caller passes ``device="cpu"``; it
 never falls back to the CPU when CUDA is missing. Static diffusion plans
-(ddim, ddpm, dpm2) are ported; adaptive, flow and cached plans come with
-later slices and raise ``NotImplementedError``.
+(ddim, ddpm, dpm2) and cached plans (the activation cache, ddim and ddpm)
+are ported; adaptive and flow plans come with a later slice and raise
+``NotImplementedError``. :meth:`FlexiPipeline.packed_step` hands the
+serving engine its step-granular packed runners from the same cache.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.cache import apply as cache_apply
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flexify import merge_lora
 from repro_torch.core.guidance import GuidanceConfig, make_eps_fn
@@ -27,12 +30,26 @@ from repro_torch.core.scheduler import FlexiSchedule
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import sampler
 from repro_torch.diffusion import schedule as sch
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import dtype_of, tree_map
+from repro_torch.pipeline.packed import PackLayout, make_packed_step_fn
 from repro_torch.pipeline.plan import FLOW_SOLVERS, SamplingPlan
 
 Params = Dict[str, Any]
 # eps_transform(eps, x, t) -> eps — e.g. spectral filtering probes (Fig. 2)
 EpsTransform = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+class PackedStepKey(NamedTuple):
+    """A packed-step runner's key in the pipeline's runner cache: the
+    layout and :func:`make_packed_step_fn`'s options."""
+    layout: Optional[PackLayout]
+    k_steps: int = 1
+    solver: str = "ddim"
+    guidance_scale: float = 1.5
+    clip_x0: float = 0.0
+    cache_split: Optional[int] = None
+    attn_backend: str = "auto"
+    taps: bool = False
 
 
 @dataclasses.dataclass
@@ -124,16 +141,21 @@ class FlexiPipeline:
 
     def _static_runner(self, plan: SamplingPlan, schedule: FlexiSchedule,
                        ts: np.ndarray,
-                       transform: Optional[EpsTransform]) -> Callable:
+                       transform: Optional[EpsTransform],
+                       cache_split: Optional[int] = None) -> Callable:
+        """The runner of a static plan. With ``cache_split`` it carries the
+        cross-step activation cache: the per-phase refresh masks are
+        inputs (host numpy), so one runner serves every refresh policy at
+        this (schedule, split) signature."""
         splits = schedule.split_timesteps(ts)
         set_idx = {m: i for i, m in
                    enumerate(self._param_set_modes(plan, schedule))}
         cfg = self.cfg
 
         def run(param_sets, x_T, cond, null_cond, generator, text_mask,
-                null_text_mask, noise):
+                null_text_mask, noise, masks=None):
             phases = []
-            for mode, tsub in splits:
+            for i, (mode, tsub) in enumerate(splits):
                 p = param_sets[set_idx.get(mode, 0)]
                 g = self._phase_guidance(plan, mode)
                 # the §3.4 guidance call runs at the weak mode: under merged
@@ -143,18 +165,59 @@ class FlexiPipeline:
                       else None)
                 fn = make_eps_fn(p, cfg, cond, null_cond, g, text_mask,
                                  null_text_mask, guidance_params=gp,
-                                 attn_backend=plan.attn_backend)
+                                 attn_backend=plan.attn_backend,
+                                 cache_split=cache_split)
                 if transform is not None:
                     def fn(x, t, _f=fn):
                         eps, lv = _f(x, t)
                         return transform(eps, x, t), lv
-                phases.append((fn, tsub))
+                if cache_split is None:
+                    phases.append((fn, tsub))
+                    continue
+                guided = g.scale != 0.0 and cond is not None
+                delta0 = torch.zeros(
+                    cache_apply.delta_shape(cfg, mode, x_T.shape[0], guided),
+                    dtype=dtype_of(cfg.compute_dtype), device=x_T.device)
+                phases.append((fn, tsub, masks[i], delta0))
             return sampler.sample_phased(phases, self.sched, x_T,
                                          solver=plan.solver,
                                          clip_x0=plan.clip_x0,
                                          generator=generator, noise=noise)
 
         return run
+
+    # ------------------------------------------------------------------
+    # Step-granular packed runners (the serving engine's)
+
+    def packed_step(self, layout: PackLayout, **kw: Any) -> Callable:
+        """The runner advancing ONE packed engine step (``k_steps``
+        micro-steps) at ``layout`` (``pipeline/packed.py``); ``kw``: the
+        other fields of :class:`PackedStepKey`. Latents, timesteps, labels,
+        noise, deltas and refresh flags are inputs, so the serving engine
+        replays a layout across any requests and denoise steps; runners
+        share this pipeline's cache, so ``cache_stats()`` counts bucket
+        warm-up. ``taps`` comes with the telemetry slice."""
+        key = PackedStepKey(layout, **kw)
+        return self._lookup(key, lambda: make_packed_step_fn(
+            self.cfg, self.sched, **key._asdict()))
+
+    def packed_step_is_warm(self, layout: PackLayout, **kw: Any) -> bool:
+        """Whether :meth:`packed_step` would be a cache hit (the serving
+        planner prefers runners already built)."""
+        return PackedStepKey(layout, **kw) in self._runners
+
+    def warm_packed_layouts(self, **kw: Any) -> Dict[int, List[PackLayout]]:
+        """Built packed-step layouts grouped by micro-step depth k, for the
+        step family ``kw`` (the fields of :class:`PackedStepKey` but the
+        layout and ``k_steps``). A frozen serving engine
+        (``allow_cold=False``) restricts its planner to these."""
+        probe = PackedStepKey(None, **kw)
+        out: Dict[int, List[PackLayout]] = {}
+        for key in self._runners:
+            if isinstance(key, PackedStepKey) and key._replace(
+                    layout=None, k_steps=probe.k_steps) == probe:
+                out.setdefault(key.k_steps, []).append(key.layout)
+        return out
 
     @torch.inference_mode()
     def sample(self, plan: SamplingPlan, n: int,
@@ -171,14 +234,15 @@ class FlexiPipeline:
         ``eps_transform`` joins the runner key by identity: reuse one
         callable across calls to reuse its runner."""
         plan.validate(self.cfg)
+        if eps_transform is not None and plan.cache is not None:
+            raise ValueError("eps_transform does not compose with the "
+                             "activation cache")
         if plan.is_adaptive:
             raise NotImplementedError("adaptive plans come with the sampling "
-                                      "extensions slice (ROADMAP queue 1, "
-                                      "item 7)")
+                                      "extensions slice of the port")
         if plan.solver in FLOW_SOLVERS:
             raise NotImplementedError("flow solvers come with the sampling "
-                                      "extensions slice (ROADMAP queue 1, "
-                                      "item 7)")
+                                      "extensions slice of the port")
         if x_T is None:
             x_T = torch.randn((n,) + tuple(self.cfg.dit.latent_shape),
                               generator=generator, device=self.device)
@@ -196,6 +260,29 @@ class FlexiPipeline:
                plan.guidance_kind, plan.weak_mode, variant,
                schedule.phases, tuple(int(t) for t in ts), eps_transform,
                plan.parallel, plan.attn_backend)
+        if plan.cache is not None:
+            from repro_torch.cache import ledger as cache_ledger
+            from repro_torch.cache import policy as cache_policy
+            # masks are runner INPUTS: interval/band/threshold switches
+            # replay the same runner with other flags
+            masks = tuple(cache_policy.refresh_mask(plan.cache, tsub)
+                          for _m, tsub in schedule.split_timesteps(ts))
+            split = plan.cache.resolve_split(self.cfg.num_layers)
+            runner = self._lookup(
+                ("cached",) + sig + (split,),
+                lambda: self._static_runner(plan, schedule, ts, None, split))
+            x0 = runner(param_sets, x_T, y, null, generator, text_mask,
+                        null_text_mask, noise, masks)
+            fl, n_refresh, n_steps = cache_ledger.schedule_cached_flops(
+                self.cfg, schedule, ts, plan.cache,
+                cfg_scale_active=plan.guidance_active,
+                lora_unmerged=(variant == "unmerged"))
+            return SampleResult(
+                x0=x0, flops=n * fl,
+                relative_compute=plan.relative_compute(self.cfg),
+                trace={"schedule": schedule, "timesteps": ts,
+                       "refresh_masks": masks, "cache_refreshes": n_refresh,
+                       "cache_steps": n_steps})
         runner = self._lookup(("static",) + sig,
                               lambda: self._static_runner(plan, schedule, ts,
                                                           eps_transform))

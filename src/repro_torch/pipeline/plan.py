@@ -8,18 +8,22 @@ with the fewest weak steps that meets it. FLOPs delegate to
 ``core.scheduler`` (the paper's reporting convention).
 
 :class:`AdaptiveBudget` plans validate and price as in the reference, but
-sampling them, like the activation cache (``cache=``) and
-sequence-parallel execution (``parallel=``), comes with a later slice.
+sampling them, like sequence-parallel execution (``parallel=``), comes
+with a later slice. ``cache=`` takes a ``CacheSpec``
+(``cache/policy.py``): the cross-step activation cache.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Union
 
+from repro_torch.cache.policy import CacheSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import (FlexiSchedule, dit_nfe_flops,
                                         lora_nfe_overhead, schedule_flops)
 from repro_torch.models.attention import ATTN_BACKENDS
+
+CACHED_SOLVERS = ("ddim", "ddpm")    # the packed-step solver family
 
 STATIC_SOLVERS = ("ddpm", "ddim", "dpm2")
 FLOW_SOLVERS = ("flow_euler", "flow_heun")
@@ -57,7 +61,9 @@ class SamplingPlan:
     weak_last: bool = False              # App. B.4 ablation (fraction budgets)
     clip_x0: float = 0.0                 # DDPM-only x0 clipping
     parallel: Optional[Any] = None       # sequence parallelism: later slice
-    cache: Optional[Any] = None          # activation cache: later slice
+    # cross-step activation cache: its split joins the runner key; its
+    # policy only shapes the refresh mask (data)
+    cache: Optional[CacheSpec] = None
     # 'pallas' = the Hopper flash kernel; 'auto' resolves per call
     attn_backend: str = "auto"
 
@@ -93,11 +99,22 @@ class SamplingPlan:
             raise ValueError("flow solvers are unguided; set guidance_scale=0")
         if self.parallel is not None:
             raise NotImplementedError("sequence-parallel plans come with the "
-                                      "distributed slice (ROADMAP queue 1, "
-                                      "item 9)")
+                                      "distributed slice of the port")
         if self.cache is not None:
-            raise NotImplementedError("the activation cache comes with the "
-                                      "serving slice (ROADMAP queue 1, item 6)")
+            if not isinstance(self.cache, CacheSpec):
+                raise ValueError(f"cache must be a CacheSpec, got "
+                                 f"{type(self.cache).__name__}")
+            if self.solver not in CACHED_SOLVERS:
+                raise ValueError(f"the activation cache supports solvers "
+                                 f"{CACHED_SOLVERS}, got {self.solver!r}")
+            if self.is_adaptive:
+                raise ValueError("adaptive plans decide modes per sample; "
+                                 "the activation cache needs a static "
+                                 "schedule")
+            if self.guidance_active and self.guidance_kind != "uncond":
+                raise ValueError("the activation cache supports vanilla "
+                                 "CFG only (weak_cond mixes patch modes "
+                                 "inside one step)")
 
     @property
     def is_adaptive(self) -> bool:
@@ -127,6 +144,8 @@ class SamplingPlan:
         if self.lora == "unmerged" and cfg.dit.lora_rank <= 0 \
                 and not self.is_adaptive:
             raise ValueError("lora='unmerged' on a model without LoRA adapters")
+        if self.cache is not None:
+            self.cache.resolve_split(cfg.num_layers)   # raises when invalid
 
     # ------------------------------------------------------------------
     # Budget resolution
@@ -194,6 +213,28 @@ class SamplingPlan:
                                **self._flop_kwargs(cfg, schedule))
         if self.solver in ("flow_heun", "dpm2"):
             total *= 2.0                 # 2nd-order solvers: 2 NFEs per step
+        return batch * total
+
+    def cached_flops(self, cfg: ModelConfig, batch: int = 1,
+                     num_train_steps: int = 1000,
+                     attn_backend: str = "dense") -> float:
+        """Denoising FLOPs with the activation cache applied: skip steps
+        pay shallow blocks only (``cache.ledger``); :meth:`flops` when
+        the plan carries no cache. ``num_train_steps`` is the diffusion
+        schedule the ladder respaces (banded/proxy masks depend on the
+        actual t values)."""
+        if self.cache is None:
+            return self.flops(cfg, batch, attn_backend=attn_backend)
+        from repro_torch.cache.ledger import schedule_cached_flops
+        from repro_torch.diffusion.schedule import respaced_timesteps
+        schedule = self.resolve_schedule(cfg)
+        ts = respaced_timesteps(num_train_steps, self.T)
+        total, _, _ = schedule_cached_flops(
+            cfg, schedule, ts, self.cache,
+            cfg_scale_active=self.guidance_active,
+            lora_unmerged=(self.lora == "unmerged"
+                           and cfg.dit.lora_rank > 0),
+            attn_backend=attn_backend)
         return batch * total
 
     def relative_compute(self, cfg: ModelConfig) -> float:

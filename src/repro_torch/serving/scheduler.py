@@ -1,0 +1,854 @@
+"""Iteration-level continuous-batching engine, the port of
+``repro.serving.scheduler``.
+
+The engine keeps many in-flight requests at *different* denoise steps and
+budgets and advances a packed subset of them every iteration:
+
+* **join/leave mid-flight**: new requests enter between any two engine
+  steps; finished latents leave without draining anyone else;
+* **token packing**: each step's batch is composed token-wise from the
+  bucket menu (``serving.batcher``): weak-phase requests contribute fewer
+  tokens, packed into fixed-capacity rows with segment-id masking
+  (``core.packing``), which the flash kernel turns into skipped tiles;
+* **build-once**: all runners come from ``FlexiPipeline.packed_step``'s
+  cache, keyed by the static layout only, so steady-state serving builds
+  nothing (``cache_stats()`` shows it);
+* **SLA awareness**: ``policy='edf'`` orders admission and steps by
+  deadline; ``policy='degrade'`` lets the
+  :class:`~repro_torch.serving.controller.BudgetController` demote queued
+  requests to the highest budget level the arrival rate sustains.
+
+A request is served as a standalone ``FlexiPipeline.sample(plan, 1, ...)``
+call given the same prior and noise would serve it: the engine draws
+``x_T`` and (DDPM) one noise tensor per step from the request's
+``torch.Generator`` in the pipeline's order, at admission, on the engine's
+device. The host waits on the device at the reference's places only: once
+per dummy warm-up dispatch, and once per dispatch in which some request
+finishes (a result counts as served once it exists).
+
+Later slices own the seams that raise here: ``telemetry=`` (span tracing,
+taps, profiling and ``profile_packed_key``: the telemetry slice) and
+``faults=`` / ``quarantine=True`` (the resilience slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.cache import ledger as cache_ledger
+from repro_torch.cache import policy as cache_policy
+from repro_torch.cache.policy import CacheSpec
+from repro_torch.cache.store import CacheStore, TransientAllocationError
+from repro_torch.core.scheduler import dit_nfe_flops
+from repro_torch.diffusion import schedule as sch
+from repro_torch.models import dit as dit_mod
+from repro_torch.pipeline.packed import PackLayout
+from repro_torch.pipeline.pipeline import FlexiPipeline
+from repro_torch.pipeline.plan import SamplingPlan
+from repro_torch.serving.batcher import BucketMenu
+from repro_torch.serving.controller import BudgetController
+from repro_torch.serving.metrics import RequestRecord, ServingMetrics
+from repro_torch.serving.queue import Request, RequestQueue
+
+ENGINE_POLICIES = ("fifo", "edf", "degrade")
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """One budget level of the menu, fully resolved for step-wise play."""
+    level: float
+    plan: SamplingPlan
+    ts: np.ndarray               # descending timestep ladder [T]
+    t_prev: np.ndarray           # ts shifted, -1 terminated [T]
+    modes: np.ndarray            # per-step patch mode [T]
+    run_len: np.ndarray          # same-mode steps remaining (incl. self) [T]
+    flops: float                 # analytic per-request denoising FLOPs
+
+
+@dataclasses.dataclass
+class InFlight:
+    req: Request
+    lp: LevelPlan
+    x_src: torch.Tensor          # [k, F, H, W, C] batch holding the latent
+    x_row: int                   # ... at this row (kept unsliced so step
+    #                              assembly can reuse whole output batches)
+    noise: Optional[torch.Tensor]  # [T, 1, F, H, W, C] DDPM noise, else None
+    admit: float
+    seq: int
+    step: int = 0
+    # activation cache: this request's OWN staleness clock over its ladder,
+    # and its slot in the engine's CacheStore (the slot follows the request
+    # across bucket migrations; forced refreshes (join, phase switch,
+    # eviction) flip the mask in place so the retire-time histogram is real)
+    refresh_mask: Optional[np.ndarray] = None
+    cache_slot: int = -1
+    cache_mode: int = -1
+
+    @property
+    def x(self) -> torch.Tensor:
+        return self.x_src[self.x_row]
+
+    @property
+    def mode(self) -> int:
+        return int(self.lp.modes[self.step])
+
+    @property
+    def done(self) -> bool:
+        return self.step >= len(self.lp.ts)
+
+
+@dataclasses.dataclass
+class ServedResult:
+    request: Request
+    x0: torch.Tensor
+    budget_served: float
+    record: RequestRecord
+
+
+def request_seed(base_seed: int, rid: int) -> int:
+    """The generator seed of request ``rid`` under ``base_seed``."""
+    a, b = np.random.SeedSequence((base_seed, rid)).generate_state(2)
+    return (int(a) << 31) ^ int(b)
+
+
+class ServingEngine:
+    """Continuous-batching DiT serving on top of a FlexiPipeline.
+
+    >>> engine = ServingEngine(pipe, plans, max_tokens_per_step=1024)
+    >>> engine.submit(cond=3, budget=0.6)
+    >>> results = engine.run()          # drain queue + in-flight
+    """
+
+    def __init__(self, pipe: FlexiPipeline,
+                 plans: Dict[float, SamplingPlan], *,
+                 max_tokens_per_step: Optional[int] = None,
+                 policy: str = "fifo",
+                 clock: Optional[Callable[[], float]] = None,
+                 controller: Optional[BudgetController] = None,
+                 max_inflight: Optional[int] = None,
+                 base_seed: int = 0x5e41,
+                 steps_per_dispatch: int = 8,
+                 menu: Optional[BucketMenu] = None,
+                 allow_cold: bool = True,
+                 cache: Optional[CacheSpec] = None,
+                 precapture_small: int = 0,
+                 telemetry: Optional[Any] = None,
+                 faults: Optional[Any] = None,
+                 quarantine: Optional[bool] = None,
+                 expire_queued: bool = False,
+                 cache_integrity: bool = False):
+        if policy not in ENGINE_POLICIES:
+            raise ValueError(f"unknown policy {policy!r}; known: "
+                             f"{ENGINE_POLICIES}")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "engine telemetry (spans, taps, cost profiling, "
+                "profile_packed_key) comes with the telemetry slice of the "
+                "port")
+        if faults is not None or quarantine:
+            raise NotImplementedError("fault injection and NaN quarantine "
+                                      "come with the resilience slice of "
+                                      "the port")
+        self.expired: List[Request] = []
+        self._expire_queued = expire_queued
+        self.pipe = pipe
+        self.cfg = pipe.cfg
+        self.device = pipe.device
+        self.clock = clock or time.monotonic
+        self.policy = policy
+        self._validate_menu(plans)
+        ref = next(iter(plans.values()))
+        self.solver = ref.solver
+        self.guidance_scale = ref.guidance_scale
+        self.clip_x0 = ref.clip_x0
+        self.guided = ref.guidance_active
+        # one engine = one step family = one attention backend; 'auto'
+        # resolves to the segment-aware flash kernel inside packed steps,
+        # so the FLOPs ledger prices block-granular attention
+        self.attn_backend = ref.attn_backend
+        self.levels: Dict[float, LevelPlan] = {}
+        modes = {0}
+        for b in sorted(plans):
+            plan = plans[b]
+            fs = plan.resolve_schedule(self.cfg)
+            ts = sch.respaced_timesteps(pipe.sched.num_steps, plan.T)
+            step_modes = np.concatenate(
+                [np.full(n, m, np.int64) for m, n in fs.phases if n])
+            run_len = np.ones(len(step_modes), np.int64)
+            for i in range(len(step_modes) - 2, -1, -1):
+                if step_modes[i] == step_modes[i + 1]:
+                    run_len[i] = run_len[i + 1] + 1
+            self.levels[b] = LevelPlan(
+                level=b, plan=plan, ts=ts,
+                t_prev=np.concatenate([ts[1:], [-1]]),
+                modes=step_modes, run_len=run_len,
+                flops=plan.flops(self.cfg))
+            modes.update(int(m) for m in step_modes)
+        mult = 2 if self.guided else 1
+        self._seg_tokens = {m: dit_mod.tokens_for_mode(self.cfg, m)
+                            for m in sorted(modes)}
+        if max_tokens_per_step is None:
+            max_tokens_per_step = 4 * mult * self._seg_tokens[0]
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{steps_per_dispatch}")
+        self.steps_per_dispatch = steps_per_dispatch
+        self.allow_cold = allow_cold
+        self.menu = menu if menu is not None else BucketMenu(
+            self.cfg, sorted(modes), max_tokens_per_step, guided=self.guided)
+        if menu is not None and menu.guided != self.guided:
+            raise ValueError("shared menu's guided flag mismatches the plan "
+                             "menu's guidance")
+        for m in sorted(modes):
+            if not self.menu.greedy_fit([m])[0]:
+                raise ValueError(
+                    f"max_tokens_per_step={self.menu.max_tokens} cannot fit "
+                    f"one mode-{m} request's {mult} segment(s); such "
+                    f"requests would starve")
+        self.max_inflight = max_inflight or 2 * self.menu.max_requests
+        self.cache = cache
+        self.cache_split = (cache.resolve_split(self.cfg.num_layers)
+                            if cache is not None else None)
+        self.store: Optional[CacheStore] = None
+        self._level_masks: Dict[float, np.ndarray] = {}
+        if cache is not None:
+            self.store = CacheStore(self.cfg, sorted(modes),
+                                    n_slots=self.max_inflight,
+                                    guided=self.guided,
+                                    integrity=cache_integrity,
+                                    device=self.device)
+            for b, lp in self.levels.items():
+                fs = lp.plan.resolve_schedule(self.cfg)
+                self._level_masks[b] = cache_policy.ladder_refresh_mask(
+                    cache, fs.split_timesteps(lp.ts))
+        self.controller = controller
+        if policy == "degrade" and controller is None:
+            self.controller = BudgetController(
+                self.cfg, plans, cache=cache,
+                num_train_steps=pipe.sched.num_steps,
+                attn_backend=self.attn_backend)
+        self.metrics = ServingMetrics()
+        #: packed forwards dispatched (one per micro-step) and DiT block
+        #: applications they ran (all layers, or the shallow ones on a
+        #: micro-step where no cached request refreshes): what the flash
+        #: kernel's launch count must equal under the flash backend
+        self.packed_forwards = 0
+        self.block_passes = 0
+        self._layout_costs: Dict[Any, Any] = {}
+        self._layout_blocks: Dict[Any, Any] = {}
+        self._zero_blocks: Dict[Tuple, torch.Tensor] = {}
+        self._queue = RequestQueue()
+        self._inflight: List[InFlight] = []
+        self._admitting = True
+        self._next_id = 0
+        self._seq = 0
+        self._base_seed = int(base_seed)
+        self._last_step_at: Optional[float] = None
+        self._last_sync_at: Optional[float] = self.clock()
+        self._flops_since_sync = 0.0
+        self.started_at = self.clock()
+        if precapture_small > 0:
+            self.precapture_warm_set(max_per_mode=precapture_small)
+
+    # ------------------------------------------------------------------
+    # Validation / setup
+
+    def _validate_menu(self, plans: Dict[float, SamplingPlan]) -> None:
+        if not plans:
+            raise ValueError("engine needs a non-empty plan menu")
+        if self.cfg.dit is None or self.cfg.dit.conditioning != "class":
+            raise ValueError("the serving engine currently serves "
+                             "class-conditioned DiTs")
+        if self.cfg.dit.lora_rank > 0:
+            raise ValueError("mixed-mode packing needs mode-independent "
+                             "blocks (shared-parameter recipe); per-mode "
+                             "LoRA serving is not supported")
+        ref = next(iter(plans.values()))
+        for b, plan in plans.items():
+            plan.validate(self.cfg)
+            if plan.is_adaptive:
+                raise ValueError("adaptive plans are per-sample host loops; "
+                                 "the engine packs static schedules only")
+            if plan.solver not in ("ddim", "ddpm"):
+                raise ValueError(f"engine solvers: ddim|ddpm, got "
+                                 f"{plan.solver!r} at level {b}")
+            if plan.guidance_active and plan.guidance_kind != "uncond":
+                raise ValueError("packed steps implement vanilla CFG; "
+                                 "weak_cond guidance mixes modes inside "
+                                 "one NFE pair")
+            if (plan.solver, plan.guidance_scale, plan.clip_x0,
+                    plan.attn_backend) != \
+                    (ref.solver, ref.guidance_scale, ref.clip_x0,
+                     ref.attn_backend):
+                raise ValueError("all menu plans must share solver, "
+                                 "guidance scale, clip_x0, and "
+                                 "attn_backend (one engine = one "
+                                 "step family)")
+
+    # ------------------------------------------------------------------
+    # Request lifecycle
+
+    def quantize(self, budget: float) -> float:
+        """Requested budget → menu level: cheapest level >= requested
+        (the served sample is at least as powerful as asked)."""
+        for b in sorted(self.levels):
+            if b >= budget - 1e-9:
+                return b
+        return max(self.levels)
+
+    def request_seed(self, rid: int) -> int:
+        """The seed request ``rid`` is served with unless its submitter
+        gave a generator, or ``x_T`` and ``noise``."""
+        return request_seed(self._base_seed, rid)
+
+    def submit(self, cond: int, budget: float,
+               deadline: float = math.inf, *,
+               generator: Optional[torch.Generator] = None,
+               x_T: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None) -> int:
+        """Enqueue one request; returns its id. Randomness as in
+        ``FlexiPipeline.sample``: ``x_T`` ([1, *latent]) and, for DDPM,
+        ``noise`` ([T, 1, *latent]) when given, else drawn at admission
+        from ``generator`` (on the engine's device), else from a generator
+        seeded with :meth:`request_seed` of the id."""
+        rid = self._next_id
+        self._next_id += 1
+        seed = None if generator is not None else self.request_seed(rid)
+        now = self.clock()
+        req = Request(id=rid, cond=int(cond), budget=float(budget),
+                      deadline=deadline, seed=seed, generator=generator,
+                      x_T=x_T, noise=noise)
+        self._queue.submit(req, now)
+        if self.controller is not None:
+            self.controller.observe_arrival(now)
+        return rid
+
+    def _draw_inputs(self, req: Request, lp: LevelPlan
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The request's prior and (DDPM) per-step noise, drawn in the order
+        ``FlexiPipeline.sample`` draws them for a batch of one."""
+        shape = (1,) + tuple(self.cfg.dit.latent_shape)
+        T = len(lp.ts)
+        ddpm = self.solver == "ddpm"
+        gen = req.generator
+        if gen is None and (req.x_T is None or (ddpm and req.noise is None)):
+            gen = torch.Generator(device=self.device).manual_seed(req.seed)
+        if req.x_T is not None:
+            x_T = req.x_T.to(self.device, torch.float32).reshape(shape)
+        else:
+            x_T = torch.randn(shape, generator=gen, device=self.device)
+        noise = None
+        if ddpm:
+            if req.noise is not None:
+                noise = req.noise.to(self.device).reshape((T,) + shape)
+            else:
+                noise = torch.stack([
+                    torch.randn(shape, generator=gen, device=self.device)
+                    for _ in range(T)])
+        return x_T, noise
+
+    def stop_admissions(self) -> None:
+        """Drain mode: keep stepping the in-flight cohort to completion,
+        but stop promoting queued requests (``submit`` still queues)."""
+        self._admitting = False
+
+    def resume_admissions(self) -> None:
+        self._admitting = True
+
+    def extract_queued(self) -> List[Request]:
+        """Remove and return every not-yet-admitted request (submission
+        order). Queued requests hold no device or cache state, so a
+        draining engine hands them back loss-free; the in-flight cohort
+        finishes here."""
+        out = sorted(self._queue._pending, key=lambda r: r._seq)
+        self._queue._pending.clear()
+        return out
+
+    def _admit(self, now: float) -> None:
+        if self._expire_queued:
+            # a queued request whose deadline has passed is a certain SLA
+            # miss: reject it terminally instead of dispatching it (opt-in)
+            for req in self._queue.take_expired(now):
+                self.expired.append(req)
+                self.metrics.total_expired += 1
+        if not self._admitting:
+            return
+        policy = "edf" if self.policy == "edf" else "fifo"
+        while self._queue and len(self._inflight) < self.max_inflight:
+            req = self._queue.pop(policy)
+            level = self.quantize(req.budget)
+            if self.controller is not None and self.policy == "degrade":
+                level = self.controller.assign(level)
+            lp = self.levels[level]
+            x_T, noise = self._draw_inputs(req, lp)
+            mask = (self._level_masks[level].copy()
+                    if self.cache is not None else None)
+            self._inflight.append(InFlight(
+                req=req, lp=lp, x_src=x_T, x_row=0, noise=noise,
+                admit=now, seq=self._seq, refresh_mask=mask))
+            self._seq += 1
+
+    def _priority(self, f: InFlight) -> Tuple:
+        if self.policy == "edf":
+            return (f.req.deadline, f.seq)
+        return (f.seq,)
+
+    def _runner_kw(self) -> Dict[str, Any]:
+        return dict(solver=self.solver, guidance_scale=self.guidance_scale,
+                    clip_x0=self.clip_x0, cache_split=self.cache_split,
+                    attn_backend=self.attn_backend)
+
+    def _is_warm(self, layout: PackLayout, k: int) -> bool:
+        return self.pipe.packed_step_is_warm(layout, k_steps=k,
+                                             **self._runner_kw())
+
+    def _ensure_slot(self, f: InFlight, mode: int) -> bool:
+        """Make sure ``f`` owns a live slot in ``mode``'s pool; returns
+        True when the request must refresh on this dispatch's first step:
+        the slot is fresh (joined / phase-switched / evicted), or the
+        allocation failed transiently and the request runs slotless
+        (``cache_slot == -1``: deep blocks recomputed, no cache reads or
+        writes, re-allocation retried next dispatch)."""
+        if f.cache_slot >= 0 and f.cache_mode == mode \
+                and self.store.owner_of(mode, f.cache_slot) == f.req.id:
+            return False
+        if f.cache_slot >= 0 \
+                and self.store.owner_of(f.cache_mode,
+                                        f.cache_slot) == f.req.id:
+            self.store.release(f.cache_mode, f.cache_slot)
+        try:
+            f.cache_slot = self.store.alloc(mode, f.req.id)
+        except TransientAllocationError:
+            f.cache_slot = -1
+            self.metrics.total_alloc_failures += 1
+        f.cache_mode = mode
+        return True
+
+    def _zeros(self, shape: Tuple[int, ...], dtype=torch.float32
+               ) -> torch.Tensor:
+        """A cached zeros block on the engine's device (dummy slots)."""
+        key = (shape, dtype)
+        z = self._zero_blocks.get(key)
+        if z is None:
+            z = self._zero_blocks[key] = torch.zeros(shape, dtype=dtype,
+                                                     device=self.device)
+        return z
+
+    def _gather_latents(self, sel: List[InFlight], pad: int) -> torch.Tensor:
+        """[cap, F, H, W, C] group input with as few device ops as
+        possible: runs of requests holding consecutive rows of the same
+        source batch (the steady state: last step's output) are reused
+        whole; stragglers coalesce into one gather per source; dummy tail
+        slots come from a cached zeros block."""
+        parts: List[torch.Tensor] = []
+        i = 0
+        while i < len(sel):
+            src = sel[i].x_src
+            idx = [sel[i].x_row]
+            i += 1
+            while i < len(sel) and sel[i].x_src is src:
+                idx.append(sel[i].x_row)
+                i += 1
+            if idx == list(range(src.shape[0])):
+                parts.append(src)                    # whole batch, no op
+            else:
+                parts.append(src[idx])               # one gather
+        if pad:
+            parts.append(self._zeros((pad,) + tuple(self.cfg.dit.latent_shape)))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _gather_noise(self, sel: List[InFlight], pad: int, k: int
+                      ) -> torch.Tensor:
+        """[k, cap, F, H, W, C]: each request's next k noise draws."""
+        parts = [f.noise[f.step:f.step + k] for f in sel]
+        if pad:
+            parts.append(self._zeros(
+                (k, pad) + tuple(self.cfg.dit.latent_shape)))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def _wait(self) -> None:
+        """Wait for the device to finish the work issued so far (the
+        engine's only sync point)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # ------------------------------------------------------------------
+    # Warm-set shaping
+
+    def precapture_warm_set(self, max_per_mode: int = 2,
+                            k_depths: Optional[Sequence[int]] = None) -> int:
+        """Build (and run once, on dummy inputs) the SMALL-cohort bucket
+        ladder: every menu layout with per-mode counts <= ``max_per_mode``
+        at each micro-step depth in ``k_depths`` (default: powers of two up
+        to ``steps_per_dispatch``), so a frozen planner's warm set fits
+        mid-trace stragglers. Returns how many runners were cold."""
+        n_cold = 0
+        for layout, k in self.warm_set_ladder(max_per_mode, k_depths):
+            n_cold += 1
+            self._dummy_dispatch(layout, k)
+        return n_cold
+
+    def warm_set_ladder(self, max_per_mode: int = 2,
+                        k_depths: Optional[Sequence[int]] = None
+                        ) -> List[Tuple[PackLayout, int]]:
+        """The still-COLD rungs of the small-cohort bucket ladder, in
+        build order (``precapture_warm_set``'s work list)."""
+        if k_depths is None:
+            k_depths, kd = [], 1
+            while kd <= self.steps_per_dispatch:
+                k_depths.append(kd)
+                kd *= 2
+        out: List[Tuple[PackLayout, int]] = []
+        for layout in self.menu.layouts:
+            if any(c > max_per_mode for _m, c in layout.groups):
+                continue
+            for k in k_depths:
+                if not self._is_warm(layout, k):
+                    out.append((layout, k))
+        return out
+
+    @torch.inference_mode()
+    def _dummy_dispatch(self, layout: PackLayout, k: int) -> None:
+        """Run one throwaway dispatch at ``layout`` so the runner is built
+        and its kernels loaded before a real step meets it."""
+        runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
+        shape = tuple(self.cfg.dit.latent_shape)
+        xs, metas, noises, deltas, refreshes = [], [], [], [], []
+        for mode, cap in layout.groups:
+            xs.append(self._zeros((cap,) + shape))
+            meta = np.zeros((k, 3, cap), np.int32)
+            meta[:, 1, :] = -1
+            metas.append(torch.from_numpy(meta).to(self.device))
+            noises.append(self._zeros((k, cap) + shape))
+            if self.cache is not None:
+                deltas.append(self._zeros(
+                    (cap, self.store.mult, self._seg_tokens[mode],
+                     self.cfg.d_model), self.store.dtype))
+                refreshes.append(np.zeros((k, cap), bool))
+        if self.cache is not None:
+            runner(self.pipe.params, tuple(xs), tuple(metas), tuple(noises),
+                   tuple(deltas), tuple(refreshes))
+            self.block_passes += k * self.cache_split
+        else:
+            runner(self.pipe.params, tuple(xs), tuple(metas), tuple(noises))
+            self.block_passes += k * self.cfg.num_layers
+        self.packed_forwards += k
+        self._wait()
+
+    # ------------------------------------------------------------------
+    # The engine iteration
+
+    def _plan(self) -> Tuple[int, PackLayout, List[List[InFlight]]]:
+        """Co-optimize the cohort, the bucket and the micro-step depth k:
+        one dispatch advances the cohort k consecutive same-mode denoise
+        steps (joins wait at most k steps), so the planner maximizes
+        request-steps per dispatch (k x cohort size) over the power-of-two
+        depths the highest-priority request can sustain. Cold dispatches
+        pack an EXACT-fit layout (greedy over the priority order, no dummy
+        slots); frozen serving (``allow_cold=False``) restricts to built
+        layouts, falling back to a cold one only when nothing warm can
+        serve at all."""
+        prio = sorted(self._inflight, key=self._priority)
+        top = prio[0]
+        k_cap = 1
+        top_run = min(self.steps_per_dispatch,
+                      int(top.lp.run_len[top.step]))
+        while k_cap * 2 <= top_run:
+            k_cap *= 2
+        best = None
+        for cold_pass in ((True,) if self.allow_cold else (False, True)):
+            if not cold_pass:
+                # frozen pass: only buckets with room for the highest-
+                # priority request's mode (keeps EDF live and k_cap valid)
+                warm_layouts = {
+                    kk: [l for l in ls if l.capacity_for(top.mode)]
+                    for kk, ls in self.pipe.warm_packed_layouts(
+                        taps=False, **self._runner_kw()).items()}
+            kc = k_cap
+            while kc >= 1:
+                eligible = [f for f in prio
+                            if int(f.lp.run_len[f.step]) >= kc]
+                if not eligible:
+                    kc //= 2
+                    continue
+                if cold_pass:
+                    idx, counts = self.menu.greedy_fit(
+                        [f.mode for f in eligible])
+                    if not idx:
+                        kc //= 2
+                        continue
+                    cand = PackLayout.for_counts(
+                        counts, guided=self.guided,
+                        row_capacity=self.menu.row_capacity)
+                    sel_by_mode: Optional[Dict[int, List[InFlight]]] = {}
+                    for i in idx:
+                        sel_by_mode.setdefault(eligible[i].mode,
+                                               []).append(eligible[i])
+                    served = len(idx)
+                else:
+                    demand: Dict[int, int] = {}
+                    for f in eligible:
+                        demand[f.mode] = demand.get(f.mode, 0) + 1
+                    cand = self.menu.choose(
+                        demand, among=warm_layouts.get(kc, ()))
+                    if cand is None:
+                        kc //= 2
+                        continue
+                    sel_by_mode = None
+                    served = self.menu.served_by(cand, demand)
+                score = (kc * served,
+                         1 if self._is_warm(cand, kc) else 0,
+                         -self.menu.packed_tokens(cand))
+                if best is None or score > best[0]:
+                    best = (score, kc, cand, sel_by_mode)
+                kc //= 2
+            if best is not None:
+                break                 # frozen pass found a warm bucket
+        _, k, layout, sel_by_mode = best
+        if sel_by_mode is None:       # warm bucket: fill its capacities
+            sel_by_mode = {}
+            for f in prio:
+                if int(f.lp.run_len[f.step]) >= k:
+                    sel_by_mode.setdefault(f.mode, []).append(f)
+        picked = [sel_by_mode.get(mode, [])[:cap]
+                  for mode, cap in layout.groups]
+        return k, layout, picked
+
+    @torch.inference_mode()
+    def step(self) -> List[ServedResult]:
+        """One engine iteration: admit arrivals, plan (cohort, bucket,
+        micro-step depth k), advance the packed cohort k denoise steps in
+        one dispatch, and retire finished requests. Requests that don't
+        fit the chosen bucket wait (no drain, no rebuild)."""
+        now = self.clock()
+        self._admit(now)
+        if not self._inflight:
+            self._last_step_at = now
+            return []
+        mult = 2 if self.guided else 1
+        k, layout, picked = self._plan()
+        ddpm = self.solver == "ddpm"
+
+        xs, metas, noises = [], [], []
+        deltas, refreshes, slot_lists, rf_real = [], [], [], []
+        real_tokens = 0
+        n_refresh = n_cached_steps = 0
+        for (mode, cap), sel in zip(layout.groups, picked):
+            pad = cap - len(sel)
+            xs.append(self._gather_latents(sel, pad))
+            meta = np.zeros((k, 3, cap), np.int32)
+            meta[:, 1, :] = -1                   # dummy slots: final step
+            rf = np.zeros((k, cap), bool)        # dummies never refresh
+            slots: List[int] = []
+            for i, f in enumerate(sel):
+                s = f.step
+                meta[:, 0, i] = f.lp.ts[s:s + k]
+                meta[:, 1, i] = f.lp.t_prev[s:s + k]
+                meta[:, 2, i] = f.req.cond
+                if self.cache is not None:
+                    if self._ensure_slot(f, mode):
+                        f.refresh_mask[s] = True     # fresh slot: no replay
+                    elif self.store.integrity and not self.store.verify_slot(
+                            mode, f.cache_slot):
+                        # checksum mismatch: the resident delta was
+                        # corrupted out of band; recompute the deep blocks
+                        f.refresh_mask[s] = True
+                        self.metrics.total_integrity_refreshes += 1
+                    if f.cache_slot < 0:
+                        # slotless: every micro-step refreshes, so the
+                        # row gathered for it is never read
+                        f.refresh_mask[s:s + k] = True
+                    rf[:, i] = f.refresh_mask[s:s + k]
+                    slots.append(f.cache_slot)
+            metas.append(torch.from_numpy(meta).to(self.device))
+            if ddpm:
+                noises.append(self._gather_noise(sel, pad, k))
+            real_tokens += mult * self._seg_tokens[mode] * len(sel) * k
+            if self.cache is not None:
+                refreshes.append(rf)
+                slot_lists.append(slots)
+                rf_real.append(rf[:, :len(sel)])
+                gathered = (self.store.gather(mode, [max(sl, 0)
+                                                     for sl in slots])
+                            if slots else None)
+                if pad:
+                    z = self._zeros((pad, self.store.mult,
+                                     self._seg_tokens[mode],
+                                     self.cfg.d_model), self.store.dtype)
+                    gathered = (z if gathered is None
+                                else torch.cat([gathered, z]))
+                deltas.append(gathered)
+
+        L = self.cfg.num_layers
+        step_flops = 0.0
+        if self.cache is not None:
+            # the deep blocks run for the whole pack on a micro-step where
+            # any cohort member refreshes, so only all-skip micro-steps
+            # realise the deep saving: FLOPs fed to the capacity EWMA charge
+            # what the hardware ran; the per-request counts feed the
+            # hit-rate ledger
+            any_ref = np.zeros(k, bool)
+            for rf in rf_real:
+                if rf.size:
+                    any_ref |= rf.any(axis=1)
+            deep_skips = k - int(any_ref.sum())
+            for (mode, _cap), sel, rf in zip(layout.groups, picked,
+                                             rf_real):
+                n_refresh += int(rf.sum())
+                n_cached_steps += k * len(sel)
+                full = dit_nfe_flops(self.cfg, mode,
+                                     attn_backend=self.attn_backend)
+                deep = cache_ledger.deep_block_flops(
+                    self.cfg, mode, self.cache_split,
+                    attn_backend=self.attn_backend)
+                step_flops += mult * len(sel) * (k * full
+                                                 - deep_skips * deep)
+            self.block_passes += k * L - deep_skips * (L - self.cache_split)
+        else:
+            step_flops = k * sum(
+                mult * len(sel)
+                * dit_nfe_flops(self.cfg, mode,
+                                attn_backend=self.attn_backend)
+                for (mode, _cap), sel in zip(layout.groups, picked))
+            self.block_passes += k * L
+        self.packed_forwards += k
+
+        runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
+        zs = tuple(noises) if ddpm else None
+        if self.cache is not None:
+            outs, new_deltas = runner(self.pipe.params, tuple(xs),
+                                      tuple(metas), zs, tuple(deltas),
+                                      tuple(refreshes))
+            for (mode, _cap), slots, nd in zip(layout.groups, slot_lists,
+                                               new_deltas):
+                # slotless rows are not written back: that would clobber
+                # slot 0's owner
+                keep = [j for j, sl in enumerate(slots) if sl >= 0]
+                if len(keep) == len(slots) and slots:
+                    self.store.scatter(mode, slots, nd[:len(slots)])
+                elif keep:
+                    self.store.scatter(mode, [slots[j] for j in keep],
+                                       nd[keep])
+            self.metrics.record_cache(n_refresh,
+                                      n_cached_steps - n_refresh)
+            self.metrics.set_cache_bytes(self.store.bytes_resident)
+        else:
+            outs = runner(self.pipe.params, tuple(xs), tuple(metas), zs)
+        self._flops_since_sync += step_flops
+        if any(f.step + k >= len(f.lp.ts) for sel in picked for f in sel):
+            # someone completes on this dispatch: a result counts as
+            # served once it exists, so the finish stamp (and the latency
+            # derived from it) waits for the device. This is also the only
+            # honest capacity sample: between waits the clock sees only
+            # host-side batch assembly
+            self._wait()
+            now = self.clock()
+            if self.controller is not None and self._last_sync_at is not None \
+                    and now > self._last_sync_at:
+                self.controller.observe_service(self._flops_since_sync,
+                                                now - self._last_sync_at)
+            self._flops_since_sync = 0.0
+            self._last_sync_at = now
+
+        finished: List[ServedResult] = []
+        stepped = 0
+        for g, sel in enumerate(picked):
+            for i, f in enumerate(sel):
+                f.x_src, f.x_row = outs[g], i
+                f.step += k
+                stepped += 1
+                if f.done:
+                    self._inflight.remove(f)
+                    finished.append(self._retire(f, now))
+        cost = self._layout_costs.get(layout)
+        if cost is None:
+            cost = self._layout_costs[layout] = layout.cost(self.cfg)
+        self.metrics.record_step(now, real_tokens, cost.packed_tokens * k,
+                                 stepped)
+        if self.attn_backend in ("auto", "pallas"):
+            # cross-segment block skip ledger: the fraction of the pack's
+            # score tiles the segment-aware kernel never issued
+            blk = self._layout_blocks.get(layout)
+            if blk is None:
+                blk = self._layout_blocks[layout] = \
+                    layout.attention_block_stats(self.cfg)
+            self.metrics.record_attention_blocks(blk[0] * k, blk[1] * k)
+        self._last_step_at = now
+        return finished
+
+    def take_expired(self) -> List[Request]:
+        """Drain terminally expired requests (deadline passed while
+        queued) for the caller's bookkeeping."""
+        out, self.expired = self.expired, []
+        return out
+
+    def _retire(self, f: InFlight, now: float) -> ServedResult:
+        mult = 2 if self.guided else 1
+        tokens = int(mult * sum(self._seg_tokens[int(m)] for m in f.lp.modes))
+        if self.store is not None and f.cache_slot >= 0 \
+                and self.store.owner_of(f.cache_mode,
+                                        f.cache_slot) == f.req.id:
+            self.store.release(f.cache_mode, f.cache_slot)
+        if f.refresh_mask is not None:
+            self.metrics.record_refresh_intervals(
+                cache_policy.refresh_intervals(f.refresh_mask))
+            self.metrics.set_cache_bytes(self.store.bytes_resident)
+        rec = RequestRecord(
+            id=f.req.id, arrival=f.req.arrival, admit=f.admit, finish=now,
+            deadline=f.req.deadline, budget_requested=f.req.budget,
+            budget_served=f.lp.level, tokens=tokens, flops=f.lp.flops)
+        self.metrics.record_request(rec)
+        return ServedResult(request=f.req, x0=f.x,
+                            budget_served=f.lp.level, record=rec)
+
+    # ------------------------------------------------------------------
+
+    def run(self, max_steps: int = 100_000) -> List[ServedResult]:
+        """Drain: step until queue and in-flight are empty."""
+        out: List[ServedResult] = []
+        steps = 0
+        while (self._queue or self._inflight) and steps < max_steps:
+            out.extend(self.step())
+            steps += 1
+        return out
+
+    def snapshot_state(self) -> Dict[str, Any]:
+        """Host-side view of engine state: queue, in-flight request
+        positions, runner-cache counters, cache residency."""
+        snap: Dict[str, Any] = {
+            "queued": [{"id": r.id, "budget": r.budget,
+                        "deadline": r.deadline, "arrival": r.arrival}
+                       for r in self._queue._pending],
+            "inflight": [{"id": f.req.id, "level": f.lp.level,
+                          "step": f.step, "of": len(f.lp.ts),
+                          "mode": f.mode, "admit": f.admit,
+                          "cache_slot": f.cache_slot}
+                         for f in self._inflight],
+            "compile": self.pipe.cache_stats(),
+            "policy": self.policy,
+        }
+        if self.store is not None:
+            snap["cache_bytes"] = self.store.bytes_resident
+        return snap
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and not self._inflight
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def n_inflight(self) -> int:
+        return len(self._inflight)
+
+    def cache_stats(self) -> Dict[str, int]:
+        """The pipeline's runner-cache counters (packed-step runners are
+        cached there; no growth after warm-up = nothing rebuilt)."""
+        return self.pipe.cache_stats()

@@ -441,3 +441,146 @@ def test_ssd_ops_bf16_padded_with_state_runs_on_wgmma_on_card(cuda):
     err = (y.float() - y_ref.float()).abs().max().item()
     assert err <= SSD_TOL["bfloat16"] * y_ref.float().abs().max().item()
     torch.testing.assert_close(h, h_ref, atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# The serving path on the card: packed rows with segment ids through the
+# flash kernel. dit-xl-2's geometry at d=64 (4 heads x 16) with a 32 x 32
+# latent, so rows hold 256 tokens: one mode-0 segment or four mode-1
+# segments of 64, smaller than the kernel's 128-row tile.
+
+def _serving_cfg(dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("dit-xl-2").reduced()
+    return dataclasses.replace(
+        cfg, param_dtype=dtype, compute_dtype=dtype,
+        dit=dataclasses.replace(cfg.dit, latent_shape=(1, 32, 32, 4)))
+
+
+def _serving_pipe(dtype: str, device):
+    from repro_torch.diffusion.schedule import linear_schedule
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.pipeline import FlexiPipeline
+    cfg = _serving_cfg(dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = dit_mod.init_dit(cfg, gen)
+    for node, key in [(params["deembed"], "w_flex"),
+                      (params["final"]["ada"], "w"),
+                      (params["blocks"]["ada"], "w")]:
+        node[key] = (torch.randn(node[key].shape, generator=gen, device=device)
+                     * 0.05).to(node[key].dtype)
+    return FlexiPipeline(params, cfg, linear_schedule(100), device=device)
+
+
+def _plans(solver="ddim", **kw):
+    from repro_torch.core.scheduler import FlexiSchedule
+    from repro_torch.pipeline import SamplingPlan
+    return {0.6: SamplingPlan(T=6, budget=FlexiSchedule.weak_first(6, 3),
+                              solver=solver, attn_backend="pallas", **kw),
+            1.0: SamplingPlan(T=6, budget=1.0, solver=solver,
+                              attn_backend="pallas", **kw)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_forward_on_card_matches_plain(cuda, dtype):
+    """One mixed-mode packed forward (padding tails, four 64-token segments
+    in a row) on the card against the same forward on the CPU, where the
+    kernel's plain version runs. Padded rows stay 0 through attention."""
+    from repro_torch.core import packing
+    from repro_torch.models.common import tree_map
+    pipe = _serving_pipe(dtype, cuda)
+    cfg = pipe.cfg
+    cpu_params = tree_map(lambda a: a.cpu(), pipe.params)
+    groups = ((0, 3), (1, 5))
+    gen = torch.Generator().manual_seed(1)
+    xs = [torch.randn((n,) + cfg.dit.latent_shape, generator=gen)
+          for _m, n in groups]
+    ts = [torch.randint(0, 100, (n,), generator=gen) for _m, n in groups]
+    cs = [torch.randint(0, 10, (n,), generator=gen) for _m, n in groups]
+    ops.reset_launches()
+    got = packing.packed_mixed_forward(pipe.params, cfg, groups,
+                                       [x.to(cuda) for x in xs],
+                                       [t.to(cuda) for t in ts],
+                                       [c.to(cuda) for c in cs],
+                                       attn_backend="pallas")
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == cfg.num_layers
+    want = packing.packed_mixed_forward(cpu_params, cfg, groups, xs, ts, cs,
+                                        attn_backend="pallas")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float().cpu(), w.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["ddim", "ddpm"])
+def test_engine_on_card_matches_pipeline(cuda, solver):
+    """float32 serving on the card: every x0 against the per-request
+    pipeline at 1e-4, one flash launch per block pass, all on the f32
+    kernel; a replay builds nothing; interval=1 caching equals uncached
+    serving bit for bit."""
+    import dataclasses
+
+    from repro_torch.serving import CacheSpec, ServingEngine
+    from repro_torch.pipeline import FlexiPipeline
+    pipe = _serving_pipe("float32", cuda)
+    plans = _plans(solver)
+    results = {}
+    for name, cache in [("plain", None),
+                        ("cached", CacheSpec(policy="interval", interval=1,
+                                             split=1))]:
+        # a fresh runner cache each: both plan from the same warm set
+        eng = ServingEngine(FlexiPipeline(pipe.params, pipe.cfg, pipe.sched,
+                                          device=cuda), plans, cache=cache)
+        ops.reset_launches()
+        for i in range(5):
+            eng.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+        out = eng.run()
+        torch.cuda.synchronize()
+        assert ops.flash_attention.launches == eng.block_passes
+        assert ops.flash_attention.launches_by_variant["f32"] == eng.block_passes
+        results[name] = {r.request.id: r for r in out}
+        if cache is not None:
+            assert eng.store.n_active == 0
+    for rid, r in results["plain"].items():
+        assert torch.equal(r.x0, results["cached"][rid].x0)
+        plan = dataclasses.replace(plans[r.budget_served])
+        ref = pipe.sample(plan, 1, torch.Generator(cuda).manual_seed(
+            eng.request_seed(rid)), cond=torch.tensor([r.request.cond],
+                                                      device=cuda)).x0[0]
+        torch.testing.assert_close(r.x0, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_bf16_engine_on_card_runs_wgmma(cuda):
+    """bf16 serving: every flash launch on the TMA/wgmma kernel, the count
+    equal to the block passes, finite x0, and a replay that builds
+    nothing."""
+    from repro_torch.serving import ServingEngine
+    pipe = _serving_pipe("bfloat16", cuda)
+    eng = ServingEngine(pipe, _plans(), steps_per_dispatch=4)
+    for wave in range(2):
+        if wave == 1:
+            built = eng.cache_stats()["compiled"]
+            ops.reset_launches()
+            passes = eng.block_passes
+        for i in range(6):
+            eng.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+        out = eng.run()
+        assert all(torch.isfinite(r.x0).all() for r in out)
+    assert eng.cache_stats()["compiled"] == built
+    assert ops.flash_attention.launches == eng.block_passes - passes
+    assert ops.flash_attention.launches_by_variant["wgmma"] \
+        == ops.flash_attention.launches
+
+
+@pytest.mark.gpu
+def test_serve_cli_on_card(cuda):
+    from repro_torch.launch import serve
+    m = serve.main(["--arch", "dit-xl-2", "--smoke", "--requests", "4",
+                    "--T", "4"])
+    assert m["served"] == 8.0

@@ -286,7 +286,7 @@ def test_unported_paths_raise(xl_small):
         pipe.sample(SamplingPlan(T=4, solver="flow_euler", guidance_scale=0.0),
                     1, None)
     with pytest.raises(NotImplementedError):
-        SamplingPlan(T=4, cache=object())
+        SamplingPlan(T=4, parallel=object())
     with pytest.raises(NotImplementedError):
         pipe.sample(SamplingPlan(T=4, attn_backend="xla-blocked"), 1, None)
 
