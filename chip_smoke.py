@@ -11,7 +11,9 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    redesigned kernels (flash attention on TMA/wgmma, the split-K cluster
    de-embed, the persistent TMA/wgmma embed, the bf16 SSD on wgmma in
    split-bf16 pieces) also against the previous kernel of the same
-   function, forced with ``variant=``;
+   function, forced with ``variant=``; the flash kernel at the
+   text-to-image shapes on the output's own scale (||o - ref|| / ||ref||),
+   where two planted tile-map faults must read over the limit;
 3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
    random trained-like weights from a seed) through
    ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
@@ -47,24 +49,42 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    finite, and ``python -m repro_torch.launch.serve --arch dit-xl-2``
    runs in-process, with ``--smoke`` and at full width. Prints served
    img/s, latency p50/p99, packing efficiency, the attention block skip
-   rate and the cache hit rate beside the card's name and power limit.
+   rate and the cache hit rate beside the card's name and power limit;
+8. the sampling extensions and the telemetry layer: the paper's
+   text-to-image transformer (``configs/t2i_transformer.py``: 24 layers,
+   d=2048, 16 heads x 128, a 128x128x8 latent = 4096 tokens at patch 2
+   and 1024 at the weak patch 4, 77 text tokens, LoRA rank 64, bf16,
+   random trained-like weights from a seed) sampled through
+   ``FlexiPipeline.sample`` with ``flow_euler`` and ``flow_heun``,
+   unguided, at budgets 0.6 and 1.0 (B=2, T=10): every self-attention on
+   the flash kernel's TMA/wgmma variant (24 launches per NFE), x0 held
+   against the same plan on the dense backend, and the same check must
+   fail when the kernel's kv tile walk is made to stop halfway; adaptive DDIM on DiT-XL/2 (CFG 1.5, T=10): gaps, switch step and
+   relative compute recomputed from them; and the phase-7 wave served
+   untapped, tapped (``Telemetry(taps=True)``) and tapped with profiling:
+   x0 equal bit for bit, the tapped wave adds no host synchronisation
+   (``torch.cuda.set_sync_debug_mode``) and profiling adds exactly one
+   per dispatch, spans cover the lifecycle, attribution conserves
+   exactly, achieved GFLOP/s per step family, nothing rebuilt.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
 
 The line before the last is ``{"kernels": [...]}`` (``prev_ms``: the
-previous kernel of a redesigned one, timed in the same rounds); the last
-line is
+previous kernel of a redesigned one, timed in the same rounds; the flash
+entry's ``shapes`` times the text-to-image shape too); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 there is no CUDA card or no port next to this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -103,8 +123,10 @@ from repro_torch.kernels.timing import graph_ms, interleaved_ms  # noqa: E402
 from repro_torch.models import dit as dit_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.common import init_tree  # noqa: E402
-from repro_torch.pipeline import FlexiPipeline, SamplingPlan  # noqa: E402
+from repro_torch.pipeline import (AdaptiveBudget, FlexiPipeline,  # noqa: E402
+                                  SamplingPlan)
 from repro_torch.serving import CacheSpec, ServingEngine  # noqa: E402
+from repro_torch.telemetry import Telemetry  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -186,6 +208,24 @@ SERVE_X0_TOL = 3e-3
 # 12 full mode-0 rows, 3 rows of four 64-token segments, and one row of
 # two segments and a 128-token padding tail (16 rows)
 SERVED_GROUPS = ((256, 12), (64, 14))
+# phase 8: the text-to-image transformer's self-attention at B=2 (4096
+# tokens at patch 2, 1024 at the weak patch 4), 16 heads x 128
+T2I_ATTN = [(2, 4096, 16, 128), (2, 1024, 16, 128)]
+# the flash kernel at those shapes, held on the output's own scale: over
+# ~1,500 keys of weight a typical |o| is ~0.02, as small as TOL's bf16
+# level, so the check is ||o - ref|| / ||ref||. Two planted faults, the
+# kernel handed a tile map that hides one 64-wide kv tile of every row
+# or the second half of them, must read over the limit (PERF.md §6).
+T2I_ATTN_REL_TOL = 1e-2
+T2I_BATCH, T2I_BUDGETS, T2I_SOLVERS = 2, (0.6, 1.0), ("flow_euler", "flow_heun")
+# x0 through the flash kernel against the same plan on the dense backend,
+# held as ||x0 - dense|| / ||dense||; the planted fault (the kv tile walk
+# stopping halfway) must read over the limit on every run. On an H100
+# 80GB HBM3 (700 W) the sound runs read 1.9e-3 to 3.1e-3 (bf16 rounding,
+# P rounded to bf16 before P.V) and the fault 7.1e-3 to 1.1e-2: with
+# random weights x0 depends weakly on attention (PERF.md §6). The limit
+# sits between, 1.5x from each; the readings are deterministic.
+T2I_X0_TOL = 4.7e-3
 
 
 def log(msg: str) -> None:
@@ -334,6 +374,49 @@ def phase_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> float
             seg = kw["segment_ids"]
             if not torch.all(got[seg < 0] == 0):
                 raise AssertionError("padding rows must return exactly 0")
+    return worst
+
+
+def phase_t2i_kernel_checks(gen: torch.Generator) -> float:
+    """The flash kernel at the text-to-image transformer's shapes (hd 128
+    over rows of 4096 and 1024 tokens, no segment ids, no map: every CTA
+    walks all kv tiles) against its plain version, before anything is
+    timed, at ``T2I_ATTN_REL_TOL``; then the planted faults, which must
+    read over it. On its own generator, so the earlier cases keep their
+    inputs. Returns the worst max|err| of the sound runs."""
+    worst = 0.0
+    for B, S, H, hd in T2I_ATTN:
+        q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, causal=False).float()
+        variant = variant_of(q, k, v)
+        if variant != "wgmma":
+            raise AssertionError(f"B{B} S{S} hd{hd}: selects {variant}, not wgmma")
+        rel = lambda o: ((o.float() - want).norm() / want.norm()).item()
+        err = (got.float() - want).abs().max().item()
+        nk = S // 64
+        faults = {}
+        for fault, hidden in (("one kv tile dropped", slice(0, 1)),
+                              ("tile walk stops halfway", slice(nk // 2, nk))):
+            bmap = torch.ones((B, S // 128, nk), dtype=torch.int32, device=DEV)
+            bmap[:, :, hidden] = 0
+            faults[fault] = rel(ops.flash_attention(
+                q, k, v, causal=False, block_map=bmap, block_q=128, block_k=64))
+        log(f"[kernel] flash_attention ({variant}) B{B} S{S} H{H} hd{hd} bf16 "
+            f"(text-to-image): ||err||/||ref||={rel(got):.3e} (tol "
+            f"{T2I_ATTN_REL_TOL}), max|err|={err:.3e}, max|ref|="
+            f"{want.abs().max().item():.3e}; planted faults "
+            + ", ".join(f"{f} {r:.3e}" for f, r in faults.items()))
+        if not rel(got) <= T2I_ATTN_REL_TOL:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at B{B} S{S} H{H} hd{hd}: "
+                                 f"{rel(got)} > {T2I_ATTN_REL_TOL}")
+        missed = [f for f, r in faults.items() if not r > T2I_ATTN_REL_TOL]
+        if missed:
+            raise AssertionError(f"B{B} S{S} hd{hd}: planted faults {missed} "
+                                 f"read within {T2I_ATTN_REL_TOL}")
+        worst = max(worst, err)
     return worst
 
 
@@ -706,6 +789,29 @@ def phase_timing(gen: torch.Generator) -> dict:
             f"sdpa's speed, {t['mma']['ms'] / ms:.2f}x the mma kernel's")
         out[S] = dict(ms=ms, prev_ms=t["mma"]["ms"], plain_ms=plain,
                       library_ms=t["sdpa"]["ms"], bound_ms=bound, bound_by=by)
+    # the text-to-image shape (phase 8's path): hd 128 over 4096-token rows
+    B, S, H, hd = T2I_ATTN[0]
+    q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kw = ops.kernel_kwargs(q, k, causal=False)
+    t = interleaved_ms({
+        "wgmma": lambda: flash_attention_cuda(q, k, v, **kw, variant="wgmma"),
+        "mma": lambda: flash_attention_cuda(q, k, v, **kw, variant="mma"),
+        "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)},
+        calls=5, replays=4)
+    plain = graph_ms(lambda: flash_attention_ref(q, k, v, causal=False),
+                     calls=2, replays=2)
+    bound, by = attention_bound_ms(B, S, H, hd, torch.bfloat16)
+    ms = t["wgmma"]["ms"]
+    log(f"[time] flash_attention B{B} S{S} H{H} hd{hd} bf16 (text-to-image), "
+        f"medians of {t['wgmma']['rounds']} interleaved rounds "
+        f"(fastest-slowest): {turns_line(t)}; plain {plain:.4f} ms; bound "
+        f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound, "
+        f"{t['sdpa']['ms'] / ms:.2f}x sdpa's speed, "
+        f"{t['mma']['ms'] / ms:.2f}x the mma kernel's")
+    out[256]["shapes"] = {f"B{B} S{S} H{H} hd{hd}": dict(
+        ms=ms, prev_ms=t["mma"]["ms"], plain_ms=plain,
+        library_ms=t["sdpa"]["ms"], bound_ms=bound, bound_by=by)}
     return out[256]
 
 
@@ -1016,6 +1122,288 @@ def phase_serving(pipe: FlexiPipeline, smi: str) -> dict:
             "p99": p99, "max_abs_err": served_err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the sampling extensions and the telemetry layer
+
+
+def trained_like_t2i(gen: torch.Generator):
+    """The text-to-image transformer with random weights; every zero-
+    initialized gate (de-embeddings, adaLN, cross-attention out, LoRA
+    ``b``, per-mode embedding) made non-zero so the sample depends on it."""
+    cfg = get_config("t2i-transformer")
+    params = dit_mod.init_dit(cfg, gen)
+    blocks = params["blocks"]
+    gates = [(params["deembed"], "w_flex", 0.1),
+             (params["deembed_new"]["m1"], "w", 0.1),
+             (params["final"]["ada"], "w", 0.05), (blocks["ada"], "w", 0.05),
+             (blocks["xattn"], "wo", 0.05), (params, "ps_embed", 0.1)]
+    gates += [(pair, "b", 0.05) for grp in blocks["lora"].values()
+              for pair in grp.values()]
+    for node, key, scale in gates:
+        node[key] = randn(gen, node[key].shape, node[key].dtype) * scale
+    return params, cfg
+
+
+def _stop_tile_walk_halfway(sound):
+    """A planted kernel fault of the kind long rows invite: the kv tile
+    walk stops halfway (``ops.kernel_kwargs`` hands the kernel a tile map
+    that hides the second half of every row's key tiles)."""
+    def planted(q, k, **kw):
+        out = sound(q, k, **kw)
+        B, S = q.shape[:2]
+        b = min(out["block_q"], S)
+        n = -(-S // b)
+        bmap = torch.ones((B, n, n), dtype=torch.int32, device=q.device)
+        bmap[:, :, n // 2:] = 0
+        return dict(out, block_map=bmap)
+    return planted
+
+
+def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def phase_t2i_flow(gen: torch.Generator, smi: str) -> dict:
+    """The text-to-image transformer at full width through
+    ``FlexiPipeline.sample`` with both flow solvers at two budgets."""
+    t0 = time.perf_counter()
+    params, cfg = trained_like_t2i(gen)
+    pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+    del params
+    text = randn(gen, (T2I_BATCH, cfg.dit.text_len, cfg.dit.text_dim))
+    torch.cuda.synchronize()
+    log(f"[t2i] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, heads="
+        f"{cfg.attn.num_heads}x{cfg.attn.head_dim}, latent "
+        f"{cfg.dit.latent_shape} = {dit_mod.tokens_for_mode(cfg, 0)} tokens "
+        f"(weak: {dit_mod.tokens_for_mode(cfg, 1)}), text {cfg.dit.text_len}x"
+        f"{cfg.dit.text_dim}, LoRA rank {cfg.dit.lora_rank}, "
+        f"{cfg.param_dtype}; weights in {time.perf_counter() - t0:.1f}s")
+    launches, runs = 0, []
+    for solver in T2I_SOLVERS:
+        for b in T2I_BUDGETS:
+            plan = SamplingPlan(T=T_STEPS, budget=b, solver=solver,
+                                guidance_scale=0.0, attn_backend="pallas")
+            phases = plan.resolve_schedule(cfg).phases
+            nfe = T_STEPS * (2 if solver == "flow_heun" else 1)
+            x_T = randn(gen, (T2I_BATCH,) + tuple(cfg.dit.latent_shape))
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            x0 = pipe.sample(plan, T2I_BATCH, None, cond=text, x_T=x_T).x0
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            n = ops.flash_attention.launches
+            by_variant = dict(ops.flash_attention.launches_by_variant)
+            if n != cfg.num_layers * nfe or by_variant["wgmma"] != n:
+                raise AssertionError(f"t2i {solver} {b}: flash launches {n} "
+                                     f"{by_variant}, expected {cfg.num_layers}"
+                                     f" x {nfe} NFEs, all wgmma")
+            shape = (T2I_BATCH,) + tuple(cfg.dit.latent_shape)
+            if tuple(x0.shape) != shape or not torch.isfinite(x0).all():
+                raise AssertionError(f"t2i {solver} {b}: x0 not finite or "
+                                     f"not {shape}")
+            launches += n
+            dense = pipe.sample(dataclasses.replace(plan, attn_backend="dense"),
+                                T2I_BATCH, None, cond=text, x_T=x_T).x0
+            sound_fn = ops.kernel_kwargs
+            ops.kernel_kwargs = _stop_tile_walk_halfway(sound_fn)
+            try:
+                faulty = pipe.sample(plan, T2I_BATCH, None, cond=text,
+                                     x_T=x_T).x0
+            finally:
+                ops.kernel_kwargs = sound_fn
+            err, fault = rel_err(x0, dense), rel_err(faulty, dense)
+            runs.append((solver, b, err, fault))
+            log(f"[t2i] {solver} budget {b} (schedule {phases}, relative "
+                f"compute {plan.relative_compute(cfg):.4f}): {nfe} NFEs in "
+                f"{dt:.2f}s ({T2I_BATCH / dt:.3f} img/s, first call of the "
+                f"plan included), flash launches {n} = {cfg.num_layers} x "
+                f"{nfe}, by variant {by_variant}; ||x0 - dense|| / ||dense|| "
+                f"{err:.3e}, planted fault (tile walk stops halfway) {fault:.3e} "
+                f"(tol {T2I_X0_TOL}); max|x0| {x0.float().abs().max().item():.3f}"
+                f" ({smi})")
+    bad = [r for r in runs if not (r[2] <= T2I_X0_TOL < r[3])]
+    if bad:
+        raise AssertionError(f"t2i x0: sound reading over {T2I_X0_TOL} or the "
+                             f"planted fault under it: {bad}")
+    stats = pipe.cache_stats()
+    if stats["compiled"] != 2 * len(T2I_SOLVERS) * len(T2I_BUDGETS):
+        raise AssertionError(f"t2i runners {stats}: one per (plan, backend)")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_adaptive(pipe: FlexiPipeline, smi: str) -> dict:
+    """Adaptive DDIM on DiT-XL/2 (CFG 1.5, T=10, probe every 2 steps,
+    threshold 0.35): the gaps, the switch step, launches, and relative
+    compute recomputed from the switch step and the probes."""
+    from repro_torch.core.scheduler import dit_nfe_flops
+    cfg = pipe.cfg
+    plan = SamplingPlan(T=T_STEPS, budget=AdaptiveBudget(),
+                        attn_backend="pallas")
+    labels = torch.tensor(np.random.default_rng(SEED + 8).integers(
+        0, cfg.dit.num_classes, BATCH).tolist(), device=DEV)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = pipe.sample(plan, BATCH, torch.Generator(device=DEV).manual_seed(8),
+                      cond=labels)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    s, gaps = res.trace["switch_step"], res.trace["gaps"]
+    n_weak = min(s + 1, T_STEPS)
+    calls = n_weak + len(gaps) + (T_STEPS - s)
+    n = ops.flash_attention.launches
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    if n != cfg.num_layers * calls or by_variant["wgmma"] != n:
+        raise AssertionError(f"adaptive: flash launches {n} {by_variant}, "
+                             f"expected {cfg.num_layers} x {calls}, all wgmma")
+    f_w, f_p = 2 * dit_nfe_flops(cfg, 1), 2 * dit_nfe_flops(cfg, 0)
+    rel = (n_weak * f_w + len(gaps) * f_p + (T_STEPS - s) * f_p) / (T_STEPS * f_p)
+    shape = (BATCH,) + tuple(cfg.dit.latent_shape)
+    if tuple(res.x0.shape) != shape or not torch.isfinite(res.x0).all():
+        raise AssertionError(f"adaptive: x0 not finite or not {shape}")
+    if not abs(rel - res.relative_compute) <= 1e-12 * rel:
+        raise AssertionError(f"adaptive: relative compute {res.relative_compute}"
+                             f" != {rel} recomputed from the switch step")
+    if any(g > plan.budget.threshold for g in gaps[:-1]) or (
+            s < T_STEPS and not gaps[-1] > plan.budget.threshold):
+        raise AssertionError(f"adaptive: switch step {s} does not follow "
+                             f"the gaps {gaps}")
+    log(f"[adaptive] DiT-XL/2 DDIM CFG 1.5 T={T_STEPS}, threshold "
+        f"{plan.budget.threshold}, probe every {plan.budget.probe_every}: "
+        f"gaps {[round(g, 5) for g in gaps]}, switch step {s}, relative "
+        f"compute {res.relative_compute:.4f} (recomputed {rel:.4f}); "
+        f"{calls} forward calls, flash launches {n} by variant {by_variant}; "
+        f"{dt:.2f}s ({smi})")
+    return {"launches": n}
+
+
+def count_syncs(fn):
+    """Run ``fn`` with ``torch.cuda.set_sync_debug_mode("warn")`` and count
+    the synchronising calls it makes."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
+    """The phase-7 wave untapped, tapped and tapped with profiling, each on
+    a fresh runner cache, warmed by one wave and then measured on two
+    replays: x0 bit for bit, synchronising calls (compared on the second
+    replay, the steady state: in the first call the first engine's first
+    replay made one more than the others), spans, attribution, taps, the
+    cost report, and no runner built by the replays."""
+    cfg = pipe.cfg
+    L = cfg.num_layers
+    plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
+             for b in BUDGETS}
+    rng = np.random.default_rng(SEED + 7)
+    wave = [(int(rng.integers(0, cfg.dit.num_classes)), BUDGETS[i % 3])
+            for i in range(SERVE_WAVE + SERVE_JOIN)]
+    n = len(wave)
+    out, launches = {}, 0
+    for name, tel in (("untapped", None), ("tapped", Telemetry(taps=True)),
+                      ("profiled", Telemetry(taps=True, profile=True))):
+        eng = ServingEngine(FlexiPipeline(pipe.params, cfg, pipe.sched,
+                                          device=DEV), plans,
+                            steps_per_dispatch=SERVE_K, telemetry=tel)
+        eng.precapture_warm_set(max_per_mode=1)
+        serve_wave(eng, wave)
+        built = eng.cache_stats()["compiled"]
+        _, first_syncs = count_syncs(lambda: serve_wave(eng, wave))
+        d0, f0 = eng.metrics.total_steps, eng.packed_forwards
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res, syncs = count_syncs(lambda: serve_wave(eng, wave))
+        wall = time.perf_counter() - t0
+        dispatches = eng.metrics.total_steps - d0
+        forwards = eng.packed_forwards - f0
+        if ops.flash_attention.launches != L * forwards or \
+                ops.flash_attention.launches_by_variant["wgmma"] \
+                != ops.flash_attention.launches:
+            raise AssertionError(f"{name} wave: flash launches "
+                                 f"{ops.flash_attention.launches_by_variant}, "
+                                 f"expected {L} x {forwards}, all wgmma")
+        launches += ops.flash_attention.launches
+        if eng.cache_stats()["compiled"] != built or len(res) != n:
+            raise AssertionError(f"{name} wave: served {len(res)}, runners "
+                                 f"{built} -> {eng.cache_stats()['compiled']}")
+        out[name] = dict(eng=eng, tel=tel, syncs=syncs, dispatches=dispatches,
+                         x0={r.request.id: r.x0 for r in res}, wall=wall)
+        log(f"[telemetry] {name} replay waves: {n} requests, {dispatches} "
+            f"dispatches each, {first_syncs} then {syncs} synchronising "
+            f"calls, {n / wall:.2f} img/s under sync debug mode ({smi})")
+    base = out["untapped"]
+    for name in ("tapped", "profiled"):
+        x0 = out[name]["x0"]
+        if sorted(x0) != sorted(base["x0"]) or not all(
+                torch.equal(x0[i], base["x0"][i]) for i in x0):
+            raise AssertionError(f"{name} wave: x0 differs from the untapped "
+                                 f"wave")
+    if out["tapped"]["syncs"] != base["syncs"]:
+        raise AssertionError(f"taps added host syncs: {base['syncs']} -> "
+                             f"{out['tapped']['syncs']}")
+    want = base["syncs"] + out["profiled"]["dispatches"]
+    if out["profiled"]["syncs"] != want:
+        raise AssertionError(f"profiling: {out['profiled']['syncs']} syncs, "
+                             f"expected {base['syncs']} + one per dispatch "
+                             f"= {want}")
+    prof = out["profiled"]
+    eng, tel = prof["eng"], prof["tel"]
+    rec = tel.recorder
+    steps = eng.metrics.total_steps
+    n_req = len({e.tid for e in rec.events if e.name.startswith("req")})
+    if not (len(rec.by_name("dispatch")) == len(rec.by_name("plan"))
+            == len(rec.by_name("pack")) == steps) or n_req != 3 * n \
+            or rec.events_dropped:
+        raise AssertionError(f"spans: dispatch {len(rec.by_name('dispatch'))},"
+                             f" plan {len(rec.by_name('plan'))}, pack "
+                             f"{len(rec.by_name('pack'))} for {steps} "
+                             f"dispatches; {n_req} request rows for {3 * n}")
+    cons = tel.attribution.conservation()
+    if any(cons.values()) or len(tel.attribution.finalized) != 3 * n:
+        raise AssertionError(f"attribution: {cons}, "
+                             f"{len(tel.attribution.finalized)} finalized")
+    agg = tel.taps.aggregate()
+    if agg["samples"] != steps or agg.get("nonfinite_request_steps") != 0 \
+            or not agg["eps_norm"]["mean"] > 0:
+        raise AssertionError(f"taps: {agg}")
+    built = eng.cache_stats()["compiled"]
+    t0 = time.perf_counter()
+    hv = tel.profile.harvest(eng.pipe)
+    t_harvest = time.perf_counter() - t0
+    if eng.cache_stats()["compiled"] != built:
+        raise AssertionError("the cost harvest built runners")
+    rep = tel.profile.reconcile()
+    rows = [r for r in rep["rows"] if "wall_ms_ewma" in r]
+    if rep["n_flagged"] or not rows or not all(
+            r["achieved_gflops_per_s"] > 0 for r in rows):
+        raise AssertionError(f"cost report: {rep['n_flagged']} flagged, "
+                             f"{len(rows)} rows with walls")
+    log(f"[telemetry] x0 of the tapped and profiled waves == untapped bit for "
+        f"bit ({n} requests); syncs untapped {base['syncs']}, tapped "
+        f"{out['tapped']['syncs']} (+0), profiled {prof['syncs']} (+"
+        f"{prof['dispatches']} dispatches); spans {rec.events_recorded} "
+        f"(dispatch {len(rec.by_name('dispatch'))}, request rows {n_req}); "
+        f"attribution {cons} over {len(tel.attribution.finalized)} requests; "
+        f"taps eps_norm mean {agg['eps_norm']['mean']:.4g}, skip rate "
+        f"{agg.get('attn_blocks', {}).get('skip_rate', 0.0):.4f}; harvest "
+        f"{hv} in {t_harvest:.1f}s")
+    for r in rows:
+        log(f"[telemetry]   {r['label']}: {r['dispatches']} dispatches, wall "
+            f"{r['wall_ms_ewma']:.2f} ms (min {r['wall_ms_min']:.2f}), "
+            f"analytic {r['analytic_dispatch_gflops']:.1f} GFLOP, counted "
+            f"{r['counted_gflops']:.1f} (x{r['counted_over_analytic']:.3f}), "
+            f"achieved {r['achieved_gflops_per_s']:.1f} GFLOP/s ({smi})")
+    return {"launches": launches}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1026,8 +1414,10 @@ def main() -> None:
         f"CUDA {torch.version.cuda}")
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     gen_new = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    gen_t2i = torch.Generator(device=DEV).manual_seed(SEED + 2)
     phase_build()
     worst = phase_kernel_checks(gen, gen_new)
+    worst = max(worst, phase_t2i_kernel_checks(gen_t2i))
     worst_new = phase_new_kernel_checks(gen, gen_new)
     main_path = phase_main_path(gen)
     pipe = main_path.pop("pipe")
@@ -1036,17 +1426,23 @@ def main() -> None:
     times = phase_timing(gen)
     new_times = phase_new_timing(gen)
     serving = phase_serving(pipe, smi)
+    adaptive = phase_adaptive(pipe, smi)
+    telemetry = phase_telemetry(pipe, smi)
+    del pipe
+    torch.cuda.empty_cache()
+    t2i = phase_t2i_flow(gen_t2i, smi)
+    paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
+             "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
+             "telemetry_waves": telemetry["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/flash_attention.py:46",
-        "launches": main_path["launches"] + serving["launches"],
-        "launches_by_path": {"pipeline": main_path["launches"],
-                             "engine": serving["launches"]},
+        "launches": sum(paths.values()), "launches_by_path": paths,
         "max_abs_err": max(worst, serving["max_abs_err"]),
         "ms": times["ms"], "prev_ms": times["prev_ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-        "library_ms": times["library_ms"]}]
+        "library_ms": times["library_ms"], "shapes": times["shapes"]}]
     sources = {"patch_embed": ("patch_embed.cu", "patch_embed/patch_embed.py:25"),
                "patch_deembed": ("patch_embed.cu", "patch_embed/patch_embed.py:60"),
                "ssd_chunk": ("ssd_chunk.cu", "ssd/ssd_chunk.py:28")}

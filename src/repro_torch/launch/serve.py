@@ -11,15 +11,24 @@ flash kernel. ``--policy`` picks admission/step ordering: ``fifo``,
 demoted to the highest budget level the measured arrival rate sustains).
 Weights are random (``init_dit`` from a seed): a smoke run, not a model.
 
+Telemetry (``repro_torch.telemetry``): ``--trace OUT.json`` (spans and
+tap counters as a Chrome trace), ``--metrics-interval N`` (a ``[metrics]``
+line every N engine steps), ``--profile`` (per-dispatch wall time, the
+packed runners' cost report, per-request attribution ``[attrib]`` and the
+controller's calibration ``[calib]``), ``--postmortem-dir DIR`` and
+``--slo-p99 SEC`` (the SLO watchdog and its flight recorder). Any one of
+them turns on spans and taps.
+
 Runs on CUDA unless ``--device cpu``. Later slices own the options that
-raise here: ``--replicas`` (fleet), ``--mesh`` (distributed), ``--trace``,
-``--metrics-interval``, ``--profile``, ``--postmortem-dir`` and
-``--slo-p99`` (telemetry), and a language-model ``--arch``.
+raise here: ``--replicas`` (fleet), ``--mesh`` (distributed), and a
+language-model ``--arch``.
 
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --requests 6
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --policy degrade
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke \
       --cache-policy interval --cache-interval 2
+  python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --profile \
+      --trace trace.json --metrics-interval 4
 """
 from __future__ import annotations
 
@@ -86,12 +95,7 @@ def build_plan_menu(cfg, args, parallel=None) -> Dict[float, "object"]:
 def _later_slice_options(args) -> None:
     """Options whose code comes with a later slice of the port raise."""
     owners = [("replicas", lambda v: v > 1, "fleet"),
-              ("mesh", bool, "distributed"),
-              ("trace", bool, "telemetry"),
-              ("metrics_interval", bool, "telemetry"),
-              ("profile", bool, "telemetry"),
-              ("postmortem_dir", bool, "telemetry"),
-              ("slo_p99", lambda v: v is not None, "telemetry")]
+              ("mesh", bool, "distributed")]
     for name, is_set, owner in owners:
         value = getattr(args, name, None)
         if value is not None and is_set(value):
@@ -124,6 +128,8 @@ def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
     layouts the workload visits, then the same wave is served again and
     (under fifo) must build nothing."""
     from repro_torch.serving import CacheSpec, ServingEngine
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.telemetry import export as tel_export
 
     policy = getattr(args, "policy", None) or "fifo"
     max_tokens = getattr(args, "max_tokens_per_step", None)
@@ -137,8 +143,28 @@ def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
               f"interval={cache.interval} threshold={cache.threshold} "
               f"split={cache.resolve_split(cfg.num_layers)}/"
               f"{cfg.num_layers} blocks")
+    trace_path = getattr(args, "trace", None)
+    metrics_interval = getattr(args, "metrics_interval", 0) or 0
+    profile = bool(getattr(args, "profile", False))
+    pm_dir = getattr(args, "postmortem_dir", None)
+    slo_p99 = getattr(args, "slo_p99", None)
+    telemetry = None
+    if trace_path or metrics_interval or profile or pm_dir or slo_p99:
+        # tracing implies taps: the tapped step family serves the same
+        # latents bit for bit
+        watchdog = None
+        if pm_dir or slo_p99:
+            from repro_torch.telemetry.watchdog import Watchdog, WatchdogConfig
+            watchdog = Watchdog(WatchdogConfig(p99_slo_s=slo_p99))
+        telemetry = Telemetry(taps=True, profile=profile,
+                              watchdog=watchdog, postmortem_dir=pm_dir)
+        print("[telemetry] spans+taps on"
+              + (", cost profiling on" if profile else "")
+              + (f", post-mortems -> {pm_dir}" if pm_dir else "")
+              + (f", trace -> {trace_path}" if trace_path else ""))
     engine = ServingEngine(pipe, plans, policy=policy,
-                           max_tokens_per_step=max_tokens, cache=cache)
+                           max_tokens_per_step=max_tokens, cache=cache,
+                           telemetry=telemetry)
     # warm-set shaping: build the small-cohort bucket ladder off the hot
     # path so mid-trace arrivals never meet a coarse layout
     n_pre = engine.precapture_warm_set(max_per_mode=2)
@@ -156,13 +182,24 @@ def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
                           budget=levels[i % len(levels)], deadline=deadline)
 
     t0 = time.time()
+
+    def metrics_tick() -> None:
+        """The periodic metrics line, every ``metrics_interval`` steps."""
+        if metrics_interval and \
+                engine.metrics.total_steps % metrics_interval == 0:
+            print(tel_export.metrics_line(
+                engine.metrics.summary(wall=time.time() - t0),
+                taps=telemetry.taps.aggregate(),
+                compile_stats=engine.cache_stats(),
+                spans=telemetry.recorder.counters()))
+
     # the warm-up wave builds the bucket layouts this workload visits ...
     submit_wave(args.requests)
-    results = engine.run()
+    results = engine.run(on_step=metrics_tick)
     warm = engine.cache_stats()
     # ... after which serving the same workload shape builds nothing
     submit_wave(args.requests)
-    results += engine.run()
+    results += engine.run(on_step=metrics_tick)
     dt = time.time() - t0
 
     done = len(results)
@@ -192,6 +229,9 @@ def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
               f"refreshes={cs['refreshes']} skips={cs['skips']} "
               f"interval_hist={cs['refresh_interval_hist']} "
               f"store_bytes_total={engine.store.bytes_total}")
+    if telemetry is not None:
+        _report_telemetry(telemetry, engine, pipe, results, m, stats,
+                          trace_path, tel_export)
     # only the fifo drain replays deterministically (edf priorities move
     # with the wall clock, degradation shifts the level mix)
     if policy == "fifo" and stats["compiled"] != warm["compiled"]:
@@ -199,6 +239,66 @@ def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
                              "after bucket warm-up")
     m["img_per_s"] = done / max(dt, 1e-9)
     return m
+
+
+def _report_telemetry(telemetry, engine, pipe, results, m, stats,
+                      trace_path, tel_export) -> None:
+    """The telemetry report after the drain: taps, the final metrics
+    line, the cost report with attribution and calibration (--profile),
+    alerts and post-mortems, and the trace file."""
+    agg = telemetry.taps.aggregate()
+    if "drift" in agg:
+        print(f"[taps] drift_mean={agg['drift']['mean']:.4g} "
+              f"drift_max={agg['drift']['max']:.4g} "
+              f"eps_norm_mean={agg['eps_norm']['mean']:.4g} over "
+              f"{agg['request_steps']} request-steps")
+    elif "eps_norm" in agg:
+        print(f"[taps] eps_norm_mean={agg['eps_norm']['mean']:.4g} "
+              f"over {agg['request_steps']} request-steps")
+    print(tel_export.metrics_line(m, taps=agg, compile_stats=stats,
+                                  spans=telemetry.recorder.counters(),
+                                  tag="metrics-final"))
+    if telemetry.profiling:
+        # count each packed runner once, off the dispatch path: the
+        # analytic ledger vs counted FLOPs vs measured wall
+        hv = telemetry.profile.harvest(pipe)
+        if engine.cache_stats()["compiled"] != stats["compiled"]:
+            raise AssertionError("the cost harvest must build no runner")
+        print(f"[profile] harvest: {hv}")
+        for line in telemetry.profile.report_lines():
+            print(line)
+        cons = telemetry.attribution.conservation()
+        print(f"[attrib] conservation deltas {cons} over "
+              f"{len(telemetry.attribution.finalized)} finalized "
+              f"requests (all must be 0)")
+        for r in results[:4]:
+            c = r.cost
+            print(f"[attrib] req={c.request_id} flops={c.flops / 1e9:.2f}G "
+                  f"wall={c.wall_ms:.1f}ms dispatches={c.dispatches} "
+                  f"queue_wait={c.queue_wait_s:.3f}s")
+        calib = (engine.controller.calibration
+                 if engine.controller is not None else None)
+        if calib:
+            fams = {k: f"{v:.3e}" for k, v in calib["per_family"].items()}
+            print(f"[calib] wall_per_analytic_flop "
+                  f"global={calib['global']:.3e} per_family={fams}")
+    wd = telemetry.watchdog
+    if wd is not None:
+        for a in wd.alerts:
+            print(f"[alert] {a.kind} step={a.step} value={a.value:.4g} "
+                  f"limit={a.limit:.4g} {a.detail}")
+        if wd.dumps_written:
+            print(f"[postmortem] {len(wd.dumps_written)} bundle(s) -> "
+                  f"{wd.dumps_written}")
+    if trace_path:
+        # drift/eps counter tracks: the timeline shows WHEN replay error
+        # spiked, aligned with the dispatch spans
+        for when, vals in telemetry.taps.counter_series():
+            telemetry.recorder.counter("taps", vals, ts=when)
+        telemetry.recorder.dump(trace_path)
+        print(f"[trace] {telemetry.recorder.events_recorded} events "
+              f"({telemetry.recorder.events_dropped} dropped) -> "
+              f"{trace_path} (open in ui.perfetto.dev)")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -244,14 +344,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                     help="diffusion schedule length the DiT was trained at")
     ap.add_argument("--solver", default="ddim", choices=["ddim", "ddpm"])
     ap.add_argument("--cfg-scale", type=float, default=1.5)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record span tracing + device taps and dump a "
+                         "Chrome-trace JSON loadable in ui.perfetto.dev")
+    ap.add_argument("--metrics-interval", type=int, default=0, metavar="N",
+                    help="print one structured [metrics] line every N "
+                         "engine steps (0 = off); also enables taps")
+    ap.add_argument("--profile", action="store_true",
+                    help="cost profiling: measure each dispatch's wall "
+                         "time, count each packed runner's FLOPs, "
+                         "attribute served cost per request, calibrate "
+                         "the budget controller, and print the report")
+    ap.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                    help="enable the SLO watchdog + flight recorder: "
+                         "alerts and uncaught engine exceptions dump a "
+                         "post-mortem bundle here")
+    ap.add_argument("--slo-p99", type=float, default=None, metavar="SEC",
+                    help="p99 latency SLO for the watchdog's rolling "
+                         "breach detector (default: off)")
     # options of later slices: accepted by the parser, refused by serve_dit
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--trace", default=None, metavar="OUT.json")
-    ap.add_argument("--metrics-interval", type=int, default=0, metavar="N")
-    ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--postmortem-dir", default=None, metavar="DIR")
-    ap.add_argument("--slo-p99", type=float, default=None, metavar="SEC")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

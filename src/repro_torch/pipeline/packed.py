@@ -25,6 +25,7 @@ from repro_torch.core import packing
 from repro_torch.core.guidance import split_model_out
 from repro_torch.diffusion import schedule as sch
 from repro_torch.models import dit as dit_mod
+from repro_torch.telemetry import taps as taps_mod
 
 PACKED_SOLVERS = ("ddim", "ddpm")
 
@@ -125,11 +126,13 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
     deep blocks of a micro-step run only if some request refreshes there
     (decided on the host, never by reading the device).
 
-    ``taps`` (on-device telemetry outputs) comes with the telemetry slice.
+    ``taps`` appends telemetry outputs as pure extra data: the step
+    returns ``(xs'[, deltas'], tap)`` where ``tap = {"eps_norm": ([k, n_g],
+    ...), "finite": ([k, n_g], ...), "attn_blocks": (active, total)}`` plus
+    ``"drift": ([k, n_g], ...)`` on the cached family (``telemetry/taps.py``).
+    The tap tensors stay on the device; latents and deltas equal the
+    untapped step's bit for bit (the taps only read them).
     """
-    if taps:
-        raise NotImplementedError("tapped packed steps come with the "
-                                  "telemetry slice of the port")
     if solver not in PACKED_SOLVERS:
         raise ValueError(f"packed steps support solvers {PACKED_SOLVERS}, "
                          f"got {solver!r}")
@@ -152,8 +155,11 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
     cap = layout.resolve_capacity(cfg)
     seg_groups = tuple((m, (2 if guided else 1) * n) for m, n in groups)
     cached = cache_split is not None
+    # the kernel ledger's block counts are a layout constant: host ints
+    blk_stats = layout.attention_block_stats(cfg) if taps else None
 
-    def one_step(params, xs, metas, noises, deltas=None, refreshes=None):
+    def one_step(params, xs, metas, noises, deltas=None, refreshes=None,
+                 tap=None):
         seg_xs, seg_ts, seg_conds = [], [], []
         seg_deltas, seg_refresh = [], []
         for g, (mode, n) in enumerate(groups):
@@ -201,6 +207,8 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
                                                              dim=0)[0]
             else:
                 eps_g, lv = eps, logvar
+            if tap is not None:
+                tap["eps_norm"][g].append(taps_mod.eps_norm_tap(eps_g))
             if solver == "ddim":
                 x_prev = sch.ddim_step(sched, xs[g], eps_g, t_g, tp_g,
                                        0.0, None)
@@ -210,6 +218,13 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
                 x_prev = sch.ddpm_step(sched, xs[g], eps_g, t_g, noises[g],
                                        lv, clip_x0)
             x_prevs.append(x_prev)
+            if tap is not None:
+                tap["finite"][g].append(taps_mod.finite_tap(x_prev))
+                if cached:
+                    # new_delta is the fresh residual at refresh steps and
+                    # the old one at skip steps: the realized replay drift
+                    tap["drift"][g].append(
+                        taps_mod.drift_tap(new_deltas[g], deltas[g]))
         if cached:
             return tuple(x_prevs), new_deltas
         return tuple(x_prevs)
@@ -231,15 +246,23 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
             deltas = tuple(deltas)
             flags = tuple(np.asarray(r, bool).reshape(k_steps, -1)
                           for r in refreshes)
+        names = ("eps_norm", "finite") + (("drift",) if cached else ())
+        tap = ({n: [[] for _ in groups] for n in names} if taps else None)
         for j in range(k_steps):
             m_j = tuple(m[j] for m in metas)
             z_j = (tuple(z[j] for z in noises) if solver == "ddpm"
                    else None)
             if cached:
                 xs, deltas = one_step(params, xs, m_j, z_j, deltas,
-                                      tuple(f[j] for f in flags))
+                                      tuple(f[j] for f in flags), tap)
             else:
-                xs = one_step(params, xs, m_j, z_j)
-        return (xs, deltas) if cached else xs
+                xs = one_step(params, xs, m_j, z_j, tap=tap)
+        out = (xs, deltas) if cached else (xs,)
+        if taps:
+            # per group, one [k, n_g] tensor per tap (micro-steps stacked)
+            tap = {n: tuple(torch.stack(v) for v in tap[n]) for n in names}
+            tap["attn_blocks"] = blk_stats
+            out += (tap,)
+        return out if len(out) > 1 else out[0]
 
     return step

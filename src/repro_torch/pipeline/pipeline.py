@@ -8,11 +8,14 @@ cache, so repeated calls and budget switches between calls reuse what
 was built. ``cache_stats()["compiled"]`` counts runners built.
 
 The pipeline runs on CUDA unless the caller passes ``device="cpu"``; it
-never falls back to the CPU when CUDA is missing. Static diffusion plans
-(ddim, ddpm, dpm2) and cached plans (the activation cache, ddim and ddpm)
-are ported; adaptive and flow plans come with a later slice and raise
-``NotImplementedError``. :meth:`FlexiPipeline.packed_step` hands the
-serving engine its step-granular packed runners from the same cache.
+never falls back to the CPU when CUDA is missing. It samples static
+diffusion plans (ddim, ddpm, dpm2), cached plans (the activation cache,
+ddim and ddpm), flow plans (``flow_euler``, ``flow_heun``: one runner per
+signature, keyed ``("flow",) + sig``) and adaptive plans (``core.adaptive``
+over one guided NFE per ``("nfe", mode, scale, LoRA variant, backend)``,
+so a budget switch between calls builds nothing).
+:meth:`FlexiPipeline.packed_step` hands the serving engine its
+step-granular packed runners from the same cache.
 """
 from __future__ import annotations
 
@@ -24,11 +27,12 @@ import torch
 
 from repro_torch.cache import apply as cache_apply
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import adaptive as adaptive_mod
 from repro_torch.core.flexify import merge_lora
 from repro_torch.core.guidance import GuidanceConfig, make_eps_fn
 from repro_torch.core.scheduler import FlexiSchedule
 from repro_torch.device import resolve_device
-from repro_torch.diffusion import sampler
+from repro_torch.diffusion import flow, sampler
 from repro_torch.diffusion import schedule as sch
 from repro_torch.models.common import dtype_of, tree_map
 from repro_torch.pipeline.packed import PackLayout, make_packed_step_fn
@@ -57,7 +61,7 @@ class SampleResult:
     x0: torch.Tensor
     flops: float                  # analytic FLOPs for the whole batch
     relative_compute: float       # vs the all-powerful baseline, same T
-    trace: Dict[str, Any]         # schedule / timesteps
+    trace: Dict[str, Any]         # schedule / timesteps / switch / gaps
 
 
 class FlexiPipeline:
@@ -77,13 +81,17 @@ class FlexiPipeline:
         self.cfg = cfg
         self.sched = sched
         self._runners: Dict[Tuple, Callable] = {}
+        self._nfes: Dict[Tuple, Callable] = {}
         self._merged: Dict[int, Params] = {}
         self._hits = 0
         self._misses = 0
 
     def cache_stats(self) -> Dict[str, int]:
-        return {"runners": len(self._runners), "hits": self._hits,
-                "misses": self._misses, "compiled": self._misses}
+        """Runner-cache counters; ``compiled`` counts every runner and NFE
+        function built."""
+        return {"runners": len(self._runners), "nfe_fns": len(self._nfes),
+                "hits": self._hits, "misses": self._misses,
+                "compiled": self._misses}
 
     def _lora_variant(self, plan: SamplingPlan) -> str:
         return "none" if self.cfg.dit.lora_rank <= 0 else plan.lora
@@ -95,13 +103,15 @@ class FlexiPipeline:
             self._merged[mode] = merge_lora(self.params, self.cfg, mode)
         return self._merged[mode]
 
-    def _lookup(self, key: Tuple, build: Callable) -> Callable:
-        if key in self._runners:
+    def _lookup(self, key: Tuple, build: Callable,
+                cache: Optional[Dict[Tuple, Callable]] = None) -> Callable:
+        cache = self._runners if cache is None else cache
+        if key in cache:
             self._hits += 1
         else:
             self._misses += 1
-            self._runners[key] = build()
-        return self._runners[key]
+            cache[key] = build()
+        return cache[key]
 
     def _default_cond(self, n: int, cond: Any) -> Tuple[Any, Any]:
         dit = self.cfg.dit
@@ -186,6 +196,39 @@ class FlexiPipeline:
 
         return run
 
+    def _flow_runner(self, plan: SamplingPlan,
+                     schedule: FlexiSchedule) -> Callable:
+        """The runner of a flow plan: the τ ladder split across the
+        schedule's phases, one velocity model per phase."""
+        splits = flow.split_tau_ladder(flow.tau_ladder(plan.T),
+                                       schedule.phases)
+        set_idx = {m: i for i, m in
+                   enumerate(self._param_set_modes(plan, schedule))}
+        solver = "euler" if plan.solver == "flow_euler" else "heun"
+        cfg = self.cfg
+
+        def run(param_sets, x_T, cond):
+            phases = [(flow.make_flow_v_fn(param_sets[set_idx.get(mode, 0)],
+                                           cfg, cond, mode=mode,
+                                           attn_backend=plan.attn_backend),
+                       tsub) for mode, tsub in splits]
+            return flow.sample_flow_phased(phases, x_T, solver=solver)
+
+        return run
+
+    def _nfe_fn(self, mode: int, scale: float,
+                attn_backend: str = "auto") -> Callable:
+        """One guided NFE at ``mode`` (adaptive plans)."""
+        cfg = self.cfg
+        g = GuidanceConfig(scale=scale, mode_cond=mode, mode_uncond=mode)
+
+        def nfe(params, x, t, cond, null_cond, text_mask, null_text_mask):
+            return make_eps_fn(params, cfg, cond, null_cond, g, text_mask,
+                               null_text_mask,
+                               attn_backend=attn_backend)(x, t)
+
+        return nfe
+
     # ------------------------------------------------------------------
     # Step-granular packed runners (the serving engine's)
 
@@ -196,7 +239,9 @@ class FlexiPipeline:
         noise, deltas and refresh flags are inputs, so the serving engine
         replays a layout across any requests and denoise steps; runners
         share this pipeline's cache, so ``cache_stats()`` counts bucket
-        warm-up. ``taps`` comes with the telemetry slice."""
+        warm-up. ``taps=True`` selects the tapped family: the same latents
+        bit for bit plus device tap outputs; its key differs only in
+        ``taps``."""
         key = PackedStepKey(layout, **kw)
         return self._lookup(key, lambda: make_packed_step_fn(
             self.cfg, self.sched, **key._asdict()))
@@ -237,12 +282,10 @@ class FlexiPipeline:
         if eps_transform is not None and plan.cache is not None:
             raise ValueError("eps_transform does not compose with the "
                              "activation cache")
-        if plan.is_adaptive:
-            raise NotImplementedError("adaptive plans come with the sampling "
-                                      "extensions slice of the port")
-        if plan.solver in FLOW_SOLVERS:
-            raise NotImplementedError("flow solvers come with the sampling "
-                                      "extensions slice of the port")
+        if eps_transform is not None and (plan.is_adaptive
+                                          or plan.solver in FLOW_SOLVERS):
+            raise ValueError("eps_transform only applies to static "
+                             "diffusion plans")
         if x_T is None:
             x_T = torch.randn((n,) + tuple(self.cfg.dit.latent_shape),
                               generator=generator, device=self.device)
@@ -251,6 +294,9 @@ class FlexiPipeline:
             noise = noise.to(self.device)
         y, null = self._default_cond(n, cond)
         variant = self._lora_variant(plan)
+        if plan.is_adaptive:
+            return self._sample_adaptive(plan, x_T, y, null, text_mask,
+                                         null_text_mask, generator, noise)
 
         ts = sch.respaced_timesteps(self.sched.num_steps, plan.T)
         schedule = plan.resolve_schedule(self.cfg)
@@ -283,12 +329,48 @@ class FlexiPipeline:
                 trace={"schedule": schedule, "timesteps": ts,
                        "refresh_masks": masks, "cache_refreshes": n_refresh,
                        "cache_steps": n_steps})
-        runner = self._lookup(("static",) + sig,
-                              lambda: self._static_runner(plan, schedule, ts,
-                                                          eps_transform))
-        x0 = runner(param_sets, x_T, y, null, generator, text_mask,
-                    null_text_mask, noise)
+        if plan.solver in FLOW_SOLVERS:
+            runner = self._lookup(("flow",) + sig,
+                                  lambda: self._flow_runner(plan, schedule))
+            x0 = runner(param_sets, x_T, y)
+        else:
+            runner = self._lookup(("static",) + sig,
+                                  lambda: self._static_runner(
+                                      plan, schedule, ts, eps_transform))
+            x0 = runner(param_sets, x_T, y, null, generator, text_mask,
+                        null_text_mask, noise)
         return SampleResult(
             x0=x0, flops=plan.flops(self.cfg, batch=n),
             relative_compute=plan.relative_compute(self.cfg),
             trace={"schedule": schedule, "timesteps": ts})
+
+    def _sample_adaptive(self, plan: SamplingPlan, x_T: torch.Tensor, y: Any,
+                         null: Any, text_mask, null_text_mask,
+                         generator: Optional[torch.Generator],
+                         noise: Optional[torch.Tensor]) -> SampleResult:
+        ts = sch.respaced_timesteps(self.sched.num_steps, plan.T)
+        variant = self._lora_variant(plan)
+        fns: List[Callable] = []
+        for mode in range(1 + len(self.cfg.dit.flex_patch_sizes)):
+            nfe = self._lookup(
+                ("nfe", mode, plan.guidance_scale, variant, plan.attn_backend),
+                lambda m=mode: self._nfe_fn(m, plan.guidance_scale,
+                                            plan.attn_backend),
+                self._nfes)
+            p = self._params_for_mode(mode, variant)
+            fns.append(lambda x, t, _f=nfe, _p=p:
+                       _f(_p, x, t, y, null, text_mask, null_text_mask))
+        res = adaptive_mod.adaptive_sample(
+            fns, self.sched, x_T, ts, self.cfg,
+            threshold=plan.budget.threshold,
+            probe_every=plan.budget.probe_every,
+            weak_mode=plan.weak_mode, solver=plan.solver,
+            guided=plan.guidance_active,
+            lora_unmerged=(variant == "unmerged"),
+            generator=generator, noise=noise)
+        return SampleResult(
+            x0=res.x0, flops=res.flops,
+            relative_compute=res.flops / res.flops_static_powerful,
+            trace={"switch_step": res.switch_step, "gaps": res.gaps,
+                   "timesteps": ts,
+                   "flops_static_powerful": res.flops_static_powerful})

@@ -7,10 +7,11 @@ relative-compute fraction in (0, 1], solved to the weak-first schedule
 with the fewest weak steps that meets it. FLOPs delegate to
 ``core.scheduler`` (the paper's reporting convention).
 
-:class:`AdaptiveBudget` plans validate and price as in the reference, but
-sampling them, like sequence-parallel execution (``parallel=``), comes
-with a later slice. ``cache=`` takes a ``CacheSpec``
-(``cache/policy.py``): the cross-step activation cache.
+:class:`AdaptiveBudget` plans decide their switch step per sample
+(``core/adaptive.py``); flow solvers integrate the rectified-flow ODE
+(``diffusion/flow.py``). Sequence-parallel execution (``parallel=``) comes
+with a later slice. ``cache=`` takes a ``CacheSpec`` (``cache/policy.py``):
+the cross-step activation cache.
 """
 from __future__ import annotations
 

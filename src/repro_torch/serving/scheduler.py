@@ -26,9 +26,18 @@ device. The host waits on the device at the reference's places only: once
 per dummy warm-up dispatch, and once per dispatch in which some request
 finishes (a result counts as served once it exists).
 
-Later slices own the seams that raise here: ``telemetry=`` (span tracing,
-taps, profiling and ``profile_packed_key``: the telemetry slice) and
-``faults=`` / ``quarantine=True`` (the resilience slice).
+``telemetry=`` (``repro_torch.telemetry.Telemetry``) adds spans on the
+engine's clock (admit, plan, pack, build, dispatch, materialize, one row
+per request), routes dispatches through the tapped step family (the same
+latents bit for bit, device tap outputs read only at aggregation), and,
+with profiling on, measures each dispatch's wall time (CUDA events and one
+wait per dispatch), attributes it to the requests in the pack with exact
+conservation, and calibrates the ``BudgetController``; a watchdog checks
+SLOs every step and dumps a post-mortem bundle on alerts or an uncaught
+exception. Without it none of this runs.
+
+A later slice owns the seams that raise here: ``faults=`` /
+``quarantine=True`` (the resilience slice).
 """
 from __future__ import annotations
 
@@ -54,6 +63,10 @@ from repro_torch.serving.batcher import BucketMenu
 from repro_torch.serving.controller import BudgetController
 from repro_torch.serving.metrics import RequestRecord, ServingMetrics
 from repro_torch.serving.queue import Request, RequestQueue
+from repro_torch.telemetry import TapSample, Telemetry
+from repro_torch.telemetry.profile import dummy_packed_args
+from repro_torch.telemetry.profile import packed_key as profile_packed_key
+from repro_torch.telemetry.trace import REQUEST_PID
 
 ENGINE_POLICIES = ("fifo", "edf", "degrade")
 
@@ -108,6 +121,9 @@ class ServedResult:
     x0: torch.Tensor
     budget_served: float
     record: RequestRecord
+    # measured per-request served cost (telemetry.attribution.ServedCost)
+    # when the engine runs with profiling telemetry; None otherwise
+    cost: Optional[Any] = None
 
 
 def request_seed(base_seed: int, rid: int) -> int:
@@ -137,7 +153,7 @@ class ServingEngine:
                  allow_cold: bool = True,
                  cache: Optional[CacheSpec] = None,
                  precapture_small: int = 0,
-                 telemetry: Optional[Any] = None,
+                 telemetry: Optional[Telemetry] = None,
                  faults: Optional[Any] = None,
                  quarantine: Optional[bool] = None,
                  expire_queued: bool = False,
@@ -145,11 +161,6 @@ class ServingEngine:
         if policy not in ENGINE_POLICIES:
             raise ValueError(f"unknown policy {policy!r}; known: "
                              f"{ENGINE_POLICIES}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "engine telemetry (spans, taps, cost profiling, "
-                "profile_packed_key) comes with the telemetry slice of the "
-                "port")
         if faults is not None or quarantine:
             raise NotImplementedError("fault injection and NaN quarantine "
                                       "come with the resilience slice of "
@@ -160,6 +171,19 @@ class ServingEngine:
         self.cfg = pipe.cfg
         self.device = pipe.device
         self.clock = clock or time.monotonic
+        # telemetry: spans stamp the engine's own clock; taps route every
+        # dispatch through the tapped step family (extra data outputs)
+        self.telemetry = telemetry
+        self._taps = telemetry is not None and telemetry.taps_enabled
+        self._rec = telemetry.recorder if telemetry is not None else None
+        # profiling: cost registry + per-request attribution + watchdog;
+        # profiling adds one wait per dispatch to measure its wall time
+        self._profile = telemetry.profile if telemetry is not None else None
+        self._attr = telemetry.attribution if telemetry is not None else None
+        self._watchdog = telemetry.watchdog if telemetry is not None else None
+        self._wd_ticks = 0
+        if telemetry is not None:
+            telemetry.bind_clock(self.clock)
         self.policy = policy
         self._validate_menu(plans)
         ref = next(iter(plans.values()))
@@ -376,6 +400,10 @@ class ServingEngine:
             for req in self._queue.take_expired(now):
                 self.expired.append(req)
                 self.metrics.total_expired += 1
+                if self._rec is not None:
+                    self._rec.instant("expired",
+                                      args={"id": req.id,
+                                            "deadline": req.deadline})
         if not self._admitting:
             return
         policy = "edf" if self.policy == "edf" else "fifo"
@@ -401,7 +429,7 @@ class ServingEngine:
     def _runner_kw(self) -> Dict[str, Any]:
         return dict(solver=self.solver, guidance_scale=self.guidance_scale,
                     clip_x0=self.clip_x0, cache_split=self.cache_split,
-                    attn_backend=self.attn_backend)
+                    attn_backend=self.attn_backend, taps=self._taps)
 
     def _is_warm(self, layout: PackLayout, k: int) -> bool:
         return self.pipe.packed_step_is_warm(layout, k_steps=k,
@@ -516,29 +544,18 @@ class ServingEngine:
     def _dummy_dispatch(self, layout: PackLayout, k: int) -> None:
         """Run one throwaway dispatch at ``layout`` so the runner is built
         and its kernels loaded before a real step meets it."""
+        t0 = self.clock() if self._rec is not None else 0.0
+        key = profile_packed_key(layout, k_steps=k, **self._runner_kw())
         runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
-        shape = tuple(self.cfg.dit.latent_shape)
-        xs, metas, noises, deltas, refreshes = [], [], [], [], []
-        for mode, cap in layout.groups:
-            xs.append(self._zeros((cap,) + shape))
-            meta = np.zeros((k, 3, cap), np.int32)
-            meta[:, 1, :] = -1
-            metas.append(torch.from_numpy(meta).to(self.device))
-            noises.append(self._zeros((k, cap) + shape))
-            if self.cache is not None:
-                deltas.append(self._zeros(
-                    (cap, self.store.mult, self._seg_tokens[mode],
-                     self.cfg.d_model), self.store.dtype))
-                refreshes.append(np.zeros((k, cap), bool))
-        if self.cache is not None:
-            runner(self.pipe.params, tuple(xs), tuple(metas), tuple(noises),
-                   tuple(deltas), tuple(refreshes))
-            self.block_passes += k * self.cache_split
-        else:
-            runner(self.pipe.params, tuple(xs), tuple(metas), tuple(noises))
-            self.block_passes += k * self.cfg.num_layers
+        runner(self.pipe.params, *dummy_packed_args(self.cfg, key, self.device))
+        self.block_passes += k * (self.cfg.num_layers if self.cache is None
+                                  else self.cache_split)
         self.packed_forwards += k
         self._wait()
+        if self._rec is not None:
+            self._rec.complete("compile", t0, self.clock(),
+                               args={"groups": str(layout.groups), "k": k,
+                                     "precapture": True})
 
     # ------------------------------------------------------------------
     # The engine iteration
@@ -568,7 +585,7 @@ class ServingEngine:
                 warm_layouts = {
                     kk: [l for l in ls if l.capacity_for(top.mode)]
                     for kk, ls in self.pipe.warm_packed_layouts(
-                        taps=False, **self._runner_kw()).items()}
+                        **self._runner_kw()).items()}
             kc = k_cap
             while kc >= 1:
                 eligible = [f for f in prio
@@ -626,12 +643,24 @@ class ServingEngine:
         one dispatch, and retire finished requests. Requests that don't
         fit the chosen bucket wait (no drain, no rebuild)."""
         now = self.clock()
+        n_before = len(self._inflight)
         self._admit(now)
+        if self._rec is not None and len(self._inflight) > n_before:
+            self._rec.complete("admit", now, self.clock(),
+                               args={"admitted":
+                                     len(self._inflight) - n_before,
+                                     "queued": len(self._queue)})
         if not self._inflight:
             self._last_step_at = now
             return []
         mult = 2 if self.guided else 1
+        t_plan = self.clock() if self._rec is not None else 0.0
         k, layout, picked = self._plan()
+        if self._rec is not None:
+            self._rec.complete("plan", t_plan, self.clock(),
+                               args={"k": k, "groups": str(layout.groups),
+                                     "inflight": len(self._inflight)})
+        t_pack = self.clock() if self._rec is not None else 0.0
         ddpm = self.solver == "ddpm"
 
         xs, metas, noises = [], [], []
@@ -718,12 +747,28 @@ class ServingEngine:
             self.block_passes += k * L
         self.packed_forwards += k
 
+        if self._rec is not None:
+            self._rec.complete("pack", t_pack, self.clock(),
+                               args={"real_tokens": real_tokens})
+        was_warm = self._is_warm(layout, k) if self._rec is not None else True
+        t_fetch = self.clock() if self._rec is not None else 0.0
         runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
+        if self._rec is not None and not was_warm:
+            # cold dispatch: the runner was built now
+            self._rec.complete("compile", t_fetch, self.clock(),
+                               args={"groups": str(layout.groups), "k": k})
+        timed = self._profile is not None
+        t_disp = self.clock() if self._rec is not None or timed else 0.0
+        events = None
+        if timed and self.device.type == "cuda":
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
         zs = tuple(noises) if ddpm else None
+        tap = None
         if self.cache is not None:
-            outs, new_deltas = runner(self.pipe.params, tuple(xs),
-                                      tuple(metas), zs, tuple(deltas),
-                                      tuple(refreshes))
+            out = runner(self.pipe.params, tuple(xs), tuple(metas), zs,
+                         tuple(deltas), tuple(refreshes))
+            outs, new_deltas, tap = out if self._taps else (*out, None)
             for (mode, _cap), slots, nd in zip(layout.groups, slot_lists,
                                                new_deltas):
                 # slotless rows are not written back: that would clobber
@@ -738,7 +783,25 @@ class ServingEngine:
                                       n_cached_steps - n_refresh)
             self.metrics.set_cache_bytes(self.store.bytes_resident)
         else:
-            outs = runner(self.pipe.params, tuple(xs), tuple(metas), zs)
+            out = runner(self.pipe.params, tuple(xs), tuple(metas), zs)
+            outs, tap = out if self._taps else (out, None)
+        if timed:
+            self._observe_dispatch(layout, k, picked, rf_real, step_flops,
+                                   now, t_disp, events)
+        if self._rec is not None:
+            self._rec.complete(
+                "dispatch", t_disp, self.clock(),
+                args={"k": k, "groups": str(layout.groups),
+                      "requests": sum(len(s) for s in picked),
+                      "warm": was_warm})
+        if tap is not None:
+            # still device tensors: the aggregator reads them at export
+            self.telemetry.taps.add(TapSample(
+                time=now, k=k, groups=layout.groups,
+                n_real=tuple(len(s) for s in picked),
+                eps_norm=tap["eps_norm"], drift=tap.get("drift"),
+                attn_blocks=tap.get("attn_blocks"),
+                finite=tap.get("finite")))
         self._flops_since_sync += step_flops
         if any(f.step + k >= len(f.lp.ts) for sel in picked for f in sel):
             # someone completes on this dispatch: a result counts as
@@ -746,8 +809,12 @@ class ServingEngine:
             # derived from it) waits for the device. This is also the only
             # honest capacity sample: between waits the clock sees only
             # host-side batch assembly
+            t_mat = self.clock() if self._rec is not None else 0.0
             self._wait()
             now = self.clock()
+            if self._rec is not None:
+                self._rec.complete("materialize", t_mat, now,
+                                   args={"k": k})
             if self.controller is not None and self._last_sync_at is not None \
                     and now > self._last_sync_at:
                 self.controller.observe_service(self._flops_since_sync,
@@ -778,8 +845,85 @@ class ServingEngine:
                 blk = self._layout_blocks[layout] = \
                     layout.attention_block_stats(self.cfg)
             self.metrics.record_attention_blocks(blk[0] * k, blk[1] * k)
+        if self._rec is not None:
+            self._rec.counter("engine", {"inflight": len(self._inflight),
+                                         "queued": len(self._queue)})
+        if self._watchdog is not None:
+            self._watch(now)
         self._last_step_at = now
         return finished
+
+    def _observe_dispatch(self, layout: PackLayout, k: int,
+                          picked: List[List[InFlight]],
+                          rf_real: List[np.ndarray], step_flops: float,
+                          now: float, t_disp: float,
+                          events: Optional[List[Any]]) -> None:
+        """Profiling: wait for the dispatch (the one wait profiling adds),
+        take its wall time (CUDA events on the card, the engine's clock on
+        the CPU), and feed the cost registry, the attribution ledger and
+        the controller's calibration."""
+        if events is not None:
+            events[1].record()
+        self._wait()
+        if events is not None:
+            wall_s = events[0].elapsed_time(events[1]) / 1e3
+        else:
+            wall_s = self.clock() - t_disp
+        pkey = profile_packed_key(layout, k_steps=k, **self._runner_kw())
+        self._profile.observe_wall(pkey, wall_s)
+        mult = 2 if self.guided else 1
+        if self._attr is not None:
+            rids: List[int] = []
+            weights: List[float] = []
+            for gi, ((mode, _cap), sel) in enumerate(zip(layout.groups,
+                                                         picked)):
+                full = dit_nfe_flops(self.cfg, mode,
+                                     attn_backend=self.attn_backend)
+                deep = (cache_ledger.deep_block_flops(
+                    self.cfg, mode, self.cache_split,
+                    attn_backend=self.attn_backend)
+                    if self.cache is not None else 0.0)
+                for i, f in enumerate(sel):
+                    rids.append(f.req.id)
+                    if self.cache is not None:
+                        # refresh-aware ledger share: skip steps pay the
+                        # shallow blocks only
+                        w = mult * sum(full if r else full - deep
+                                       for r in rf_real[gi][:, i])
+                    else:
+                        w = mult * k * full
+                    weights.append(float(w))
+            if rids:
+                self._attr.attribute_dispatch(
+                    time=now, label=f"k={k} groups={layout.groups}",
+                    request_ids=rids, weights=weights,
+                    wall_ns=int(wall_s * 1e9), flops=int(step_flops))
+        if self.controller is not None:
+            fams = {mode for (mode, _c), sel in zip(layout.groups, picked)
+                    if sel}
+            self.controller.observe_calibration(
+                fams.pop() if len(fams) == 1 else None, step_flops, wall_s)
+
+    def _watch(self, now: float) -> None:
+        """One watchdog tick: the detectors over this step's observables;
+        every ``taps_every`` ticks the tap window's drift (a host read of
+        the taps, at that cadence only)."""
+        self._wd_ticks += 1
+        drift = None
+        if self._taps and (self._wd_ticks
+                           % self._watchdog.config.taps_every == 0):
+            sub = self.telemetry.taps.aggregate().get("drift")
+            if sub:
+                drift = float(sub.get("max", 0.0))
+        self._watchdog.observe_step(
+            now=now, queued=len(self._queue), inflight=len(self._inflight),
+            compiled=self.pipe.cache_stats()["compiled"],
+            latencies=[r.latency for r in self.metrics.requests],
+            drift_max=drift, nonfinite=self.metrics.total_quarantined)
+        if self._watchdog.should_dump():
+            self._watchdog.dump(
+                reason="alert", engine_snapshot=self.snapshot_state(),
+                attribution=self._attr, registry=self._profile)
 
     def take_expired(self) -> List[Request]:
         """Drain terminally expired requests (deadline passed while
@@ -803,23 +947,53 @@ class ServingEngine:
             deadline=f.req.deadline, budget_requested=f.req.budget,
             budget_served=f.lp.level, tokens=tokens, flops=f.lp.flops)
         self.metrics.record_request(rec)
+        cost = None
+        if self._attr is not None:
+            cost = self._attr.finalize(
+                f.req.id, queue_wait_s=f.admit - f.req.arrival,
+                budget=str(f.lp.level))
+        if self._rec is not None:
+            # one row per request under the "requests" track (tid = id)
+            self._rec.complete(
+                f"req{f.req.id}", f.admit, now,
+                pid=REQUEST_PID, tid=f.req.id,
+                args={"budget_requested": f.req.budget,
+                      "budget_served": f.lp.level,
+                      "steps": len(f.lp.ts), "flops": f.lp.flops,
+                      "queue_wait": f.admit - f.req.arrival})
         return ServedResult(request=f.req, x0=f.x,
-                            budget_served=f.lp.level, record=rec)
+                            budget_served=f.lp.level, record=rec, cost=cost)
 
     # ------------------------------------------------------------------
 
-    def run(self, max_steps: int = 100_000) -> List[ServedResult]:
-        """Drain: step until queue and in-flight are empty."""
+    def run(self, max_steps: int = 100_000,
+            on_step: Optional[Callable[[], None]] = None) -> List[ServedResult]:
+        """Drain: step until queue and in-flight are empty, calling
+        ``on_step()`` after each step (the CLI prints its periodic metrics
+        line there). An uncaught exception, in a step or in ``on_step``,
+        first dumps a post-mortem bundle (when a watchdog with a
+        post-mortem directory is attached), then propagates unchanged."""
         out: List[ServedResult] = []
         steps = 0
-        while (self._queue or self._inflight) and steps < max_steps:
-            out.extend(self.step())
-            steps += 1
+        try:
+            while (self._queue or self._inflight) and steps < max_steps:
+                out.extend(self.step())
+                steps += 1
+                if on_step is not None:
+                    on_step()
+        except Exception:
+            if self._watchdog is not None:
+                self._watchdog.dump(
+                    reason="engine-exception",
+                    engine_snapshot=self.snapshot_state(),
+                    attribution=self._attr, registry=self._profile)
+            raise
         return out
 
     def snapshot_state(self) -> Dict[str, Any]:
-        """Host-side view of engine state: queue, in-flight request
-        positions, runner-cache counters, cache residency."""
+        """Flight-recorder view of engine state: queue, in-flight request
+        positions, runner-cache counters, cache residency. All host-side:
+        safe to call from the crash path."""
         snap: Dict[str, Any] = {
             "queued": [{"id": r.id, "budget": r.budget,
                         "deadline": r.deadline, "arrival": r.arrival}

@@ -584,3 +584,119 @@ def test_serve_cli_on_card(cuda):
     m = serve.main(["--arch", "dit-xl-2", "--smoke", "--requests", "4",
                     "--T", "4"])
     assert m["served"] == 8.0
+
+
+# ---------------------------------------------------------------------------
+# The sampling extensions and the telemetry layer on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [4096, 1024])
+def test_flash_hd128_long_rows_match_plain_on_card(cuda, S):
+    """The text-to-image transformer's self-attention (16 heads x 128, no
+    segment ids, every CTA walking all kv tiles) at batch 1, held on the
+    output's own scale (a typical |o| over these rows is as small as the
+    bf16 TOL): ||o - ref|| / ||ref|| within chip_smoke.py's limit, and the
+    kernel handed a map that hides one 64-wide kv tile of every row reads
+    over it."""
+    limit = 1e-2
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((1, S, 16, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    assert variant_of(q, k, v) == "wgmma"
+    want = flash_attention_ref(q, k, v, causal=False).float()
+
+    def rel(o):
+        return ((o.float() - want).norm() / want.norm()).item()
+
+    assert rel(ops.flash_attention(q, k, v, causal=False)) <= limit
+    bmap = torch.ones((1, S // 128, S // 64), dtype=torch.int32, device=cuda)
+    bmap[:, :, 0] = 0
+    assert rel(ops.flash_attention(q, k, v, causal=False, block_map=bmap,
+                                   block_q=128, block_k=64)) > limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["flow_euler", "flow_heun"])
+def test_flow_pipeline_on_card_matches_cpu(cuda, solver):
+    """The reduced text-to-image config (float32, text + LoRA) through
+    ``FlexiPipeline.sample`` with a flow solver at budget 0.6: the card
+    (the flash kernel's f32 variant) against the CPU (its plain version)
+    at 1e-4, 2 x 6 launches a step per NFE."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion.schedule import linear_schedule
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.models.common import tree_map
+    from repro_torch.pipeline import FlexiPipeline, SamplingPlan
+    cfg = get_config("t2i-transformer").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = dit_mod.init_dit(cfg, gen)
+    for node, key in [(params["deembed"], "w_flex"),
+                      (params["deembed_new"]["m1"], "w"),
+                      (params["final"]["ada"], "w"),
+                      (params["blocks"]["ada"], "w")]:
+        node[key] = torch.randn(node[key].shape, generator=gen) * 0.05
+    plan = SamplingPlan(T=6, budget=0.6, solver=solver, guidance_scale=0.0,
+                        attn_backend="pallas")
+    x_T = torch.randn((2,) + cfg.dit.latent_shape, generator=gen)
+    text = torch.randn((2, cfg.dit.text_len, cfg.dit.text_dim), generator=gen)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pipe = FlexiPipeline(tree_map(lambda a: a.to(dev), params), cfg,
+                             linear_schedule(1000), device=dev)
+        ops.reset_launches()
+        out[dev.type] = pipe.sample(plan, 2, None, cond=text.to(dev),
+                                    x_T=x_T.to(dev)).x0.cpu()
+        if dev.type == "cuda":
+            nfe = 6 * (2 if solver == "flow_heun" else 1)
+            assert ops.flash_attention.launches == cfg.num_layers * nfe
+            assert ops.flash_attention.launches_by_variant["f32"] \
+                == cfg.num_layers * nfe
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_adaptive_on_card_matches_cpu(cuda):
+    """Adaptive DDIM (float32) on the card against the CPU: the same
+    gaps at 1e-4 relative, the same switch step, x0 at 1e-4."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.pipeline import AdaptiveBudget, FlexiPipeline, SamplingPlan
+    pipe = _serving_pipe("float32", cuda)
+    plan = SamplingPlan(T=6, budget=AdaptiveBudget(threshold=1e9,
+                                                   probe_every=1),
+                        attn_backend="pallas")
+    x_T = torch.randn((2,) + pipe.cfg.dit.latent_shape,
+                      generator=torch.Generator().manual_seed(3))
+    cpu = FlexiPipeline(tree_map(lambda a: a.cpu(), pipe.params), pipe.cfg,
+                        pipe.sched, device="cpu")
+    got = pipe.sample(plan, 2, None, cond=[1, 2], x_T=x_T.to(cuda))
+    want = cpu.sample(plan, 2, None, cond=[1, 2], x_T=x_T)
+    assert got.trace["switch_step"] == want.trace["switch_step"] == 6
+    np.testing.assert_allclose(got.trace["gaps"], want.trace["gaps"], rtol=1e-4)
+    torch.testing.assert_close(got.x0.cpu(), want.x0, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_tapped_engine_on_card_equals_untapped(cuda):
+    """bf16 serving on the card with ``Telemetry(taps=True, profile=True)``:
+    x0 equal bit for bit to the untapped engine's, taps read only at
+    aggregation, attribution conserved, walls measured by CUDA events."""
+    from repro_torch.pipeline import FlexiPipeline
+    from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import Telemetry
+    pipe = _serving_pipe("bfloat16", cuda)
+    x0s = {}
+    for tel in (None, Telemetry(taps=True, profile=True)):
+        eng = ServingEngine(FlexiPipeline(pipe.params, pipe.cfg, pipe.sched,
+                                          device=cuda), _plans(),
+                            steps_per_dispatch=4, telemetry=tel)
+        for i in range(6):
+            eng.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+        x0s[tel is None] = {r.request.id: r.x0 for r in eng.run()}
+    assert all(torch.equal(x0s[True][i], x0s[False][i]) for i in x0s[True])
+    agg = tel.taps.aggregate()
+    assert agg["nonfinite_request_steps"] == 0 and agg["eps_norm"]["mean"] > 0
+    assert not any(tel.attribution.conservation().values())
+    assert sum(w.n for w in tel.profile.walls.values()) \
+        == eng.metrics.total_steps
+    assert all(w.min_s > 0 for w in tel.profile.walls.values())

@@ -358,8 +358,7 @@ def test_packed_step_validation(flexi):
     _, fcfg, _ = flexi
     sched = tschedule.linear_schedule(100)
     layout = tpacked.PackLayout.for_counts({0: 1})
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tpacked.make_packed_step_fn(fcfg, sched, layout, taps=True)
+    # taps=True is ported (tests/test_torch_telemetry.py)
     with pytest.raises(ValueError, match="solvers"):
         tpacked.make_packed_step_fn(fcfg, sched, layout, solver="dpm2")
     with pytest.raises(ValueError, match="k_steps"):

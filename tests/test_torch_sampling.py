@@ -280,11 +280,7 @@ def test_unported_paths_raise(xl_small):
     jp, cfg, _ = xl_small
     pipe = FlexiPipeline(to_torch(jp), cfg, tschedule.linear_schedule(100),
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.sample(SamplingPlan(T=4, budget=AdaptiveBudget()), 1, None)
-    with pytest.raises(NotImplementedError):
-        pipe.sample(SamplingPlan(T=4, solver="flow_euler", guidance_scale=0.0),
-                    1, None)
+    # adaptive and flow plans are ported (tests/test_torch_extensions.py)
     with pytest.raises(NotImplementedError):
         SamplingPlan(T=4, parallel=object())
     with pytest.raises(NotImplementedError):

@@ -401,13 +401,11 @@ def test_engine_validation_and_later_slice_seams(pipes):
             T=T, budget=0.6, guidance_kind="weak_cond")})
     with pytest.raises(ValueError, match="policy"):
         ServingEngine(pipe, make_plans(), policy="sjf")
-    for kw, owner in [(dict(telemetry=object()), "telemetry"),
-                      (dict(faults=object()), "resilience"),
+    # telemetry= and taps=True are ported (tests/test_torch_telemetry.py)
+    for kw, owner in [(dict(faults=object()), "resilience"),
                       (dict(quarantine=True), "resilience")]:
         with pytest.raises(NotImplementedError, match=owner):
             ServingEngine(pipe, make_plans(), **kw)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        pipe.packed_step(PackLayout.for_counts({0: 1}), taps=True)
     eng = ServingEngine(pipe, make_plans(), max_tokens_per_step=256)
     assert [eng.quantize(b) for b in (0.3, 0.6, 0.7, 1.0)] \
         == [0.6, 0.6, 1.0, 1.0]
@@ -476,10 +474,6 @@ def test_serve_cli_smoke_on_cpu(capsys, extra):
 
 @pytest.mark.parametrize("flags,owner", [
     (["--replicas", "2"], "fleet"), (["--mesh", "1x2"], "distributed"),
-    (["--trace", "t.json"], "telemetry"),
-    (["--metrics-interval", "5"], "telemetry"),
-    (["--profile"], "telemetry"), (["--postmortem-dir", "d"], "telemetry"),
-    (["--slo-p99", "1.0"], "telemetry"),
     (["--arch", "mamba2-130m"], "language-model")])
 def test_serve_cli_later_slices_raise(flags, owner):
     with pytest.raises(NotImplementedError, match=owner):
