@@ -65,7 +65,23 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    x0 equal bit for bit, the tapped wave adds no host synchronisation
    (``torch.cuda.set_sync_debug_mode``) and profiling adds exactly one
    per dispatch, spans cover the lifecycle, attribution conserves
-   exactly, achieved GFLOP/s per step family, nothing rebuilt.
+   exactly, achieved GFLOP/s per step family, nothing rebuilt;
+9. training at full width: DiT-XL/2 (bf16 parameters, float32 AdamW
+   moments, random trained-like weights from a seed) through
+   ``make_dit_train_step`` at B=32, patch modes 0 and 1 alternating (the
+   shared recipe): ms/step, TFLOP/s against 3 x B x ``dit_nfe_flops`` and
+   peak memory per mode; the LoRA recipe (rank 8) through
+   ``make_distill_step`` with every frozen leaf and its moments unchanged
+   bit for bit; one bootstrapped-MMD step at a batch sized from the
+   measured memory; a learning check on one fixed batch and the same
+   steps with the update's sign flipped, which must fail it; the tiny
+   float32 config's train steps on the card against the CPU (loss,
+   gradients and updated parameters within 1e-5 of their norms); then
+   ``python -m repro_torch.launch.train --arch dit-xl-2 --flexi --recipe
+   lora`` in-process, its checkpoint restored by ``Checkpointer`` and
+   served through ``FlexiPipeline.sample`` at budget 0.6 on the flash
+   kernel (28 ``wgmma`` launches per forward call), x0 equal bit for bit
+   to the in-memory parameters'.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -122,7 +138,8 @@ from repro_torch.kernels.ssd.ssd_chunk import (  # noqa: E402
 from repro_torch.kernels.timing import graph_ms, interleaved_ms  # noqa: E402
 from repro_torch.models import dit as dit_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
-from repro_torch.models.common import init_tree  # noqa: E402
+from repro_torch.models.common import (init_tree, tree_leaves,  # noqa: E402
+                                       tree_map)
 from repro_torch.pipeline import (AdaptiveBudget, FlexiPipeline,  # noqa: E402
                                   SamplingPlan)
 from repro_torch.serving import CacheSpec, ServingEngine  # noqa: E402
@@ -226,6 +243,19 @@ T2I_BATCH, T2I_BUDGETS, T2I_SOLVERS = 2, (0.6, 1.0), ("flow_euler", "flow_heun")
 # random weights x0 depends weakly on attention (PERF.md §6). The limit
 # sits between, 1.5x from each; the readings are deterministic.
 T2I_X0_TOL = 4.7e-3
+# phase 9: training at full width. TRAIN_K timed steps a mode after one
+# warm step each (B = 32, the usual per-device DiT batch); LEARN_N steps
+# on one fixed batch with fixed draws, the mean loss of the last
+# LEARN_TAIL against the loss before any update held under LEARN_LIMIT,
+# and the same steps with the update's sign flipped held over it. On an
+# H100 80GB HBM3 (700 W) the sound run reads 0.230 and the sign-flipped
+# one 1762 (deterministic across repeats; PERF.md §6): the limit sits
+# 2.2x over the sound reading
+TRAIN_BATCH, TRAIN_K, TRAIN_LR = 32, 3, 1e-4
+LEARN_BATCH, LEARN_N, LEARN_TAIL, LEARN_LR = 8, 12, 3, 3e-4
+LEARN_LIMIT = 0.5
+# the card against the CPU on the tests' tiny float32 config (TF32 off)
+CARD_CPU_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1404,6 +1434,330 @@ def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training
+
+
+def cuda_ms(fn):
+    """Run ``fn`` once between CUDA events; (its result, milliseconds)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def train_batch(cfg, n: int, seed: int) -> dict:
+    """A batch of the reference's synthetic class-pattern latents."""
+    from repro_torch.data import pipeline as dp
+    make = dp.make_dit_batch_fn(cfg.dit.latent_shape, cfg.dit.num_classes, n)
+    b = make(0, 0, 1, np.random.default_rng(seed))
+    return {k: torch.from_numpy(b[k]).to(DEV) for k in ("x0", "cond")}
+
+
+def flip_update(step):
+    """The planted fault: the update applied with its sign flipped
+    (p' = p - (p_step - p), in float32, cast back)."""
+    def run(params, opt, batch, gen):
+        new, opt, m = step(params, opt, batch, gen)
+        return tree_map(lambda p, q: (2.0 * p.float() - q.float()).to(p.dtype),
+                        params, new), opt, m
+    return run
+
+
+def learning_check(step, params, opt, batch, n: int):
+    """``n`` steps on one batch with the same draws each step; the loss
+    trajectory and mean(last LEARN_TAIL) / the loss before any update."""
+    losses = []
+    for _ in range(n):
+        params, opt, m = step(params, opt, batch,
+                              torch.Generator(device=DEV).manual_seed(SEED))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    return losses, float(np.mean(losses[-LEARN_TAIL:]) / losses[0])
+
+
+def tiny_f32_cfg():
+    """The tests' tiny DiT (tests/conftest.py ``tiny_dit_cfg``), float32."""
+    from repro_torch.configs import AttnConfig, DiTConfig, ModelConfig
+    return ModelConfig(
+        name="tiny-dit", family="dit", num_layers=2, d_model=64, d_ff=256,
+        vocab_size=0, attn=AttnConfig(4, 4, 16, use_rope=False),
+        dit=DiTConfig(latent_shape=(1, 16, 16, 4), patch_size=(1, 2, 2),
+                      flex_patch_sizes=(), underlying_patch_size=(1, 2, 2),
+                      conditioning="class", num_classes=10),
+        mlp_activation="gelu", norm_type="layernorm",
+        param_dtype="float32", compute_dtype="float32", remat="none",
+        max_seq_len=256)
+
+
+def card_against_cpu(tc) -> float:
+    """One train step of the tiny float32 config (flexified, modes 0 and
+    1, and the MMD fine-tune) on the card and on the CPU from the same
+    weights, draws and mid-run AdamW state (step 5, v non-zero, so no
+    update is a bare sign): the loss, every gradient leaf and every
+    updated parameter leaf within CARD_CPU_TOL (relative; a leaf against
+    its norm). Returns the worst relative error."""
+    from repro_torch.core import flexify
+    from repro_torch.core import mmd
+    from repro_torch.launch import steps as st
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(SEED)
+    params, cfg = flexify(dit_mod.init_dit(tiny_f32_cfg(), g), tiny_f32_cfg(),
+                          [(1, 4, 4)], generator=g)
+    for node, key in [(params["deembed"], "w_flex"), (params["final"]["ada"], "w"),
+                      (params["blocks"]["ada"], "w"), (params, "ps_embed")]:
+        node[key] = torch.randn(node[key].shape, generator=g) * 0.05
+    sched = linear_schedule(1000)
+    batch = {k: v.cpu() for k, v in train_batch(cfg, 4, SEED).items()}
+    state = {"m": tree_map(lambda x: torch.randn(x.shape, generator=g) * 1e-3,
+                           params),
+             "v": tree_map(lambda x: torch.rand(x.shape, generator=g) * 1e-6,
+                           params),
+             "step": torch.tensor(5, dtype=torch.int32)}
+    rel = lambda a, b: float((a - b).abs().max() / b.norm().clamp_min(1e-30))
+    worst = 0.0
+    steps = [st.make_dit_train_step(cfg, tc, sched, mode=m) for m in (0, 1)]
+    steps.append(mmd.make_mmd_finetune_step(cfg, tc, sched))
+    for name, step in zip(("mode 0", "mode 1", "mmd"), steps):
+        draws = step.draw(batch, torch.Generator().manual_seed(SEED + 1))
+        outs = {}
+        for where, dev in (("cpu", cpu), ("card", DEV)):
+            to = lambda x: x.to(dev)
+            d = {k: [to(c) for c in v] if isinstance(v, list) else to(v)
+                 for k, v in draws.items()}
+            p = tree_map(to, params)
+            (loss, _), grads = step.loss_and_grads(
+                p, tree_map(to, batch), **d)
+            new, _, _ = step.with_draws(p, tree_map(to, state),
+                                        tree_map(to, batch), **d)
+            outs[where] = (loss.cpu(), [x.cpu() for x in tree_leaves(grads)],
+                           [x.cpu() for x in tree_leaves(new)])
+        (lc, gc, pc), (lg, gg, pg) = outs["cpu"], outs["card"]
+        errs = [abs(float(lg - lc)) / abs(float(lc))]
+        errs += [rel(a, b) for a, b in zip(gg, gc)]
+        p_err = max(rel(a, b) for a, b in zip(pg, pc))
+        log(f"[train] card vs CPU, tiny float32 config, {name}: loss "
+            f"{float(lg):.6f} vs {float(lc):.6f}; worst loss / gradient-leaf "
+            f"error {max(errs):.2e} of {len(gc)} leaves; updated parameters "
+            f"{p_err:.2e} (tol {CARD_CPU_TOL})")
+        if not max(errs + [p_err]) <= CARD_CPU_TOL:
+            raise AssertionError(f"card and CPU train steps differ ({name}): "
+                                 f"{max(errs + [p_err])}")
+        worst = max(worst, max(errs), p_err)
+    return worst
+
+
+def phase_training(gen: torch.Generator, smi: str) -> dict:
+    """DiT-XL/2 at full width through the port's training path: the
+    shared recipe (modes 0 and 1 alternating), the LoRA recipe's
+    distillation, one bootstrapped-MMD step, a learning check with a
+    planted-fault control, the card against the CPU, the trainer's CLI,
+    and the CLI's checkpoint restored and served on the flash kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import distill, flexify, mmd, trainable_mask
+    from repro_torch.core.scheduler import dit_nfe_flops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    params, cfg = trained_like_xl(gen)
+    sched = linear_schedule(1000)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=1000,
+                     schedule="constant")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{n_params / 1e6:.1f}M parameters in {cfg.param_dtype}, float32 "
+        f"moments; weights in {time.perf_counter() - t0:.1f}s ({smi})")
+
+    # 1. the shared recipe: modes 0 and 1 alternating
+    batch = train_batch(cfg, TRAIN_BATCH, SEED)
+    steps = [st.make_dit_train_step(cfg, tc, sched, mode=m) for m in (0, 1)]
+    p, opt = params, adamw.init_opt_state(params)
+    base = torch.cuda.memory_allocated()
+    tgen = torch.Generator(device=DEV).manual_seed(SEED)
+    ms = {0: [], 1: []}
+    peak = {0: 0, 1: 0}
+    losses = []
+    for i in range(2 * (TRAIN_K + 1)):
+        mode = i % 2
+        torch.cuda.reset_peak_memory_stats()
+        (p, opt, m), dt = cuda_ms(lambda: steps[mode](p, opt, batch, tgen))
+        peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
+        losses.append(m["loss"])
+        if i >= 2:                  # one warm step a mode
+            ms[mode].append(dt)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not all(
+            torch.isfinite(x).all() for x in tree_leaves(p)):
+        raise AssertionError(f"shared-recipe steps not finite: {losses}")
+    per_sample = {}
+    out = {"ms": {}, "tflops": {}, "peak_gb": {}}
+    for mode in (0, 1):
+        step_ms = float(np.median(ms[mode]))
+        flop = 3 * TRAIN_BATCH * dit_nfe_flops(cfg, mode)
+        out["ms"][mode], out["peak_gb"][mode] = step_ms, peak[mode] / 1e9
+        out["tflops"][mode] = flop / step_ms / 1e9
+        per_sample[mode] = (peak[mode] - base) / TRAIN_BATCH
+        log(f"[train] shared recipe, mode {mode} "
+            f"({dit_mod.tokens_for_mode(cfg, mode)} tokens), B={TRAIN_BATCH}: "
+            f"{step_ms:.1f} ms/step (median of {len(ms[mode])}: "
+            f"{', '.join(f'{x:.1f}' for x in ms[mode])}), "
+            f"{flop / 1e12:.2f} TFLOP a step (3 x B x dit_nfe_flops), "
+            f"{out['tflops'][mode]:.1f} TFLOP/s, peak memory "
+            f"{peak[mode] / 1e9:.2f} GB ({smi})")
+    log(f"[train] shared-recipe loss trajectory (modes 0, 1 alternating): "
+        f"{', '.join(f'{x:.4f}' for x in losses)}")
+    del p, opt
+    torch.cuda.empty_cache()
+
+    # 2. the LoRA recipe: rank-8 adapters, the base frozen, distilled
+    lparams, lcfg = flexify(params, cfg, [(1, 4, 4)], lora_rank=8,
+                            generator=gen)
+    mask = trainable_mask(lparams, "lora")
+    dstep = distill.make_distill_step(lcfg, tc, sched, trainable=mask)
+    p, opt = lparams, adamw.init_opt_state(lparams)
+    dms = []
+    for _ in range(3):
+        (p, opt, m), dt = cuda_ms(lambda: dstep(p, opt, batch, tgen))
+        dms.append(dt)
+    flat = lambda tree: dict(enumerate(tree_leaves(tree)))
+    fm, f0, f1 = flat(mask), flat(lparams), flat(p)
+    fmo, fvo = flat(opt["m"]), flat(opt["v"])
+    frozen = [i for i, on in fm.items() if not on]
+    moved = [i for i, on in fm.items() if on and not torch.equal(f1[i], f0[i])]
+    kept = all(torch.equal(f1[i], f0[i]) and not fmo[i].any() and not fvo[i].any()
+               for i in frozen)
+    log(f"[train] LoRA recipe (rank 8, trainable_mask 'lora'): distill "
+        f"{float(m['distill_loss']):.4f}, {dms[-1]:.1f} ms/step (warm: "
+        f"{dms[0]:.1f}); {len(frozen)} frozen leaves "
+        f"({sum(f0[i].numel() for i in frozen) / 1e6:.1f}M) unchanged bit for "
+        f"bit with zero moments: {kept}; {len(moved)} of "
+        f"{len(fm) - len(frozen)} trainable leaves moved")
+    if not kept or not moved or not np.isfinite(float(m["distill_loss"])):
+        raise AssertionError("the LoRA recipe moved a frozen leaf, or moved "
+                             "nothing")
+    del p, opt, lparams, f0, f1, fmo, fvo
+    torch.cuda.empty_cache()
+
+    # 3. one bootstrapped-MMD fine-tune step, its batch sized from the
+    # measured memory: the chain backpropagates through 2 weak and 2
+    # powerful forwards plus the denoising forward (~3.5 mode-0 forwards)
+    free = torch.cuda.mem_get_info()[0] - 8e9
+    mmd_b = int(max(2, min(16, free // (3.5 * 1.25 * per_sample[0]))))
+    mstep = mmd.make_mmd_finetune_step(cfg, tc, sched)
+    opt = adamw.init_opt_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, m), dt = cuda_ms(lambda: mstep(params, opt, train_batch(cfg, mmd_b, 1),
+                                          tgen))
+    mmd_loss, den = float(m["mmd_loss"]), float(m["denoise_loss"])
+    log(f"[train] MMD fine-tune step (2 weak + 2 powerful chain steps), "
+        f"B={mmd_b} (sized from {per_sample[0] / 1e9:.2f} GB a sample at mode "
+        f"0): denoise {den:.4f}, mmd {mmd_loss:.4f}, {dt:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not (np.isfinite(mmd_loss) and np.isfinite(den)):
+        raise AssertionError(f"MMD step not finite: {m}")
+    del opt
+    torch.cuda.empty_cache()
+
+    # 4. the learning check, then the same with the update's sign flipped
+    ltc = dataclasses.replace(tc, learning_rate=LEARN_LR)
+    lstep = st.make_dit_train_step(cfg, ltc, sched, mode=0)
+    lbatch = train_batch(cfg, LEARN_BATCH, 2)
+    ratios = {}
+    for name, fn in (("sound", lstep), ("sign flipped", flip_update(lstep))):
+        traj, ratios[name] = learning_check(fn, params,
+                                            adamw.init_opt_state(params),
+                                            lbatch, LEARN_N)
+        log(f"[train] learning check ({name}), {LEARN_N} steps on one batch "
+            f"(B={LEARN_BATCH}, lr {LEARN_LR}): loss "
+            f"{', '.join(f'{x:.4f}' for x in traj)}; mean(last {LEARN_TAIL}) / "
+            f"first = {ratios[name]:.4f} (limit {LEARN_LIMIT})")
+        torch.cuda.empty_cache()
+    if not ratios["sound"] < LEARN_LIMIT:
+        raise AssertionError(f"training does not learn: {ratios['sound']}")
+    if not ratios["sign flipped"] >= LEARN_LIMIT:
+        raise AssertionError(f"the learning check misses a sign-flipped "
+                             f"update: {ratios['sign flipped']}")
+
+    # 5. the card against the CPU
+    card_err = card_against_cpu(tc)
+    del params
+    torch.cuda.empty_cache()
+
+    # 6. the trainer's CLI in-process at full width; 7. its checkpoint
+    # restored and served on the flash kernel
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t1 = time.perf_counter()
+        cli = train_mod.main(["--arch", "dit-xl-2", "--steps", "4", "--flexi",
+                              "--recipe", "lora", "--batch", "8",
+                              "--ckpt-dir", ckpt_dir])
+        wall = time.perf_counter() - t1
+        ck = Checkpointer(cli["ckpt_root"])
+        t1 = time.perf_counter()
+        tree, _ = ck.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        nbytes = sum(f.stat().st_size for f in Path(ck.root).rglob("*.npy"))
+        log(f"[train] repro_torch.launch.train --arch dit-xl-2 --steps 4 "
+            f"--flexi --recipe lora --batch 8: {wall:.1f}s, losses "
+            f"{cli['losses']}; checkpoint steps {ck.all_steps()}, "
+            f"{nbytes / 1e9:.2f} GB, restored in {restore_s:.1f}s")
+        if ck.all_steps() != [4] or int(tree["opt"]["step"]) != 4:
+            raise AssertionError(f"the CLI's checkpoint: {ck.all_steps()}")
+        mism = [i for i, (a, b) in enumerate(zip(tree_leaves(tree["params"]),
+                                                 tree_leaves(cli["params"])))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+        if mism:
+            raise AssertionError(f"restored leaves differ: {mism}")
+        fcfg = cli["cfg"]
+        plan = SamplingPlan(T=T_STEPS, budget=0.6, guidance_scale=1.5,
+                            attn_backend="pallas")
+        labels = torch.tensor([1, 207, 360, 979], device=DEV) % fcfg.dit.num_classes
+        x0 = {}
+        for name, tree_p in (("restored", tree["params"]),
+                             ("in memory", cli["params"])):
+            pipe = FlexiPipeline(tree_p, fcfg, sched, device=DEV)
+            ops.reset_launches()
+            res = pipe.sample(plan, len(labels),
+                              torch.Generator(device=DEV).manual_seed(7),
+                              cond=labels)
+            torch.cuda.synchronize()
+            launches = ops.flash_attention.launches
+            by_variant = dict(ops.flash_attention.launches_by_variant)
+            calls = forward_calls(plan, fcfg)
+            if not (launches == fcfg.num_layers * calls
+                    == by_variant["wgmma"]):
+                raise AssertionError(f"served {name} parameters: flash "
+                                     f"launches {by_variant}, expected "
+                                     f"{fcfg.num_layers} x {calls}, all wgmma")
+            x0[name] = res.x0
+            log(f"[train] served the {name} parameters at budget 0.6 "
+                f"(schedule {plan.resolve_schedule(fcfg).phases}, CFG 1.5): "
+                f"flash launches {launches} = {fcfg.num_layers} x {calls} "
+                f"forward calls, by variant {by_variant}; x0 finite "
+                f"{bool(torch.isfinite(res.x0).all())}")
+            if name == "restored":
+                serve_launches = launches
+            del pipe
+        same = torch.equal(x0["restored"], x0["in memory"])
+        log(f"[train] x0 restored == in memory, bit for bit: {same}")
+        if not same or not torch.isfinite(x0["restored"]).all():
+            raise AssertionError("x0 from the restored checkpoint differs")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[train] phase done in {time.perf_counter() - t0:.1f}s ({smi})")
+    return {"launches": serve_launches, "card_err": card_err, **out,
+            "learn": ratios}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1431,9 +1785,13 @@ def main() -> None:
     del pipe
     torch.cuda.empty_cache()
     t2i = phase_t2i_flow(gen_t2i, smi)
+    torch.cuda.empty_cache()
+    training = phase_training(torch.Generator(device=DEV).manual_seed(SEED + 3),
+                              smi)
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
-             "telemetry_waves": telemetry["launches"]}
+             "telemetry_waves": telemetry["launches"],
+             "train_then_serve": training["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

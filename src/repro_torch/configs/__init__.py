@@ -4,7 +4,7 @@ their slice)."""
 from typing import Dict, List
 
 from repro_torch.configs.base import (AttnConfig, DiTConfig, ModelConfig,  # noqa: F401
-                                      SSMConfig)
+                                      SSMConfig, TrainConfig)
 from repro_torch.configs.dit_xl_2 import CONFIG as _dit
 from repro_torch.configs.mamba2_130m import CONFIG as _m2
 from repro_torch.configs.t2i_transformer import CONFIG as _t2i

@@ -2,9 +2,9 @@
 
 The same plain frozen dataclasses as ``repro.configs.base``, field for
 field, so a config means the same thing in both packages. The port holds
-the DiT configurations and the Mamba2 (SSD) configuration; the other
-language-model fields (``moe`` and friends) are kept so the field sets
-stay equal, and stay ``None`` here.
+the DiT configurations, the Mamba2 (SSD) configuration and the training
+configuration; the other language-model fields (``moe`` and friends) are
+kept so the field sets stay equal, and stay ``None`` here.
 """
 from __future__ import annotations
 
@@ -119,3 +119,22 @@ class ModelConfig:
         )
         kw.update(overrides)
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    schedule: str = "cosine"            # cosine | linear | constant
+    ema_rate: float = 0.9999
+    microbatch: int = 0                 # 0 = no gradient accumulation
+    zero_sharded_opt_state: bool = True
+    grad_compression: str = "none"      # none | int8_ef
+    opt_dtype: str = "float32"          # bf16 moments for 100B+ models
+    seed: int = 0

@@ -9,6 +9,10 @@ numpy bfloat16 arrays (the ``ml_dtypes`` type JAX hands out) cannot go
 through ``torch.from_numpy``; they pass through float32, which holds every
 bfloat16 value exactly, and are cast back to ``torch.bfloat16``.
 
+The optimizer state crosses the same way (:func:`opt_state_from_numpy`):
+the moment trees ``m`` and ``v`` in their dtype and the 0-d int32
+``step``, so both packages can start from one mid-run state.
+
 Tensors land on CUDA unless the caller passes ``device="cpu"``
 (:func:`repro_torch.device.resolve_device`).
 """
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "float16": torch.float16, "bfloat16": torch.bfloat16,
                  "int32": torch.int32, "int64": torch.int64, "bool": torch.bool}
 
@@ -31,7 +35,7 @@ def leaf_to_torch(leaf: Any, device: Any = None,
     """One numpy (or array-like) leaf → tensor, keeping its dtype unless
     ``dtype`` is given."""
     arr = np.asarray(leaf)
-    src = _TORCH_DTYPES[arr.dtype.name]
+    src = TORCH_DTYPES[arr.dtype.name]
     if arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
     t = torch.from_numpy(np.array(arr, copy=True, order="C"))
@@ -45,3 +49,21 @@ def params_from_numpy(tree: Any, device: Any = None,
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return leaf_to_torch(tree, device, dtype)
+
+
+def opt_state_from_numpy(state: Any, device: Any = None) -> Any:
+    """The reference's AdamW state ``{"m", "v", "step"}`` (numpy leaves)
+    → the port's: moments keep their dtype, ``step`` is a 0-d int32."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device),
+            "step": leaf_to_torch(state["step"], device, torch.int32)}
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The port's tree → nested dict of numpy arrays on the host
+    (bfloat16 leaves as float32, which holds every bfloat16 exactly)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -51,8 +51,11 @@ class DiffusionSchedule:
         """A derived constant as a float32 tensor on ``device`` (cached)."""
         key = (name, str(device))
         if key not in self._tables:
-            self._tables[key] = torch.as_tensor(
-                np.asarray(self._derived[name], np.float32), device=device)
+            # a normal tensor even when first asked for under inference
+            # mode: a training step may later save it for backward
+            with torch.inference_mode(False):
+                self._tables[key] = torch.as_tensor(
+                    np.asarray(self._derived[name], np.float32), device=device)
         return self._tables[key]
 
 
@@ -81,6 +84,15 @@ def _g(sched: DiffusionSchedule, name: str, t: torch.Tensor,
     """Gather a schedule constant at timesteps t [B] → [B, 1, ...]."""
     v = sched.table(name, t.device)[t.long()]
     return v.reshape(v.shape + (1,) * (ndim - v.ndim))
+
+
+def q_sample(sched: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Corrupt x0 to timestep t: sqrt(acp_t)·x0 + sqrt(1 - acp_t)·noise
+    (the float32 constants promote bf16 latents to float32, as in the
+    reference)."""
+    return (_g(sched, "sqrt_acp", t, x0.ndim) * x0
+            + _g(sched, "sqrt_1macp", t, x0.ndim) * noise)
 
 
 def predict_x0_from_eps(sched: DiffusionSchedule, x_t: torch.Tensor,

@@ -1,1 +1,3 @@
-"""Entry points of the port (the DiT serving path of ``launch/serve.py``)."""
+"""Entry points of the port: the DiT serving path of ``launch/serve.py``,
+the DiT trainer ``launch/train.py`` and its step builders
+``launch/steps.py``."""

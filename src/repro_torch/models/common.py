@@ -29,11 +29,20 @@ class ParamSpec:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict (schema or parameters)."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict (schema or parameters),
+    or to the matching leaves of trees of one structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves in the reference's order (``jax.tree.leaves``: sorted keys)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def stack_schema(schema: Any, n: int, axis_name: Optional[str] = "layers") -> Any:

@@ -283,7 +283,10 @@ def _pos_embed(latent_shape: Tuple[int, int, int, int], p: Patch, d: int,
                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     coords = patch_mod.patch_centers(latent_shape, p)
     emb = torch.from_numpy(patch_mod.sincos_pos_embed(d, coords))
-    return emb.to(device=device, dtype=dtype)
+    # a normal tensor even when first built under inference mode (a
+    # sampler's): a later training step must be able to use it
+    with torch.inference_mode(False):
+        return emb.to(device=device, dtype=dtype)
 
 
 def condition_vector(params: Params, t: torch.Tensor, cond: Any,

@@ -700,3 +700,68 @@ def test_tapped_engine_on_card_equals_untapped(cuda):
     assert sum(w.n for w in tel.profile.walls.values()) \
         == eng.metrics.total_steps
     assert all(w.min_s > 0 for w in tel.profile.walls.values())
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+
+
+@pytest.mark.gpu
+def test_full_width_train_step_on_card(cuda):
+    """One DiT-XL/2 train step at full width (28 layers, d=1152, bf16
+    parameters, float32 moments, B=8, mode 0): finite loss and parameters,
+    the step counted, and the peak memory stated."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.launch import steps as st
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.optim import adamw
+    from repro_torch.models.common import tree_leaves
+    cfg = get_config("dit-xl-2")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dit_mod.init_dit(cfg, gen)
+    b = dp.make_dit_batch_fn(cfg.dit.latent_shape, 1000, 8)(
+        0, 0, 1, np.random.default_rng(0))
+    batch = {k: torch.from_numpy(b[k]).to(cuda) for k in ("x0", "cond")}
+    step = st.make_dit_train_step(cfg, TrainConfig(learning_rate=1e-4,
+                                                   warmup_steps=0))
+    torch.cuda.reset_peak_memory_stats()
+    p, o, m = step(params, adamw.init_opt_state(params), batch, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"DiT-XL/2 train step, B=8: loss {float(m['loss']):.4f}, peak "
+          f"memory {peak / 1e9:.2f} GB on {torch.cuda.get_device_name(0)}")
+    assert np.isfinite(float(m["loss"])) and int(o["step"]) == 1
+    assert all(torch.isfinite(x).all() for x in tree_leaves(p))
+    assert p["blocks"]["attn"]["wq"].dtype == torch.bfloat16
+    assert o["m"]["blocks"]["attn"]["wq"].dtype == torch.float32
+    assert peak < torch.cuda.get_device_properties(0).total_memory
+
+
+@pytest.mark.gpu
+def test_checkpoint_then_serve_on_card(cuda, tmp_path):
+    """The trainer's CLI (reduced config, float32, LoRA recipe) on the
+    card, its checkpoint restored and served through
+    ``FlexiPipeline.sample`` on the flash kernel: x0 equal bit for bit to
+    the in-memory parameters', one f32-kernel launch per block a forward."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.diffusion.schedule import linear_schedule
+    from repro_torch.launch import train
+    from repro_torch.pipeline import FlexiPipeline, SamplingPlan
+    out = train.main(["--arch", "dit-xl-2", "--smoke", "--steps", "3",
+                      "--flexi", "--recipe", "lora", "--ckpt-dir",
+                      str(tmp_path)])
+    tree, _ = Checkpointer(out["ckpt_root"]).restore()
+    assert int(tree["opt"]["step"]) == 3
+    cfg = out["cfg"]
+    plan = SamplingPlan(T=4, budget=0.6, attn_backend="pallas")
+    x0 = []
+    for params in (tree["params"], out["params"]):
+        pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=cuda)
+        ops.reset_launches()
+        x0.append(pipe.sample(plan, 2, torch.Generator(cuda).manual_seed(1),
+                              cond=torch.tensor([1, 2], device=cuda)).x0)
+        assert ops.flash_attention.launches_by_variant["f32"] \
+            == ops.flash_attention.launches == cfg.num_layers * plan.T
+    assert torch.isfinite(x0[0]).all() and torch.equal(x0[0], x0[1])

@@ -21,14 +21,15 @@ from repro.models import common as jcommon
 from repro.models import dit as jdit
 from repro_torch import configs as tcfgs
 from repro_torch import convert
-from repro_torch.core import flexify as tflex
 from repro_torch.core import patch as tpatch
 from repro_torch.core import resize as tresize
 from repro_torch.models import common as tcommon
 from repro_torch.models import dit as tdit
 
-# repro.core re-exports the function flexify under the module's name
+# repro.core and repro_torch.core re-export the function flexify under
+# the module's name
 jflex = importlib.import_module("repro.core.flexify")
+tflex = importlib.import_module("repro_torch.core.flexify")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
