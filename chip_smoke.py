@@ -81,7 +81,28 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    lora`` in-process, its checkpoint restored by ``Checkpointer`` and
    served through ``FlexiPipeline.sample`` at budget 0.6 on the flash
    kernel (28 ``wgmma`` launches per forward call), x0 equal bit for bit
-   to the in-memory parameters'.
+   to the in-memory parameters';
+10. the fleet and its resilience layer (``repro_torch.fleet``,
+   ``repro_torch.resilience``) on the phase-3 DiT-XL/2 weights, menu
+   {0.6, 0.8, 1.0}, T=10 DDIM, CFG 1.5, on the virtual clock: a wave of 15
+   requests over 3 packed replicas (all on this card) under ``cheapest``,
+   then ``affinity``, each after a rehearsal that a background thread
+   warms (``BackgroundCompiler``): every flash launch on ``wgmma``, 28 x
+   the packed forwards summed over the replicas, no runner built after
+   the warm-up, each x0 held against ``FlexiPipeline.sample`` with the
+   fleet's seed at ||x0 - ref|| / ||ref|| <= 3e-3, and a planted fault (a
+   request held against another request's seed) must read over it; the
+   chaos run (``default_fault_plan``: crash, hang, heartbeat delay,
+   partition, slowdown, NaN poison, slot corruption, allocation failures;
+   4 replicas, 32 requests, rehearsed then measured): nothing lost, every
+   x0 finite, the crashed and the partitioned replica dead, every
+   escalated and every moved request within 3e-3 of its reference, no
+   runner built; the journal replay (``build/fleet_journal.jsonl``):
+   exactly once, within 3e-3; the phase-7 wave through an engine with
+   ``faults=None`` and through an armed, quarantining one equal to the
+   stock engine bit for bit, the armed one adding no synchronising call
+   over the tapped one; ``launch/serve.py --replicas 3`` in-process at
+   full width.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -94,6 +115,7 @@ there is no CUDA card or no port next to this file.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -256,6 +278,14 @@ LEARN_BATCH, LEARN_N, LEARN_TAIL, LEARN_LR = 8, 12, 3, 3e-4
 LEARN_LIMIT = 0.5
 # the card against the CPU on the tests' tiny float32 config (TF32 off)
 CARD_CPU_TOL = 1e-5
+# phase 10: the fleet. FLEET_N requests (the phase-7 wave's size) over
+# FLEET_REPLICAS packed replicas on the virtual clock; the chaos run is
+# resilience/chaos.default_fault_plan's (4 replicas, 32 requests, every
+# fault kind); the replay abandons a 2-replica fleet of 8 requests after 2
+# finish. Every x0 is held at SERVE_X0_TOL against its own reference: a
+# packed request runs GEMMs of other shapes than the request alone
+FLEET_N, FLEET_REPLICAS = 15, 3
+FLEET_JOURNAL = ROOT / "build" / "fleet_journal.jsonl"
 
 
 def log(msg: str) -> None:
@@ -1435,6 +1465,273 @@ def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the fleet and its resilience layer
+
+
+class FleetClock:
+    """The fleet's injected clock: virtual time, advanced by the replicas'
+    modeled dispatch costs and by the chaos harness's ticks."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> float:
+        self.t += dt
+        return self.t
+
+
+def fleet_passes(fleet) -> tuple:
+    """(packed forwards, block passes) summed over a fleet's replicas."""
+    return (sum(r.engine.packed_forwards for r in fleet.replicas.values()),
+            sum(r.engine.block_passes for r in fleet.replicas.values()))
+
+
+def check_launches(name: str, L: int, forwards: int, passes: int,
+                   extra: int = 0) -> int:
+    """Every flash launch since the reset on wgmma, and as many as the
+    block passes (L per packed forward without a cache) plus ``extra``."""
+    n = ops.flash_attention.launches
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    if n != passes + extra or by_variant["wgmma"] != n or n == 0:
+        raise AssertionError(f"{name}: flash launches {by_variant} for "
+                             f"{forwards} packed forwards, {passes} block "
+                             f"passes (+{extra}), not all wgmma")
+    return n
+
+
+def phase_fleet(pipe: FlexiPipeline, smi: str) -> dict:
+    """The fleet on the card: a wave over 3 packed replicas (cheapest, then
+    affinity) after a rehearsal that a background thread warms; the chaos
+    run (rehearsal, then measured); the journal replay; the disarmed and
+    the armed engine; the fleet CLI."""
+    from repro_torch.fleet import BackgroundCompiler, Fleet
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.resilience import FaultInjector, FaultPlan
+    from repro_torch.resilience import chaos
+
+    t_phase = time.perf_counter()
+    cfg = pipe.cfg
+    L = cfg.num_layers
+    plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
+             for b in BUDGETS}
+    fpipe = FlexiPipeline(pipe.params, cfg, pipe.sched, device=DEV)
+    kw = {"steps_per_dispatch": SERVE_K}
+    rng = np.random.default_rng(SEED + 10)
+    wave = [(int(rng.integers(0, cfg.dit.num_classes)), BUDGETS[i % 3])
+            for i in range(FLEET_N)]
+
+    def new_fleet(policy):
+        return Fleet(fpipe, plans, FLEET_REPLICAS, router=policy,
+                     clock=FleetClock(), engine_kwargs=kw)
+
+    # 1. a fleet wave under each policy, after a rehearsal
+    refs, launches, out = {}, {"fleet": 0}, {}
+    for policy in ("cheapest", "affinity"):
+        reh = new_fleet(policy)
+        t0 = time.perf_counter()
+        reh.warmers[0] = BackgroundCompiler(reh.replicas[0].engine,
+                                            max_per_mode=1).start()
+        for label, b in wave:
+            reh.submit(cond=label, budget=b)
+        reh.run()
+        reh.wait_warm(timeout=600.0)
+        t_reh = time.perf_counter() - t0
+        built = fpipe.cache_stats()["compiled"]
+        fleet = new_fleet(policy)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for label, b in wave:
+            fleet.submit(cond=label, budget=b)
+        res = fleet.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards, passes = fleet_passes(fleet)
+        if passes != L * forwards:
+            raise AssertionError(f"fleet {policy}: {passes} block passes for "
+                                 f"{forwards} packed forwards")
+        n_flash = check_launches(f"fleet {policy}", L, forwards, passes)
+        launches["fleet"] += n_flash
+        if fpipe.cache_stats()["compiled"] != built or len(res) != FLEET_N:
+            raise AssertionError(f"fleet {policy}: served {len(res)}; runners "
+                                 f"{built} -> {fpipe.cache_stats()['compiled']}"
+                                 f" after the warm-up")
+        for r in res:
+            if r.rid not in refs:
+                refs[r.rid] = pipe.sample(
+                    plans[r.budget_served], 1,
+                    torch.Generator(device=DEV).manual_seed(
+                        fleet.request_seed(r.rid)),
+                    cond=torch.tensor([r.cond], device=DEV)).x0[0].float()
+        errs = {r.rid: rel_err(r.x0, refs[r.rid]) for r in res}
+        bad = {i: e for i, e in errs.items() if not e <= SERVE_X0_TOL}
+        if bad:
+            raise AssertionError(f"fleet {policy}: x0 vs FlexiPipeline.sample "
+                                 f"{bad} > {SERVE_X0_TOL}")
+        s = fleet.summary()
+        rs = s["router"]
+        out[policy] = n_img = FLEET_N / wall
+        log(f"[fleet] {policy}: {FLEET_N} requests over {FLEET_REPLICAS} "
+            f"replicas in {wall:.3f}s = {n_img:.2f} img/s (rehearsal with the "
+            f"background warmer {t_reh:.2f}s, which built "
+            f"{reh.warmers[0].captured} ladder rungs); placements "
+            f"{int(rs['placements'])}, handbacks {int(rs['handbacks'])}, "
+            f"hedges {int(rs['hedges'])}, affinity hit rate "
+            f"{s['affinity_hit_rate']:.3f}, served by replica "
+            f"{sorted(collections.Counter(r.replica for r in res).items())}; "
+            f"{forwards} packed forwards, flash launches {n_flash} all "
+            f"wgmma; 0 runners built; x0 "
+            f"vs FlexiPipeline.sample max {max(errs.values()):.3e} (tol "
+            f"{SERVE_X0_TOL}) ({smi})")
+    # the planted fault: request 0 against the sample drawn with request 1's
+    # seed (its own label and level) must read over the limit
+    r0 = fleet.results[0]
+    wrong = pipe.sample(plans[r0.budget_served], 1,
+                        torch.Generator(device=DEV).manual_seed(
+                            fleet.request_seed(1)),
+                        cond=torch.tensor([r0.cond], device=DEV)).x0[0]
+    planted = rel_err(r0.x0, wrong)
+    log(f"[fleet] planted fault (request 0 held against the seed of request "
+        f"1): {planted:.3e} (tol {SERVE_X0_TOL})")
+    if not planted > SERVE_X0_TOL:
+        raise AssertionError("the fleet's x0 check does not see a request "
+                             "served with another request's seed")
+
+    # 2. chaos: the default plan, rehearsed, then measured
+    ckw = dict(kw, cache=CacheSpec(policy="interval", interval=1))
+    cpipe = FlexiPipeline(pipe.params, cfg, pipe.sched, device=DEV)
+    chaos.run_chaos(cpipe, plans, engine_kwargs=ckw)
+    built = cpipe.cache_stats()["compiled"]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = chaos.run_chaos(cpipe, plans, engine_kwargs=ckw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    forwards, passes = fleet_passes(res["fleet"])
+    launches["chaos"] = check_launches("chaos", L, forwards, passes)
+    states = {r: res["fleet"].membership.state(r) for r in range(4)}
+    if res["requests_lost"] or res["nonfinite_outputs"] \
+            or (states[1], states[3]) != ("dead", "dead") \
+            or res["deaths"] != 2 or not res["escalated_rids"] \
+            or cpipe.cache_stats()["compiled"] != built:
+        raise AssertionError(f"chaos: lost {res['requests_lost']}, non-finite "
+                             f"{res['nonfinite_outputs']}, states {states}, "
+                             f"escalated {res['escalated_rids']}, runners "
+                             f"{built} -> {cpipe.cache_stats()['compiled']}")
+    v = chaos.verify_escalations(cpipe, plans, res, engine_kwargs=ckw)
+    if not (v["escalated_max_rel"] <= SERVE_X0_TOL
+            and v["moved_max_rel"] <= SERVE_X0_TOL):
+        raise AssertionError(f"chaos: escalations / moved requests vs their "
+                             f"references {v} over {SERVE_X0_TOL}")
+    rec = res["recovery"]
+    log(f"[chaos] default plan: {res['requests']} requests, "
+        f"{res['replicas']} replicas, {res['ticks']} ticks in {wall:.3f}s "
+        f"({res['requests'] / wall:.2f} img/s incl. recovery); lost 0, every "
+        f"x0 finite; replicas {states} (crash and partition dead); faults "
+        f"{res['faults']}; escalated {res['escalated_rids']} (bitwise "
+        f"{v['escalated_bitwise']}, max rel {v['escalated_max_rel']:.3e}), "
+        f"moved {res['moved_rids']} (max rel {v['moved_max_rel']:.3e}); "
+        f"quarantined {res['quarantined']}, integrity refreshes "
+        f"{res['integrity_refreshes']}, alloc failures "
+        f"{res['alloc_failures']}; readmit {rec['readmit_count']:.0f} (mean "
+        f"{rec['readmit_mean_s'] * 1e3:.2f} ms virtual), escalation mean "
+        f"{rec['escalation_mean_s'] * 1e3:.2f} ms virtual; {forwards} packed "
+        f"forwards, flash launches {launches['chaos']} all wgmma; 0 runners "
+        f"built after the rehearsal ({smi})")
+
+    # 3. the journal replay
+    FLEET_JOURNAL.parent.mkdir(parents=True, exist_ok=True)
+    FLEET_JOURNAL.unlink(missing_ok=True)
+    ops.reset_launches()
+    rep = chaos.run_replay(cpipe, plans, str(FLEET_JOURNAL),
+                           engine_kwargs=ckw)
+    torch.cuda.synchronize()
+    fa, fb = rep["fleets"]
+    forwards = passes = 0
+    for f in (fa, fb):
+        fw, ps = fleet_passes(f)
+        forwards, passes = forwards + fw, passes + ps
+    ref_calls = sum(forward_calls(plans[r.budget_served], cfg)
+                    for r in fb.results.values())
+    launches["replay"] = check_launches("replay", L, forwards, passes,
+                                        extra=L * ref_calls)
+    if rep["missing"] or rep["duplicates"] or rep["replayed"] < 1 \
+            or not rep["max_readmit_rel"] <= SERVE_X0_TOL:
+        raise AssertionError(f"replay: {rep}")
+    log(f"[replay] {rep['requests']} requests, {rep['finished_before_crash']} "
+        f"finished before the front door was abandoned, {rep['replayed']} "
+        f"replayed exactly once (missing 0, duplicates 0); x0 vs the "
+        f"uninterrupted reference max rel {rep['max_readmit_rel']:.3e} (tol "
+        f"{SERVE_X0_TOL}); journal {rep['journal']}; flash launches "
+        f"{launches['replay']} all wgmma ({L} x {forwards} packed forwards "
+        f"+ {L} x {ref_calls} reference forward calls)")
+
+    # 4. the disarmed engine and the armed one (no warmer is alive here)
+    swave = [(int(rng.integers(0, cfg.dit.num_classes)), BUDGETS[i % 3])
+             for i in range(SERVE_WAVE + SERVE_JOIN)]
+
+    def engine(**ekw):
+        return ServingEngine(FlexiPipeline(pipe.params, cfg, pipe.sched,
+                                           device=DEV), plans, **kw, **ekw)
+
+    x0s, syncs = {}, {}
+    for name, ekw in (("stock", {}),
+                      ("disarmed", dict(faults=None, quarantine=None,
+                                        self_heal=True, max_retries=2,
+                                        cache_integrity=False)),
+                      ("tapped", dict(telemetry=Telemetry(taps=True))),
+                      ("armed", dict(telemetry=Telemetry(taps=True),
+                                     faults=FaultInjector(
+                                         FaultPlan()).for_replica(0),
+                                     quarantine=True))):
+        # a wave to warm, one to reach the steady state (as in phase 8),
+        # and the compared one: the same request ids, so the same seeds
+        eng = engine(**ekw)
+        eng.precapture_warm_set(max_per_mode=1)
+        serve_wave(eng, swave)
+        serve_wave(eng, swave)
+        res, syncs[name] = count_syncs(lambda: serve_wave(eng, swave))
+        x0s[name] = {r.request.id: r.x0 for r in res}
+        if eng.metrics.total_quarantined:
+            raise AssertionError(f"{name}: quarantined a sound request")
+    base = x0s["stock"]
+    for name in ("disarmed", "tapped", "armed"):
+        if sorted(x0s[name]) != sorted(base) or not all(
+                torch.equal(x0s[name][i], base[i]) for i in base):
+            raise AssertionError(f"{name} engine: x0 differs from the stock "
+                                 f"engine's")
+    if syncs["armed"] != syncs["tapped"]:
+        raise AssertionError(f"the armed, quarantining engine added host "
+                             f"syncs: {syncs['tapped']} -> {syncs['armed']}")
+    log(f"[resilience] the phase-7 wave ({len(swave)} requests, third "
+        f"replay): faults=None == stock engine bit for bit; tapped and "
+        f"armed+quarantining (taps, an armed facade, quarantine=True) == "
+        f"stock bit for bit; synchronising calls stock {syncs['stock']}, "
+        f"tapped {syncs['tapped']}, armed {syncs['armed']} (+0)")
+
+    # 5. the fleet CLI in-process at full width (its warmer on a thread)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cli = serve_mod.main(["--arch", "dit-xl-2", "--replicas", "3",
+                          "--requests", "12", "--T", "10"])
+    wall = time.perf_counter() - t0
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    if cli["served"] != 12 or not (
+            0 < by_variant["wgmma"] == ops.flash_attention.launches):
+        raise AssertionError(f"fleet CLI: served {cli['served']}, flash "
+                             f"launches {by_variant}")
+    log(f"[fleet] repro_torch.launch.serve --arch dit-xl-2 --replicas 3 "
+        f"--requests 12 --T 10: served 12 in {wall:.2f}s (weights, warm-up "
+        f"thread and drain) = {cli['img_per_s']:.2f} img/s, placements "
+        f"{int(cli['placements'])}, hedges {int(cli['hedges'])}; flash "
+        f"launches {by_variant} ({smi})")
+    log(f"[fleet] phase done in {time.perf_counter() - t_phase:.1f}s ({smi})")
+    return {"launches": launches, "img_per_s": out}
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: training
 
 
@@ -1782,6 +2079,7 @@ def main() -> None:
     serving = phase_serving(pipe, smi)
     adaptive = phase_adaptive(pipe, smi)
     telemetry = phase_telemetry(pipe, smi)
+    fleet = phase_fleet(pipe, smi)
     del pipe
     torch.cuda.empty_cache()
     t2i = phase_t2i_flow(gen_t2i, smi)
@@ -1791,7 +2089,7 @@ def main() -> None:
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
-             "train_then_serve": training["launches"]}
+             "train_then_serve": training["launches"], **fleet["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -9,6 +9,7 @@ device raises. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -72,9 +73,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
     out = flash_attention_cuda(q, k, v, **kw)
-    flash_attention.launches += 1
-    flash_attention.launches_by_variant[variant_of(q, k, v)] += 1
+    with _count_lock:       # a warm-up thread may launch beside serving
+        flash_attention.launches += 1
+        flash_attention.launches_by_variant[variant_of(q, k, v)] += 1
     return out
+
+
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:

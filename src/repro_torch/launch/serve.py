@@ -19,9 +19,13 @@ controller's calibration ``[calib]``), ``--postmortem-dir DIR`` and
 ``--slo-p99 SEC`` (the SLO watchdog and its flight recorder). Any one of
 them turns on spans and taps.
 
+The fleet path: ``--replicas N`` runs N packed engines behind the
+router (``repro_torch.fleet``; ``--router cheapest|rr|affinity``), all on
+the one card and sharing one pipeline, while a background thread warms
+the small-cohort bucket ladder.
+
 Runs on CUDA unless ``--device cpu``. Later slices own the options that
-raise here: ``--replicas`` (fleet), ``--mesh`` (distributed), and a
-language-model ``--arch``.
+raise here: ``--mesh`` (distributed) and a language-model ``--arch``.
 
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --requests 6
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --policy degrade
@@ -29,6 +33,8 @@ language-model ``--arch``.
       --cache-policy interval --cache-interval 2
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --profile \
       --trace trace.json --metrics-interval 4
+  python -m repro_torch.launch.serve --arch dit-xl-2 --replicas 3 \
+      --router affinity --requests 12 --T 10
 """
 from __future__ import annotations
 
@@ -94,20 +100,15 @@ def build_plan_menu(cfg, args, parallel=None) -> Dict[float, "object"]:
 
 def _later_slice_options(args) -> None:
     """Options whose code comes with a later slice of the port raise."""
-    owners = [("replicas", lambda v: v > 1, "fleet"),
-              ("mesh", bool, "distributed")]
-    for name, is_set, owner in owners:
-        value = getattr(args, name, None)
-        if value is not None and is_set(value):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} comes with the {owner} slice "
-                f"of the port")
+    if getattr(args, "mesh", None):
+        raise NotImplementedError("--mesh comes with the distributed slice "
+                                  "of the port")
 
 
 def serve_dit(cfg, args) -> Dict[str, float]:
     """Serve DiT sampling requests through the continuous-batching engine
-    on ``args.device`` (CUDA unless 'cpu'). Returns the engine's metrics
-    summary."""
+    (or, with ``--replicas`` > 1, a fleet of them) on ``args.device``
+    (CUDA unless 'cpu'). Returns the metrics summary."""
     from repro_torch.device import resolve_device
     from repro_torch.diffusion import schedule as sch
     from repro_torch.models import dit as dit_mod
@@ -120,7 +121,56 @@ def serve_dit(cfg, args) -> Dict[str, float]:
     pipe = FlexiPipeline(params, cfg, sch.linear_schedule(args.train_T),
                          device=device)
     plans = build_plan_menu(cfg, args)
+    if getattr(args, "replicas", 1) > 1:
+        return _serve_dit_fleet(cfg, args, pipe, plans)
     return _serve_dit_engine(cfg, args, pipe, plans)
+
+
+def _serve_dit_fleet(cfg, args, pipe, plans) -> Dict[str, float]:
+    """The fleet path: ``--replicas N`` packed engines behind the router,
+    on the wall clock, sharing ``pipe`` (one card). One background thread
+    warms the small-cohort ladder while the fleet already serves; after
+    the drain every rung must be warm."""
+    from repro_torch.fleet import BackgroundCompiler, Fleet
+
+    engine_kwargs = {"policy": getattr(args, "policy", None) or "fifo",
+                     "max_tokens_per_step":
+                         getattr(args, "max_tokens_per_step", None)}
+    fleet = Fleet(pipe, plans, args.replicas, router=args.router,
+                  engine_kwargs=engine_kwargs)
+    # replicas share one pipeline, so one background walk warms them all
+    fleet.warmers[0] = BackgroundCompiler(fleet.replicas[0].engine,
+                                          name="serve-warm").start()
+    levels = sorted(plans)
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    for i in range(args.requests):
+        deadline = fleet.now + float(rng.uniform(0.5, 5.0))
+        fleet.submit(cond=int(rng.integers(0, cfg.dit.num_classes)),
+                     budget=levels[i % len(levels)], deadline=deadline)
+    results = fleet.run()
+    fleet.wait_warm(timeout=600.0)
+    dt = time.time() - t0
+    s = fleet.summary()
+    for r in results[:4]:
+        print(f"[served] req={r.rid} replica={r.replica} "
+              f"budget={r.budget_served:.2f} latency={r.latency:.2f}s "
+              f"x0_std={float(r.x0.float().std()):.3f}", flush=True)
+    print(f"[fleet] served {s['served']} requests over {s['replicas']} "
+          f"replicas in {dt:.1f}s ({len(results) / max(dt, 1e-9):.2f} "
+          f"img/s) router={args.router}")
+    rs = s["router"]
+    print(f"[fleet] affinity_hit_rate={s['affinity_hit_rate']:.3f} "
+          f"placements={int(rs['placements'])} "
+          f"handbacks={int(rs['handbacks'])} hedges={int(rs['hedges'])}")
+    c = s["cache"]
+    print(f"[cache] pipes={c['pipes']} runners={c['runners']} "
+          f"compiled={c['compiled']} hits={c['hits']} misses={c['misses']}")
+    return {"served": float(s["served"]),
+            "img_per_s": len(results) / max(dt, 1e-9),
+            "affinity_hit_rate": s["affinity_hit_rate"],
+            "placements": rs["placements"], "handbacks": rs["handbacks"],
+            "hedges": rs["hedges"], "runners": float(c["runners"])}
 
 
 def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
@@ -362,8 +412,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--slo-p99", type=float, default=None, metavar="SEC",
                     help="p99 latency SLO for the watchdog's rolling "
                          "breach detector (default: off)")
-    # options of later slices: accepted by the parser, refused by serve_dit
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a fleet of N packed engines behind "
+                         "a router (all on the one card)")
+    ap.add_argument("--router", default="cheapest",
+                    choices=["cheapest", "rr", "affinity"],
+                    help="fleet placement policy (--replicas > 1)")
+    # an option of a later slice: accepted by the parser, refused by
+    # serve_dit
     ap.add_argument("--mesh", default=None)
     args = ap.parse_args(argv)
 

@@ -20,6 +20,7 @@ step-granular packed runners from the same cache.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -85,13 +86,18 @@ class FlexiPipeline:
         self._merged: Dict[int, Params] = {}
         self._hits = 0
         self._misses = 0
+        # serializes the miss check and the insert, so a background warm-up
+        # thread (fleet.warmup) racing the serving thread on one key builds
+        # it once and the counters stay exact
+        self._cache_lock = threading.Lock()
 
     def cache_stats(self) -> Dict[str, int]:
         """Runner-cache counters; ``compiled`` counts every runner and NFE
         function built."""
-        return {"runners": len(self._runners), "nfe_fns": len(self._nfes),
-                "hits": self._hits, "misses": self._misses,
-                "compiled": self._misses}
+        with self._cache_lock:
+            return {"runners": len(self._runners),
+                    "nfe_fns": len(self._nfes), "hits": self._hits,
+                    "misses": self._misses, "compiled": self._misses}
 
     def _lora_variant(self, plan: SamplingPlan) -> str:
         return "none" if self.cfg.dit.lora_rank <= 0 else plan.lora
@@ -106,12 +112,13 @@ class FlexiPipeline:
     def _lookup(self, key: Tuple, build: Callable,
                 cache: Optional[Dict[Tuple, Callable]] = None) -> Callable:
         cache = self._runners if cache is None else cache
-        if key in cache:
-            self._hits += 1
-        else:
-            self._misses += 1
-            cache[key] = build()
-        return cache[key]
+        with self._cache_lock:
+            if key in cache:
+                self._hits += 1
+            else:
+                self._misses += 1
+                cache[key] = build()
+            return cache[key]
 
     def _default_cond(self, n: int, cond: Any) -> Tuple[Any, Any]:
         dit = self.cfg.dit
@@ -258,7 +265,9 @@ class FlexiPipeline:
         (``allow_cold=False``) restricts its planner to these."""
         probe = PackedStepKey(None, **kw)
         out: Dict[int, List[PackLayout]] = {}
-        for key in self._runners:
+        with self._cache_lock:
+            keys = list(self._runners)
+        for key in keys:
             if isinstance(key, PackedStepKey) and key._replace(
                     layout=None, k_steps=probe.k_steps) == probe:
                 out.setdefault(key.k_steps, []).append(key.layout)

@@ -1,2 +1,2 @@
-"""Training runtime of the port: heartbeat fault tolerance and straggler
-mitigation (host-only logic)."""
+"""Runtime of the port: heartbeat fault tolerance, straggler mitigation
+and the elastic mesh-shape planner (host-only logic)."""

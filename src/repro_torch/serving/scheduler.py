@@ -36,13 +36,29 @@ conservation, and calibrates the ``BudgetController``; a watchdog checks
 SLOs every step and dumps a post-mortem bundle on alerts or an uncaught
 exception. Without it none of this runs.
 
-A later slice owns the seams that raise here: ``faults=`` /
-``quarantine=True`` (the resilience slice).
+Resilience seams (``repro_torch.resilience``): ``faults=`` takes a
+per-replica fault facade (``FaultInjector(plan).for_replica(i)``) that can
+fail cache-slot allocations transiently and poison one request's latent
+row with NaN after a dispatch; ``quarantine=True`` (the default when
+armed) drops a trajectory found non-finite and re-enqueues the request at
+the most powerful level with the same randomness (``self_heal``, up to
+``max_retries``), or parks it in ``quarantined`` for a fleet router to
+escalate. Detection reads the finite tap (when telemetry taps are on) and
+the finishing requests' latents in one device-to-host read that takes the
+place of the completion wait: it adds no synchronisation. Every seam call
+sits behind an ``is not None`` check, so with ``faults=None`` and
+quarantine off the engine runs exactly the operations it runs without
+this layer.
+
+``precapture_warm_set`` / ``_dummy_dispatch`` may run on a second thread
+(``fleet.warmup.BackgroundCompiler``) while this one serves: the runner
+cache and the launch counters take locks.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -126,6 +142,28 @@ class ServedResult:
     cost: Optional[Any] = None
 
 
+def level_plans(cfg, sched: sch.DiffusionSchedule,
+                plans: Dict[float, SamplingPlan]) -> Dict[float, LevelPlan]:
+    """Each menu level's resolved step ladder (the engine's own view, and
+    the view a fleet replica prices with)."""
+    out: Dict[float, LevelPlan] = {}
+    for b in sorted(plans):
+        plan = plans[b]
+        fs = plan.resolve_schedule(cfg)
+        ts = sch.respaced_timesteps(sched.num_steps, plan.T)
+        step_modes = np.concatenate(
+            [np.full(n, m, np.int64) for m, n in fs.phases if n])
+        run_len = np.ones(len(step_modes), np.int64)
+        for i in range(len(step_modes) - 2, -1, -1):
+            if step_modes[i] == step_modes[i + 1]:
+                run_len[i] = run_len[i + 1] + 1
+        out[b] = LevelPlan(level=b, plan=plan, ts=ts,
+                           t_prev=np.concatenate([ts[1:], [-1]]),
+                           modes=step_modes, run_len=run_len,
+                           flops=plan.flops(cfg))
+    return out
+
+
 def request_seed(base_seed: int, rid: int) -> int:
     """The generator seed of request ``rid`` under ``base_seed``."""
     a, b = np.random.SeedSequence((base_seed, rid)).generate_state(2)
@@ -156,15 +194,25 @@ class ServingEngine:
                  telemetry: Optional[Telemetry] = None,
                  faults: Optional[Any] = None,
                  quarantine: Optional[bool] = None,
+                 self_heal: bool = True,
+                 max_retries: int = 2,
                  expire_queued: bool = False,
                  cache_integrity: bool = False):
         if policy not in ENGINE_POLICIES:
             raise ValueError(f"unknown policy {policy!r}; known: "
                              f"{ENGINE_POLICIES}")
-        if faults is not None or quarantine:
-            raise NotImplementedError("fault injection and NaN quarantine "
-                                      "come with the resilience slice of "
-                                      "the port")
+        # resilience: ``faults`` is a per-replica fault facade
+        # (resilience.faults.ReplicaFaults), consulted only behind an
+        # ``is not None`` check. Quarantine defaults to armed-only;
+        # ``self_heal`` re-enqueues locally, a fleet turns it off and
+        # escalates through its router instead
+        self._faults = faults
+        self._quarantine = (faults is not None) if quarantine is None \
+            else quarantine
+        self._self_heal = self_heal
+        self._max_retries = max_retries
+        self._retries: Dict[int, int] = {}
+        self.quarantined: List[Request] = []
         self.expired: List[Request] = []
         self._expire_queued = expire_queued
         self.pipe = pipe
@@ -195,24 +243,10 @@ class ServingEngine:
         # resolves to the segment-aware flash kernel inside packed steps,
         # so the FLOPs ledger prices block-granular attention
         self.attn_backend = ref.attn_backend
-        self.levels: Dict[float, LevelPlan] = {}
+        self.levels = level_plans(self.cfg, pipe.sched, plans)
         modes = {0}
-        for b in sorted(plans):
-            plan = plans[b]
-            fs = plan.resolve_schedule(self.cfg)
-            ts = sch.respaced_timesteps(pipe.sched.num_steps, plan.T)
-            step_modes = np.concatenate(
-                [np.full(n, m, np.int64) for m, n in fs.phases if n])
-            run_len = np.ones(len(step_modes), np.int64)
-            for i in range(len(step_modes) - 2, -1, -1):
-                if step_modes[i] == step_modes[i + 1]:
-                    run_len[i] = run_len[i + 1] + 1
-            self.levels[b] = LevelPlan(
-                level=b, plan=plan, ts=ts,
-                t_prev=np.concatenate([ts[1:], [-1]]),
-                modes=step_modes, run_len=run_len,
-                flops=plan.flops(self.cfg))
-            modes.update(int(m) for m in step_modes)
+        for lp in self.levels.values():
+            modes.update(int(m) for m in lp.modes)
         mult = 2 if self.guided else 1
         self._seg_tokens = {m: dit_mod.tokens_for_mode(self.cfg, m)
                             for m in sorted(modes)}
@@ -263,6 +297,11 @@ class ServingEngine:
         #: kernel's launch count must equal under the flash backend
         self.packed_forwards = 0
         self.block_passes = 0
+        #: dispatches the host waited on (those where a request finished):
+        #: the only points where a wall clock sees the device's work
+        self.waits = 0
+        # a background warm-up thread dispatches beside the serving one
+        self._count_lock = threading.Lock()
         self._layout_costs: Dict[Any, Any] = {}
         self._layout_blocks: Dict[Any, Any] = {}
         self._zero_blocks: Dict[Tuple, torch.Tensor] = {}
@@ -334,15 +373,18 @@ class ServingEngine:
                deadline: float = math.inf, *,
                generator: Optional[torch.Generator] = None,
                x_T: Optional[torch.Tensor] = None,
-               noise: Optional[torch.Tensor] = None) -> int:
+               noise: Optional[torch.Tensor] = None,
+               seed: Optional[int] = None) -> int:
         """Enqueue one request; returns its id. Randomness as in
         ``FlexiPipeline.sample``: ``x_T`` ([1, *latent]) and, for DDPM,
         ``noise`` ([T, 1, *latent]) when given, else drawn at admission
         from ``generator`` (on the engine's device), else from a generator
-        seeded with :meth:`request_seed` of the id."""
+        seeded with ``seed`` (a fleet passes the seed of its own request
+        id), else with :meth:`request_seed` of the id."""
         rid = self._next_id
         self._next_id += 1
-        seed = None if generator is not None else self.request_seed(rid)
+        if seed is None and generator is None:
+            seed = self.request_seed(rid)
         now = self.clock()
         req = Request(id=rid, cond=int(cond), budget=float(budget),
                       deadline=deadline, seed=seed, generator=generator,
@@ -450,6 +492,8 @@ class ServingEngine:
                                         f.cache_slot) == f.req.id:
             self.store.release(f.cache_mode, f.cache_slot)
         try:
+            if self._faults is not None and self._faults.take_alloc_failure():
+                raise TransientAllocationError("injected alloc failure")
             f.cache_slot = self.store.alloc(mode, f.req.id)
         except TransientAllocationError:
             f.cache_slot = -1
@@ -541,18 +585,23 @@ class ServingEngine:
         return out
 
     @torch.inference_mode()
-    def _dummy_dispatch(self, layout: PackLayout, k: int) -> None:
+    def _dummy_dispatch(self, layout: PackLayout, k: int,
+                        record: bool = True) -> None:
         """Run one throwaway dispatch at ``layout`` so the runner is built
-        and its kernels loaded before a real step meets it."""
-        t0 = self.clock() if self._rec is not None else 0.0
+        and its kernels loaded before a real step meets it.
+        ``record=False`` skips the span (the background warm-up thread
+        must not interleave writes into the serving thread's recorder)."""
+        record = record and self._rec is not None
+        t0 = self.clock() if record else 0.0
         key = profile_packed_key(layout, k_steps=k, **self._runner_kw())
         runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
         runner(self.pipe.params, *dummy_packed_args(self.cfg, key, self.device))
-        self.block_passes += k * (self.cfg.num_layers if self.cache is None
-                                  else self.cache_split)
-        self.packed_forwards += k
+        with self._count_lock:
+            self.block_passes += k * (self.cfg.num_layers if self.cache is None
+                                      else self.cache_split)
+            self.packed_forwards += k
         self._wait()
-        if self._rec is not None:
+        if record:
             self._rec.complete("compile", t0, self.clock(),
                                args={"groups": str(layout.groups), "k": k,
                                      "precapture": True})
@@ -737,15 +786,17 @@ class ServingEngine:
                     attn_backend=self.attn_backend)
                 step_flops += mult * len(sel) * (k * full
                                                  - deep_skips * deep)
-            self.block_passes += k * L - deep_skips * (L - self.cache_split)
+            passes = k * L - deep_skips * (L - self.cache_split)
         else:
             step_flops = k * sum(
                 mult * len(sel)
                 * dit_nfe_flops(self.cfg, mode,
                                 attn_backend=self.attn_backend)
                 for (mode, _cap), sel in zip(layout.groups, picked))
-            self.block_passes += k * L
-        self.packed_forwards += k
+            passes = k * L
+        with self._count_lock:
+            self.block_passes += passes
+            self.packed_forwards += k
 
         if self._rec is not None:
             self._rec.complete("pack", t_pack, self.clock(),
@@ -769,6 +820,8 @@ class ServingEngine:
             out = runner(self.pipe.params, tuple(xs), tuple(metas), zs,
                          tuple(deltas), tuple(refreshes))
             outs, new_deltas, tap = out if self._taps else (*out, None)
+            if self._faults is not None:
+                self._apply_poison(outs, picked)
             for (mode, _cap), slots, nd in zip(layout.groups, slot_lists,
                                                new_deltas):
                 # slotless rows are not written back: that would clobber
@@ -785,6 +838,8 @@ class ServingEngine:
         else:
             out = runner(self.pipe.params, tuple(xs), tuple(metas), zs)
             outs, tap = out if self._taps else (out, None)
+            if self._faults is not None:
+                self._apply_poison(outs, picked)
         if timed:
             self._observe_dispatch(layout, k, picked, rf_real, step_flops,
                                    now, t_disp, events)
@@ -803,6 +858,7 @@ class ServingEngine:
                 attn_blocks=tap.get("attn_blocks"),
                 finite=tap.get("finite")))
         self._flops_since_sync += step_flops
+        bad: set = set()
         if any(f.step + k >= len(f.lp.ts) for sel in picked for f in sel):
             # someone completes on this dispatch: a result counts as
             # served once it exists, so the finish stamp (and the latency
@@ -810,7 +866,12 @@ class ServingEngine:
             # honest capacity sample: between waits the clock sees only
             # host-side batch assembly
             t_mat = self.clock() if self._rec is not None else 0.0
-            self._wait()
+            if self._quarantine:
+                # the finite flags' read is the wait
+                bad = self._scan_finite(tap, picked, outs, k)
+            else:
+                self._wait()
+            self.waits += 1
             now = self.clock()
             if self._rec is not None:
                 self._rec.complete("materialize", t_mat, now,
@@ -829,7 +890,10 @@ class ServingEngine:
                 f.x_src, f.x_row = outs[g], i
                 f.step += k
                 stepped += 1
-                if f.done:
+                if f.req.id in bad:
+                    self._inflight.remove(f)
+                    self._quarantine_request(f, now)
+                elif f.done:
                     self._inflight.remove(f)
                     finished.append(self._retire(f, now))
         cost = self._layout_costs.get(layout)
@@ -924,6 +988,78 @@ class ServingEngine:
             self._watchdog.dump(
                 reason="alert", engine_snapshot=self.snapshot_state(),
                 attribution=self._attr, registry=self._profile)
+
+    def _apply_poison(self, outs: Sequence[torch.Tensor],
+                      picked: List[List[InFlight]]) -> None:
+        """Fault seam (after the dispatch): overwrite the targeted
+        requests' output rows with NaN in place, on the engine's stream —
+        the failure a silently degraded weak step would have produced. No
+        other row of the pack is touched."""
+        for g, sel in enumerate(picked):
+            for i, f in enumerate(sel):
+                if self._faults is not None \
+                        and self._faults.take_poison(f.req.id):
+                    outs[g][i].fill_(math.nan)
+                    self.metrics.total_poisoned += 1
+
+    def _scan_finite(self, tap: Optional[Dict[str, Any]],
+                     picked: List[List[InFlight]],
+                     outs: Sequence[torch.Tensor], k: int) -> set:
+        """Ids of the requests to quarantine on this completing dispatch:
+        those whose rows the finite tap (taps on) flags on any micro-step,
+        and those finishing now whose latents are not all finite. The
+        flags are gathered on the device and read back in ONE copy, which
+        waits for the dispatch as :meth:`_wait` would: the read takes the
+        wait's place, so quarantine adds no synchronisation."""
+        flags, owners = [], []
+        fin = tap.get("finite") if tap is not None else None
+        for g, sel in enumerate(picked):
+            if not sel:
+                continue
+            if fin is not None:
+                flags.append(fin[g][:, :len(sel)].all(dim=0))
+                owners += [f.req.id for f in sel]
+            # whole rows, no index tensor (an index list would be a copy
+            # to the device); only the finishing requests' flags count
+            flags.append(torch.isfinite(outs[g][:len(sel)]).flatten(1)
+                         .all(dim=1))
+            owners += [f.req.id if f.step + k >= len(f.lp.ts) else None
+                       for f in sel]
+        ok = torch.cat(flags).cpu().tolist()
+        return {rid for rid, good in zip(owners, ok)
+                if rid is not None and not good}
+
+    def _quarantine_request(self, f: InFlight, now: float) -> None:
+        """Non-finite latents detected: drop the trajectory, release its
+        cache slot, and re-enqueue the request at the MOST POWERFUL menu
+        level with the same randomness (seed, or ``x_T`` / ``noise``),
+        restarting from step 0 — the recovered sample is exactly the clean
+        powerful-path sample. With ``self_heal=False`` (fleet mode), or
+        once the retry budget is spent, the request is parked in
+        ``quarantined`` instead, for the caller to escalate (losing it
+        silently is never an option)."""
+        if self.store is not None and f.cache_slot >= 0 \
+                and self.store.owner_of(f.cache_mode,
+                                        f.cache_slot) == f.req.id:
+            self.store.release(f.cache_mode, f.cache_slot)
+        self.metrics.total_quarantined += 1
+        if self._rec is not None:
+            self._rec.instant("quarantine",
+                              args={"id": f.req.id, "step": f.step,
+                                    "level": f.lp.level})
+        n = self._retries.get(f.req.id, 0)
+        if not self._self_heal or n >= self._max_retries:
+            self.quarantined.append(f.req)
+            return
+        self._retries[f.req.id] = n + 1
+        self._queue.submit(dataclasses.replace(f.req,
+                                               budget=max(self.levels)), now)
+
+    def take_quarantined(self) -> List[Request]:
+        """Drain quarantined requests awaiting external escalation (the
+        fleet routes them through ``Router.escalate``)."""
+        out, self.quarantined = self.quarantined, []
+        return out
 
     def take_expired(self) -> List[Request]:
         """Drain terminally expired requests (deadline passed while

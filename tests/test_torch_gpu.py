@@ -765,3 +765,79 @@ def test_checkpoint_then_serve_on_card(cuda, tmp_path):
         assert ops.flash_attention.launches_by_variant["f32"] \
             == ops.flash_attention.launches == cfg.num_layers * plan.T
     assert torch.isfinite(x0[0]).all() and torch.equal(x0[0], x0[1])
+
+
+# ---------------------------------------------------------------------------
+# The fleet and the resilience seams on the card
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+@pytest.mark.gpu
+def test_fleet_on_card_matches_pipeline(cuda):
+    """float32, two packed replicas on the one card behind the affinity
+    router, one killed after its first dispatch: nothing lost, every x0
+    within 1e-4 of the per-request pipeline (seeded by the fleet id), one
+    flash launch per block pass summed over the replicas."""
+    from repro_torch.fleet import Fleet
+    pipe = _serving_pipe("float32", cuda)
+    plans = _plans()
+    fleet = Fleet(pipe, plans, 2, router="affinity", clock=_Clock(),
+                  seconds_per_token=1e-4)
+    ops.reset_launches()
+    rids = [fleet.submit(cond=i, budget=(0.6, 1.0)[i % 2]) for i in range(6)]
+    fleet.tick()
+    assert fleet.kill_replica(0) > 0
+    fleet.run()
+    torch.cuda.synchronize()
+    assert sorted(fleet.results) == rids
+    passes = sum(r.engine.block_passes for r in fleet.replicas.values())
+    assert ops.flash_attention.launches == passes
+    assert ops.flash_attention.launches_by_variant["f32"] == passes
+    for rid, r in fleet.results.items():
+        gen = torch.Generator(cuda).manual_seed(fleet.request_seed(rid))
+        ref = pipe.sample(plans[r.budget_served], 1, gen,
+                          cond=torch.tensor([r.cond], device=cuda)).x0[0]
+        torch.testing.assert_close(r.x0, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_resilience_seams_on_card(cuda):
+    """bf16 on the card: an engine with quarantine on and an armed facade
+    whose plan is empty serves the stock engine's x0 bit for bit; a
+    poisoned request self-heals to the clean powerful-path sample bit for
+    bit (alone in its pack, the same GEMM shapes)."""
+    from repro_torch.pipeline import FlexiPipeline
+    from repro_torch.resilience import FaultInjector, FaultPlan
+    from repro_torch.serving import ServingEngine
+    pipe = _serving_pipe("bfloat16", cuda)
+
+    def engine(**kw):
+        return ServingEngine(FlexiPipeline(pipe.params, pipe.cfg, pipe.sched,
+                                           device=cuda), _plans(),
+                             steps_per_dispatch=4, **kw)
+
+    x0s = []
+    for kw in ({}, {"faults": FaultInjector(FaultPlan()).for_replica(0),
+                    "quarantine": True}):
+        eng = engine(**kw)
+        for i in range(6):
+            eng.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+        x0s.append({r.request.id: r.x0 for r in eng.run()})
+    assert all(torch.equal(x0s[0][i], x0s[1][i]) for i in x0s[0])
+    inj = FaultInjector(FaultPlan())
+    inj.add_poison(0, 0)
+    eng = engine(faults=inj.for_replica(0))
+    eng.submit(cond=3, budget=0.6, seed=5)
+    (healed,) = eng.run()
+    clean = engine()
+    clean.submit(cond=3, budget=1.0, seed=5)
+    (ref,) = clean.run()
+    assert eng.metrics.total_quarantined == 1
+    assert healed.budget_served == 1.0 and torch.equal(healed.x0, ref.x0)

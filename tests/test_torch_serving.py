@@ -401,11 +401,14 @@ def test_engine_validation_and_later_slice_seams(pipes):
             T=T, budget=0.6, guidance_kind="weak_cond")})
     with pytest.raises(ValueError, match="policy"):
         ServingEngine(pipe, make_plans(), policy="sjf")
-    # telemetry= and taps=True are ported (tests/test_torch_telemetry.py)
-    for kw, owner in [(dict(faults=object()), "resilience"),
-                      (dict(quarantine=True), "resilience")]:
-        with pytest.raises(NotImplementedError, match=owner):
-            ServingEngine(pipe, make_plans(), **kw)
+    # telemetry= and taps=True are ported (tests/test_torch_telemetry.py),
+    # faults= and quarantine= too (tests/test_torch_resilience.py):
+    # quarantine is on when armed unless turned off
+    from repro_torch.resilience import FaultInjector, FaultPlan
+    faults = FaultInjector(FaultPlan()).for_replica(0)
+    for kw, on in [(dict(faults=faults), True), (dict(quarantine=True), True),
+                   (dict(faults=faults, quarantine=False), False), ({}, False)]:
+        assert ServingEngine(pipe, make_plans(), **kw)._quarantine is on
     eng = ServingEngine(pipe, make_plans(), max_tokens_per_step=256)
     assert [eng.quantize(b) for b in (0.3, 0.6, 0.7, 1.0)] \
         == [0.6, 0.6, 1.0, 1.0]
@@ -473,7 +476,8 @@ def test_serve_cli_smoke_on_cpu(capsys, extra):
 
 
 @pytest.mark.parametrize("flags,owner", [
-    (["--replicas", "2"], "fleet"), (["--mesh", "1x2"], "distributed"),
+    (["--replicas", "2", "--mesh", "2x1"], "distributed"),
+    (["--mesh", "1x2"], "distributed"),
     (["--arch", "mamba2-130m"], "language-model")])
 def test_serve_cli_later_slices_raise(flags, owner):
     with pytest.raises(NotImplementedError, match=owner):
