@@ -13,7 +13,10 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    split-bf16 pieces) also against the previous kernel of the same
    function, forced with ``variant=``; the flash kernel at the
    text-to-image shapes on the output's own scale (||o - ref|| / ||ref||),
-   where two planted tile-map faults must read over the limit;
+   where two planted tile-map faults must read over the limit; and each
+   variant (``wgmma``, ``mma``, ``f32``) at the language models' head
+   width 256 and gemma2-9b's prefill shape (B=2, S=8192, H=16 over K=8:
+   causal with window 4096 and softcap 50, window 0, and a ragged S);
 3. serve class-conditioned DiT-XL/2 requests (28 layers, d=1152, bf16,
    random trained-like weights from a seed) through
    ``FlexiPipeline.sample`` over a budget menu with the flash kernel as
@@ -31,7 +34,10 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    S=2000, held against ``use_kernel=False``;
 6. time each kernel, its plain version and the PyTorch library call at
    its path's shapes (CUDA graphs, CUDA events); the redesigned kernels
-   in interleaved rounds with their previous kernel and the library call;
+   in interleaved rounds with their previous kernel and the library call
+   (flash at hd 256: compiled FlexAttention with a softcap ``score_mod``
+   and a causal-window ``mask_mod``; SDPA, which has no softcap, as a
+   labelled reference);
 7. serve the same DiT-XL/2 weights through the port's ``ServingEngine``
    (the packed mixed-mode path: requests at different budgets, modes and
    denoise steps share rows of 256 tokens, segment ids keep them apart,
@@ -102,7 +108,24 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    ``faults=None`` and through an armed, quarantining one equal to the
    stock engine bit for bit, the armed one adding no synchronising call
    over the tapped one; ``launch/serve.py --replicas 3`` in-process at
-   full width.
+   full width;
+11. language-model serving (``repro_torch.models.lm`` through
+   ``launch/steps.make_prefill_step`` / ``make_decode_step``): gemma2-9b
+   whole (42 layers, d=3584, 16 heads over 8 x 256, window 4096 on
+   alternate layers, softcaps 50 / 30, vocab 256000, bf16, ~9.24 B random
+   weights drawn on the card from a seed), prefill B=2 x S=8192 on the
+   flash kernel (42 launches a prefill, all on the variant
+   ``select_variant`` names for bf16 hd 256), its last-position logits
+   held against the dense backend (and the local layers' window planted
+   to 0 must read over the limit), then 16 greedy decode steps from the
+   flash prefill's cache against the same tokens from the dense cache
+   (logits within the limit, tokens equal wherever the top-2 gap is
+   clear); prefill ms, decode ms a step and its weight-bytes bound;
+   deepseek-7b, qwen2.5-14b, gemma3-4b and hymba-1.5b at full width cut
+   to 2 layers, and mamba2-130m whole, each prefilled on the flash
+   kernel (B=2, S=2048) and decoded 4 steps, held against dense; then
+   ``python -m repro_torch.launch.serve --arch gemma2-9b --requests 4
+   --batch-slots 2 --prompt-len 512 --max-new 16`` in-process.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -144,7 +167,7 @@ from repro_torch.diffusion.schedule import linear_schedule  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops  # noqa: E402
 from repro_torch.kernels.attention.flash_attention import (  # noqa: E402
-    flash_attention_cuda, variant_of)
+    flash_attention_cuda, select_variant, variant_of)
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.core import patch as patch_mod  # noqa: E402
 from repro_torch.kernels.patch_embed import ops as pe_ops  # noqa: E402
@@ -158,10 +181,13 @@ from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd.ssd_chunk import (  # noqa: E402
     ssd_chunk_cuda, ssd_variant_of)
 from repro_torch.kernels.timing import graph_ms, interleaved_ms  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.models import dit as dit_mod  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.common import (init_tree, tree_leaves,  # noqa: E402
                                        tree_map)
+from repro_torch.runtime.padding import pad_kv_cache  # noqa: E402
 from repro_torch.pipeline import (AdaptiveBudget, FlexiPipeline,  # noqa: E402
                                   SamplingPlan)
 from repro_torch.serving import CacheSpec, ServingEngine  # noqa: E402
@@ -286,6 +312,42 @@ CARD_CPU_TOL = 1e-5
 # packed request runs GEMMs of other shapes than the request alone
 FLEET_N, FLEET_REPLICAS = 15, 3
 FLEET_JOURNAL = ROOT / "build" / "fleet_journal.jsonl"
+# the language models' head width 256 at gemma2-9b's prefill shape (B=2,
+# S=8192, H=16 over K=8): the local layers (causal, window 4096, softcap
+# 50), the global ones (window 0) and a ragged S, in every variant. Held
+# on the output's scale, ||o - ref|| / ||ref||, as the text-to-image
+# shapes: a bf16 output of |o| in [2, 4) is one ulp = 1.6e-2 from its
+# float32 value, so max|err| sits at the 2e-2 level by rounding alone
+# (float32 is held at TOL's max|err|)
+HD256_CASES = [
+    # B, S, H, K, causal, softcap, window
+    (2, 8192, 16, 8, True, 50.0, 4096),
+    (2, 8192, 16, 8, True, 50.0, 0),
+    (2, 8000, 16, 8, True, 50.0, 4096),
+]
+HD256_REL_TOL = 1e-2
+# phase 11: language-model serving. gemma2-9b whole (42 layers, d=3584,
+# vocab 256000, bf16, random weights drawn on the card from a seed):
+# prefill B=2 x S=8192 through make_prefill_step on the flash kernel, then
+# LM_DECODE greedy decode steps; the other configs at full width with
+# depth cut to LM_CUT_LAYERS (mamba2-130m whole), prefill B=2 x
+# LM_SMALL_SEQ and LM_SMALL_DECODE steps. Logits on the flash kernel are
+# held against the dense backend as ||logits - dense|| / ||dense||, a
+# ratio over the whole vocabulary that a few entries do not set; the
+# planted fault (the local layers' window dropped to 0) must read over it.
+# On an H100 80GB HBM3 (700 W) gemma2-9b reads 1.81e-2 at prefill and at
+# every decode step (bf16 rounding in other places over 42 layers: the
+# kernel's unnormalised P, the products' order), the 2-layer configs 3e-3
+# to 8e-3, and the planted fault 0.317 (PERF.md §6): the limit sits 3.3x
+# over the sound reading and 5.3x under the fault.
+LM_FULL = "gemma2-9b"
+LM_BATCH, LM_SEQ, LM_DECODE = 2, 8192, 16
+LM_CUT = ("deepseek-7b", "qwen2.5-14b", "gemma3-4b", "hymba-1.5b", "mamba2-130m")
+LM_CUT_LAYERS = 2
+LM_SMALL_SEQ, LM_SMALL_DECODE = 2048, 4
+LM_LOGIT_TOL = 6e-2
+LM_CLI = ["--arch", LM_FULL, "--requests", "4", "--batch-slots", "2",
+          "--prompt-len", "512", "--max-new", "16"]
 
 
 def log(msg: str) -> None:
@@ -2055,6 +2117,356 @@ def phase_training(gen: torch.Generator, smi: str) -> dict:
             "learn": ratios}
 
 
+# ---------------------------------------------------------------------------
+# Head width 256: phase 2's checks and phase 6's times
+
+
+def flash_ref_by_head(q, k, v, **kw) -> torch.Tensor:
+    """The plain version one (batch row, kv head) at a time: a [G, S, S]
+    float32 score tile alive instead of [B, H, S, S] (8.6 GB at the gemma2
+    shape, and several of them)."""
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        for kh in range(K):
+            hs = slice(kh * G, (kh + 1) * G)
+            out[b:b + 1, :, hs] = flash_attention_ref(
+                q[b:b + 1, :, hs].contiguous(), k[b:b + 1, :, kh:kh + 1].contiguous(),
+                v[b:b + 1, :, kh:kh + 1].contiguous(), **kw)
+    return out
+
+
+def phase_hd256_kernel_checks(gen: torch.Generator) -> float:
+    """Each flash variant at hd 256 and the gemma2 shapes against the plain
+    version: bf16 inputs select ``wgmma`` (``mma`` forced beside it),
+    float32 inputs ``f32``. Returns the worst max|err|."""
+    worst = 0.0
+    for B, S, H, K, c, cap, w in HD256_CASES:
+        kw = dict(causal=c, softcap=cap, window=w)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (randn(gen, (B, S, h, 256), dt) for h in (H, K, K))
+            want = flash_ref_by_head(q, k, v, **kw).float()
+            selected = variant_of(q, k, v)
+            if selected != ("wgmma" if dt == torch.bfloat16 else "f32"):
+                raise AssertionError(f"hd 256 {dt}: selects {selected}")
+            for variant in ((selected, "mma") if dt == torch.bfloat16 else (selected,)):
+                got = flash_attention_cuda(q, k, v, **ops.kernel_kwargs(q, k, **kw),
+                                           variant=variant)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                rel = ((got.float() - want).norm() / want.norm()).item()
+                log(f"[kernel] flash_attention ({variant}) B{B} S{S} H{H} K{K} hd256 "
+                    f"causal={int(c)} cap={cap} win={w} {str(dt)[6:]} (gemma2-9b): "
+                    f"max|err|={err:.3e}, ||err||/||ref||={rel:.3e}")
+                ok = (rel <= HD256_REL_TOL if dt == torch.bfloat16
+                      else err <= TOL[torch.float32])
+                if not ok:
+                    raise AssertionError(f"flash_attention {variant} at hd 256 "
+                                         f"disagrees with its plain version: "
+                                         f"max {err}, rel {rel}")
+                worst = max(worst, err)
+            del q, k, v, want
+    return worst
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask allows in one S x S head."""
+    q = np.arange(S)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, int)
+    hi = q + 1 if causal else np.minimum(q + window, S) if window > 0 else np.full(S, S)
+    return int((hi - lo).sum())
+
+
+def phase_hd256_timing(gen: torch.Generator) -> dict:
+    """The flash kernel at gemma2-9b's prefill shapes (a local layer:
+    causal, window 4096, softcap 50; a global one: window 0), in
+    interleaved rounds with the mma.sync kernel and the one PyTorch call
+    that computes the same function, FlexAttention compiled with a softcap
+    ``score_mod`` and a causal-window ``mask_mod``; SDPA (causal, no
+    softcap, no window: another function) as a labelled reference only.
+    The plain version (one kv head at a time) by CUDA events."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    B, S, H, K, hd = 2, 8192, 16, 8, 256
+    cap = 50.0
+    q, k, v = (randn(gen, (B, S, h, hd), torch.bfloat16) for h in (H, K, K))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    flex = torch.compile(flex_attention)
+    out = {}
+    def score_mod(sc, b, h, qi, ki):
+        return torch.tanh(sc / cap) * cap
+
+    def causal_window(w):
+        def mask_mod(b, h, qi, ki):
+            return (qi >= ki) & (qi - ki < w) if w > 0 else qi >= ki
+        return mask_mod
+
+    for w in (4096, 0):
+        kw = ops.kernel_kwargs(q, k, causal=True, softcap=cap, window=w)
+        bm = create_block_mask(causal_window(w), None, None, S, S, device=DEV)
+        o_flex = flex(qt, kt, vt, score_mod=score_mod, block_mask=bm, enable_gqa=True)
+        want = flash_ref_by_head(q, k, v, causal=True, softcap=cap, window=w).float()
+        flex_rel = ((o_flex.transpose(1, 2).float() - want).norm() / want.norm()).item()
+        t = interleaved_ms({
+            "wgmma": lambda: flash_attention_cuda(q, k, v, **kw, variant="wgmma"),
+            "mma": lambda: flash_attention_cuda(q, k, v, **kw, variant="mma"),
+            "flex": lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=bm,
+                                 enable_gqa=True),
+            "sdpa (causal, no softcap)": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)},
+            calls=5, replays=4)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        flash_ref_by_head(q, k, v, causal=True, softcap=cap, window=w)
+        start.record()
+        for _ in range(2):
+            flash_ref_by_head(q, k, v, causal=True, softcap=cap, window=w)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end) / 2
+        pairs = visible_pairs(S, True, w)
+        flops = 4 * B * H * hd * pairs
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        ms = t["wgmma"]["ms"]
+        log(f"[time] flash_attention B{B} S{S} H{H} K{K} hd{hd} causal softcap "
+            f"{cap} window {w} bf16 (gemma2-9b prefill), medians of "
+            f"{t['wgmma']['rounds']} interleaved rounds (fastest-slowest): "
+            f"{turns_line(t)}; plain {plain:.3f} ms; bound {bound:.4f} ms ({by}: "
+            f"{flops / 1e12:.3f} TFLOP over {pairs} visible pairs a head, "
+            f"{nbytes / 1e6:.0f} MB); {bound / ms:.1%} of the bound, "
+            f"{t['flex']['ms'] / ms:.2f}x FlexAttention's speed (its "
+            f"||o - ref|| / ||ref|| {flex_rel:.3e}), {t['mma']['ms'] / ms:.2f}x "
+            f"the mma kernel's")
+        out[f"B{B} S{S} H{H} K{K} hd{hd} causal softcap {cap:g} window {w}"] = dict(
+            ms=ms, prev_ms=t["mma"]["ms"], plain_ms=plain,
+            library_ms=t["flex"]["ms"], sdpa_causal_no_softcap_ms=t[
+                "sdpa (causal, no softcap)"]["ms"], bound_ms=bound, bound_by=by)
+        del want, o_flex
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: language-model serving
+
+
+def rel_logits(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def lm_decode(cfg, params, cache, first: torch.Tensor, start: int, n: int,
+              feed: torch.Tensor = None):
+    """n greedy decode steps through make_decode_step from ``first``
+    ([B, 1]); with ``feed`` ([B, n]) the tokens fed are those (so two
+    caches can be held step for step), else each step's argmax. Returns
+    (logits [B, n, V], the tokens fed [B, n], wall seconds ending in a
+    synchronisation)."""
+    decode = lm_steps.make_decode_step(cfg)
+    tok, logits_all, fed = first, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fed.append(tok)
+        pos = torch.full((tok.shape[0],), start + i, dtype=torch.int32, device=DEV)
+        logits, cache = decode(params, cache, tok, pos)
+        logits_all.append(logits)
+        tok = (feed[:, i + 1:i + 2] if feed is not None and i + 1 < n
+               else logits.argmax(-1).to(torch.int32)[:, None])
+    torch.cuda.synchronize()
+    return torch.stack(logits_all, 1), torch.cat(fed, 1), time.perf_counter() - t0
+
+
+def lm_check_decode(name: str, got: torch.Tensor, want: torch.Tensor,
+                    errors: list) -> tuple:
+    """Per-step relative logits error, and where the dense top-2 gap is
+    clear (over twice the row's max|difference|, so no rounding can swap
+    the two) the argmaxes must agree. Returns (worst rel, clear rows,
+    agreeing rows)."""
+    rels = [rel_logits(got[:, i], want[:, i]) for i in range(want.shape[1])]
+    top2 = want.float().topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    clear = gap > 2 * (got.float() - want.float()).abs().amax(-1)
+    agree = got.argmax(-1) == want.argmax(-1)
+    if not bool((agree | ~clear).all()):
+        errors.append(f"{name}: greedy tokens differ where the top-2 gap is clear")
+    if not max(rels) <= LM_LOGIT_TOL:
+        errors.append(f"{name}: decode logits {max(rels)} > {LM_LOGIT_TOL}")
+    return max(rels), int(clear.sum()), int((agree & clear).sum())
+
+
+def phase_lm(gen: torch.Generator, smi: str) -> dict:
+    """Language-model serving through make_prefill_step / make_decode_step
+    and the CLI. Every check reads before any limit is applied, so one
+    run prints them all; then the phase fails on any miss."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.common import tree_leaves as leaves
+
+    t0 = time.perf_counter()
+    errors = []
+    want_variant = select_variant(torch.bfloat16, 256, True)
+    ops.reset_launches()
+    expected = 0
+
+    # gemma2-9b at full width and depth
+    cfg = get_config(LM_FULL)
+    params = lm_mod.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    L = cfg.num_layers
+    log(f"[lm] {cfg.name}: {L} layers, d={cfg.d_model}, {cfg.attn.num_heads} "
+        f"heads over {cfg.attn.num_kv_heads} x {cfg.head_dim}, windows "
+        f"{sorted(set(lm_mod.layer_windows(cfg).tolist()))}, softcap "
+        f"{cfg.attn.logit_softcap} / final {cfg.final_logit_softcap}; "
+        f"{n_params / 1e9:.3f} B parameters ({w_bytes / 1e9:.2f} GB) drawn on "
+        f"the card in {time.perf_counter() - t0:.1f}s")
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), device=DEV,
+                         generator=gen)
+    inputs = {"tokens": toks}
+    walls = {}
+    out = {}
+    for run in ("first", "timed"):
+        before = ops.flash_attention.launches
+        t1 = time.perf_counter()
+        logits_p, cache_p = lm_steps.make_prefill_step(cfg, backend="pallas")(
+            params, inputs)
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t1
+        expected += L
+        if ops.flash_attention.launches - before != L:
+            errors.append(f"prefill ({run}): {ops.flash_attention.launches - before} "
+                          f"flash launches, not {L}")
+        out[run] = logits_p
+        if run == "first":
+            del cache_p
+    deterministic = torch.equal(out["first"], out["timed"])
+    t1 = time.perf_counter()
+    logits_d, cache_d = lm_steps.make_prefill_step(cfg, backend="dense")(params, inputs)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t1
+    rel = rel_logits(logits_p, logits_d)
+    fault_cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                                  sliding_window=0))
+    logits_f, cache_f = lm_steps.make_prefill_step(fault_cfg, backend="pallas")(
+        params, inputs)
+    del cache_f
+    expected += L
+    rel_fault = rel_logits(logits_f, logits_d)
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    log(f"[lm] prefill B{LM_BATCH} S{LM_SEQ} on the flash kernel: "
+        f"{walls['timed'] * 1e3:.1f} ms (first call {walls['first'] * 1e3:.1f} "
+        f"ms), {LM_BATCH * LM_SEQ / walls['timed']:.0f} tokens/s; dense backend "
+        f"{dense_s * 1e3:.1f} ms; flash launches {L} a prefill, by variant so far "
+        f"{by_variant} (select_variant names {want_variant!r} for bf16 hd 256); "
+        f"repeat equal bit for bit: {deterministic}")
+    log(f"[lm] last-position logits vs dense: ||err||/||ref|| = {rel:.3e} "
+        f"(limit {LM_LOGIT_TOL}), argmax equal on "
+        f"{int((logits_p.argmax(-1) == logits_d.argmax(-1)).sum())}/{LM_BATCH}; "
+        f"planted fault (local layers' window 4096 -> 0): {rel_fault:.3e}")
+    if not rel <= LM_LOGIT_TOL:
+        errors.append(f"{LM_FULL} prefill logits {rel} > {LM_LOGIT_TOL}")
+    if not rel_fault > LM_LOGIT_TOL:
+        errors.append(f"the planted window fault reads {rel_fault}, within "
+                      f"{LM_LOGIT_TOL}")
+    if not deterministic or not torch.isfinite(logits_p).all():
+        errors.append("prefill logits not finite or not repeatable")
+    del logits_f
+
+    # greedy decode from each cache: dense's own tokens fed to both
+    cache_p = pad_kv_cache(cache_p, LM_SEQ, LM_DECODE)
+    cache_d = pad_kv_cache(cache_d, LM_SEQ, LM_DECODE)
+    first = logits_d.argmax(-1).to(torch.int32)[:, None]
+    dec_d, fed, _ = lm_decode(cfg, params, cache_d, first, LM_SEQ, LM_DECODE)
+    dec_p, _, dec_s = lm_decode(cfg, params, cache_p, first, LM_SEQ, LM_DECODE,
+                                feed=fed)
+    worst, clear, agree = lm_check_decode(LM_FULL, dec_p, dec_d, errors)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache_p.values())
+    decode_ms = dec_s * 1e3 / LM_DECODE
+    bound_w = w_bytes / HBM_BYTES_PER_S * 1e3
+    bound_wc = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"[lm] {LM_DECODE} greedy decode steps from each cache: "
+        f"{decode_ms:.2f} ms a step ({LM_BATCH / decode_ms * 1e3:.0f} tokens/s); "
+        f"bound {bound_w:.2f} ms a step for the weights' {w_bytes / 1e9:.2f} GB at "
+        f"3.35 TB/s ({bound_wc:.2f} ms with the {cache_bytes / 1e9:.2f} GB cache "
+        f"read), {bound_w / decode_ms:.1%} of the weight bound; logits vs the dense "
+        f"cache's: worst step ||err||/||ref|| {worst:.3e}; greedy tokens equal on "
+        f"{agree}/{clear} rows with a clear top-2 gap (of "
+        f"{LM_BATCH * LM_DECODE}) ({smi})")
+    out = dict(prefill_ms=walls["timed"] * 1e3, decode_ms=decode_ms,
+               decode_bound_ms=bound_w, logits_rel=rel, fault_rel=rel_fault)
+    del params, cache_p, cache_d, logits_p, logits_d, dec_p, dec_d
+    torch.cuda.empty_cache()
+
+    # the other configs: full width, depth cut (mamba2-130m whole)
+    for name in LM_CUT:
+        base = get_config(name)
+        cfg = (base if name == "mamba2-130m"
+               else dataclasses.replace(base, num_layers=LM_CUT_LAYERS))
+        params = lm_mod.init_params(cfg, gen)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SMALL_SEQ),
+                             device=DEV, generator=gen)
+        n_attn = cfg.num_layers if cfg.attn is not None else 0
+        before = dict(ops.flash_attention.launches_by_variant)
+        logits_p, cache_p = lm_steps.make_prefill_step(cfg, backend="pallas")(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        got = {k: ops.flash_attention.launches_by_variant[k] - before[k] for k in before}
+        expected += n_attn
+        want_v = select_variant(torch.bfloat16, cfg.head_dim, True) if n_attn else None
+        if sum(got.values()) != n_attn or (n_attn and got[want_v] != n_attn):
+            errors.append(f"{name}: flash launches {got}, expected {n_attn} {want_v}")
+        logits_d, cache_d = lm_steps.make_prefill_step(cfg, backend="dense")(
+            params, {"tokens": toks})
+        rel = rel_logits(logits_p, logits_d)
+        if not rel <= LM_LOGIT_TOL:
+            errors.append(f"{name} prefill logits {rel} > {LM_LOGIT_TOL}")
+        cache_p = pad_kv_cache(cache_p, LM_SMALL_SEQ, LM_SMALL_DECODE)
+        cache_d = pad_kv_cache(cache_d, LM_SMALL_SEQ, LM_SMALL_DECODE)
+        first = logits_d.argmax(-1).to(torch.int32)[:, None]
+        dec_d, fed, _ = lm_decode(cfg, params, cache_d, first, LM_SMALL_SEQ,
+                                  LM_SMALL_DECODE)
+        dec_p, _, dec_s = lm_decode(cfg, params, cache_p, first, LM_SMALL_SEQ,
+                                    LM_SMALL_DECODE, feed=fed)
+        worst, clear, agree = lm_check_decode(name, dec_p, dec_d, errors)
+        a = cfg.attn
+        log(f"[lm] {name} ({cfg.family}, {cfg.num_layers} of {base.num_layers} "
+            f"layers, d={cfg.d_model}"
+            + (f", {a.num_heads}/{a.num_kv_heads} heads x {a.head_dim}, window "
+               f"{a.sliding_window}, qkv bias {a.qkv_bias}, qk-norm {a.qk_norm}"
+               if a else ", attention-free")
+            + f"): prefill B{LM_BATCH} S{LM_SMALL_SEQ} flash launches {got}; "
+            f"logits vs dense {rel:.3e}; {LM_SMALL_DECODE} decode steps "
+            f"{dec_s * 1e3 / LM_SMALL_DECODE:.2f} ms a step, worst "
+            f"{worst:.3e}, tokens equal on {agree}/{clear} clear rows")
+        if not torch.isfinite(dec_p).all():
+            errors.append(f"{name}: decode logits not finite")
+        del params, cache_p, cache_d
+        torch.cuda.empty_cache()
+
+    launches = ops.flash_attention.launches
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    if launches != expected:
+        errors.append(f"flash launches {launches}, expected {expected}")
+
+    # the CLI, in-process, on its default (dense) prefill backend
+    t1 = time.perf_counter()
+    cli = serve_mod.main(LM_CLI)
+    cli_s = time.perf_counter() - t1
+    log(f"[lm] repro_torch.launch.serve {' '.join(LM_CLI)}: served "
+        f"{cli['served']:.0f} requests, {cli['tokens']:.0f} decode tokens in "
+        f"{cli['seconds']:.2f}s (prefill {cli['prefill_s'] * 1e3:.0f} ms, decode "
+        f"{cli['decode_s'] * 1e3 / cli['decode_steps']:.2f} ms a step), "
+        f"{cli_s:.1f}s with the weights' draw")
+    if cli["served"] != 4 or cli["tokens"] != 4 * 15:
+        errors.append(f"the LM CLI served {cli}")
+    torch.cuda.empty_cache()
+    log(f"[lm] flash launches on the path {launches} (expected {expected}), by "
+        f"variant {by_variant}; phase done in {time.perf_counter() - t0:.1f}s "
+        f"({smi})")
+    if errors:
+        raise AssertionError("language-model serving: " + "; ".join(errors))
+    return {"launches": launches, **out}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2066,15 +2478,19 @@ def main() -> None:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     gen_new = torch.Generator(device=DEV).manual_seed(SEED + 1)
     gen_t2i = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    gen_hd256 = torch.Generator(device=DEV).manual_seed(SEED + 4)
     phase_build()
     worst = phase_kernel_checks(gen, gen_new)
     worst = max(worst, phase_t2i_kernel_checks(gen_t2i))
+    worst = max(worst, phase_hd256_kernel_checks(gen_hd256))
     worst_new = phase_new_kernel_checks(gen, gen_new)
     main_path = phase_main_path(gen)
     pipe = main_path.pop("pipe")
     launches = phase_tokenizer(gen, pipe)
     launches.update(phase_mamba_layer(gen))
     times = phase_timing(gen)
+    times["shapes"].update(phase_hd256_timing(gen_hd256))
+    torch.cuda.empty_cache()
     new_times = phase_new_timing(gen)
     serving = phase_serving(pipe, smi)
     adaptive = phase_adaptive(pipe, smi)
@@ -2086,10 +2502,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     training = phase_training(torch.Generator(device=DEV).manual_seed(SEED + 3),
                               smi)
+    torch.cuda.empty_cache()
+    lm = phase_lm(torch.Generator(device=DEV).manual_seed(SEED + 5), smi)
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
-             "train_then_serve": training["launches"], **fleet["launches"]}
+             "train_then_serve": training["launches"], **fleet["launches"],
+             "lm_serving": lm["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -2,9 +2,10 @@
 
 The same plain frozen dataclasses as ``repro.configs.base``, field for
 field, so a config means the same thing in both packages. The port holds
-the DiT configurations, the Mamba2 (SSD) configuration and the training
-configuration; the other language-model fields (``moe`` and friends) are
-kept so the field sets stay equal, and stay ``None`` here.
+the DiT configurations, the dense, hybrid and SSM language models and the
+training configuration. ``MoEConfig`` is data only here: the MoE layer,
+the vision and audio models and their configs come with the next
+language-model slice, so ``reduced()`` of an MoE config raises.
 """
 from __future__ import annotations
 
@@ -24,6 +25,23 @@ class AttnConfig:
     sliding_window: int = 0
     local_global_pattern: str = "G"
     qk_norm: bool = False
+
+    def window_for_layer(self, layer: int) -> int:
+        """Static per-layer window (0 = full)."""
+        pat = self.local_global_pattern
+        kind = pat[layer % len(pat)]
+        return self.sliding_window if kind == "L" else 0
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    num_experts_per_tok: int
+    num_shared_experts: int = 0
+    expert_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclass(frozen=True)
@@ -65,7 +83,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     attn: Optional[AttnConfig] = None
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     dit: Optional[DiTConfig] = None
     mlp_activation: str = "swiglu"
@@ -86,10 +104,50 @@ class ModelConfig:
     sequence_parallel: bool = False
     max_seq_len: int = 8192
 
+    @property
+    def head_dim(self) -> int:
+        assert self.attn is not None
+        return self.attn.head_dim
+
+    def num_params(self) -> int:
+        """Analytic parameter count (approximate; embeddings included), the
+        reference's formula term for term."""
+        d, f, L, V = self.d_model, self.d_ff, self.num_layers, self.vocab_size
+        total = 0
+        if self.family != "dit":
+            total += V * d                       # token embedding
+            if not self.tie_embeddings:
+                total += V * d                   # lm head
+        att = 0
+        if self.attn is not None:
+            a = self.attn
+            att = d * a.num_heads * a.head_dim + 2 * d * a.num_kv_heads * a.head_dim \
+                + a.num_heads * a.head_dim * d
+        mlp_mult = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        ffn = mlp_mult * d * f if f else 0
+        moe = 0
+        if self.moe is not None:
+            m = self.moe
+            e_ff = m.expert_d_ff or f
+            moe = m.num_experts * mlp_mult * d * e_ff \
+                + m.num_shared_experts * mlp_mult * d * e_ff + d * m.num_experts
+            ffn = 0
+        ssm = 0
+        if self.ssm is not None:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = s.num_heads or max(1, d_in // s.head_dim)
+            # in-proj (z, x), B/C projections, dt head bias, out-proj (mamba2)
+            ssm = d * 2 * d_in + d * 2 * s.state_dim + d * nheads + d_in * d
+        per_layer = att + ffn + moe + ssm + 2 * d  # + norms
+        total += L * per_layer
+        return total
+
     def reduced(self, **overrides: Any) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
         if self.moe is not None:
-            raise NotImplementedError("the port holds no MoE config yet")
+            raise NotImplementedError("MoE configs come with the next "
+                                      "language-model slice of the port")
         attn = None
         if self.attn is not None:
             a = self.attn

@@ -27,7 +27,8 @@ from repro_torch.device import resolve_device
 
 TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "float16": torch.float16, "bfloat16": torch.bfloat16,
-                 "int32": torch.int32, "int64": torch.int64, "bool": torch.bool}
+                 "int8": torch.int8, "int32": torch.int32, "int64": torch.int64,
+                 "bool": torch.bool}
 
 
 def leaf_to_torch(leaf: Any, device: Any = None,
@@ -49,6 +50,35 @@ def params_from_numpy(tree: Any, device: Any = None,
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return leaf_to_torch(tree, device, dtype)
+
+
+def lm_params_from_numpy(tree: Any, cfg: Any, device: Any = None) -> Any:
+    """The reference's language-model tree (``repro.models.lm.init_params``
+    as numpy) → the port's, cast to ``cfg.param_dtype``: names, stacked
+    ``[L, ...]`` leaves and ``[in, out]`` matrices as they are. Raises
+    unless every name and shape is the port's ``lm_schema(cfg)``'s."""
+    from repro_torch.models.common import ParamSpec, dtype_of, tree_map
+    from repro_torch.models.lm import lm_schema
+
+    def same(spec, leaf):
+        if not isinstance(spec, ParamSpec) or isinstance(leaf, dict) or \
+                tuple(np.shape(leaf)) != spec.shape:
+            raise ValueError(f"leaf of shape {np.shape(leaf)} where the "
+                             f"port's schema has {spec}")
+        return spec
+
+    schema = lm_schema(cfg)
+    if sorted(_paths(schema)) != sorted(_paths(tree)):
+        raise ValueError(f"parameter names differ from lm_schema: "
+                         f"{sorted(set(_paths(schema)) ^ set(_paths(tree)))}")
+    tree_map(same, schema, tree)
+    return params_from_numpy(tree, device, dtype_of(cfg.param_dtype))
+
+
+def _paths(tree: Any, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}/{k}")]
+    return [prefix]
 
 
 def opt_state_from_numpy(state: Any, device: Any = None) -> Any:

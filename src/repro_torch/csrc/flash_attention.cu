@@ -16,7 +16,7 @@
 //
 // Three kernels of the same function, chosen by the caller
 // (kernels/attention/flash_attention.py `select_variant`):
-//   * bf16, rows of whole 16-byte chunks, hd <= 128 (the main path):
+//   * bf16, rows of whole 16-byte chunks, hd <= 256 (the main path):
 //     `wg::flash_fwd_wgmma_kernel`, built from TMA, mbarriers and wgmma
 //     (design at its definition). 128-row CTAs, so each head's K/V leaves
 //     L2 twice at S = 256 instead of four times, and a producer warpgroup
@@ -50,7 +50,15 @@
 // fragments come from ldmatrix (V transposed on the fly), and the score
 // accumulators are re-packed in registers as the A operand of P.V (P
 // rounded to bf16, as the TPU kernel rounds it to v's dtype). Instantiated
-// for hd <= 64, 80, 128.
+// for hd <= 64, 80, 128, 256 (at 256 Q's fragments come from shared memory
+// at every k-step: 64 registers of them beside 128 accumulators would
+// spill).
+//
+// At the language models' hd 256 (gemma2-9b: B=2, S=8192, H=16 over K=8,
+// causal, window 4096 on alternate layers, softcap 50) the call is bound
+// by operations, not bytes: 0.83 (window 4096) to 1.1 (global) TFLOP of
+// products against 0.4 GB of q, k, v and o, ~0.85-1.1 ms at the
+// tensor cores' bf16 peak against 0.12 ms of bytes.
 //
 // float32 path: tiles staged as float32 at a pitch of round4(hd) + 4; each
 // thread keeps an 8-row x 4-key score tile and an 8-row x 4-column-chunk
@@ -290,30 +298,34 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
     }
     __syncthreads();   // the P tile is complete
 
+    // four keys a step: each row's four probabilities, then one V row at
+    // a time (an accumulator element sums its keys in order either way;
+    // one V row live keeps hd 256's 128 accumulators within registers)
     for (int j = 0; j < BK; j += 4) {
-      float4 vv[4][NC];
+      float4 pr[ROWS];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
+      for (int i = 0; i < ROWS; ++i)
+        pr[i] = *reinterpret_cast<const float4*>(&sP[(rg * ROWS + i) * PP + j]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float4 vv[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const int ch = cg + CG * c;
-          vv[jj][c] = ch < n_chunks
-                          ? *reinterpret_cast<const float4*>(&sV[(j + jj) * ld + 4 * ch])
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          vv[c] = ch < n_chunks ? *reinterpret_cast<const float4*>(&sV[(j + jj) * ld + 4 * ch])
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float4 p = *reinterpret_cast<const float4*>(&sP[(rg * ROWS + i) * PP + j]);
-        const float pj[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
+        for (int i = 0; i < ROWS; ++i) {
+          const float pj = jj == 0 ? pr[i].x : jj == 1 ? pr[i].y : jj == 2 ? pr[i].z : pr[i].w;
 #pragma unroll
           for (int c = 0; c < NC; ++c) {
-            acc[i][c].x = fmaf(pj[jj], vv[jj][c].x, acc[i][c].x);
-            acc[i][c].y = fmaf(pj[jj], vv[jj][c].y, acc[i][c].y);
-            acc[i][c].z = fmaf(pj[jj], vv[jj][c].z, acc[i][c].z);
-            acc[i][c].w = fmaf(pj[jj], vv[jj][c].w, acc[i][c].w);
+            acc[i][c].x = fmaf(pj, vv[c].x, acc[i][c].x);
+            acc[i][c].y = fmaf(pj, vv[c].y, acc[i][c].y);
+            acc[i][c].z = fmaf(pj, vv[c].z, acc[i][c].z);
+            acc[i][c].w = fmaf(pj, vv[c].w, acc[i][c].w);
           }
+        }
       }
     }
   }
@@ -449,6 +461,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_mma_kernel(Args a) {
   constexpr int NKS = HD_MAX / 16;   // k-steps of Q K^T
   constexpr int NO = HD_MAX / 8;     // 8-column tiles of the output
   constexpr int NS = BK / 8;         // 8-key tiles of the score tile
+  // Q's A fragments stay in registers up to hd 128; at hd 256 they would
+  // take 64 of them beside 128 accumulators, so they are read from sQ
+  // (which stays put) at every k-step instead
+  constexpr bool Q_IN_REGS = HD_MAX <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hd16 = (a.hd + 15) / 16 * 16;
   const int ld = hd16 + 8;   // pitch (halves): fragment loads hit distinct banks
@@ -500,16 +516,18 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_mma_kernel(Args a) {
   }
   __syncthreads();
 
-  uint32_t qf[NKS][4];
+  auto load_q = [&](uint32_t* f, int ks) {
+    const bf16* p0 = sQ + row0 * ld + ks * 16 + tg * 2;
+    f[0] = lds32(p0);
+    f[1] = lds32(p0 + 8 * ld);
+    f[2] = lds32(p0 + 8);
+    f[3] = lds32(p0 + 8 * ld + 8);
+  };
+  uint32_t qf[Q_IN_REGS ? NKS : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int ks = 0; ks < NKS; ++ks) {
-    if (ks * 16 < hd16) {
-      const bf16* p0 = sQ + row0 * ld + ks * 16 + tg * 2;
-      qf[ks][0] = lds32(p0);
-      qf[ks][1] = lds32(p0 + 8 * ld);
-      qf[ks][2] = lds32(p0 + 8);
-      qf[ks][3] = lds32(p0 + 8 * ld + 8);
-    }
+    for (int ks = 0; ks < NKS; ++ks)
+      if (ks * 16 < hd16) load_q(qf[ks], ks);
   }
 
   int qseg[2];
@@ -554,14 +572,17 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_mma_kernel(Args a) {
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks) {
       if (ks * 16 < hd16) {
+        uint32_t qs[4];
+        if constexpr (!Q_IN_REGS) load_q(qs, ks);
+        const uint32_t* qa = Q_IN_REGS ? qf[Q_IN_REGS ? ks : 0] : qs;
 #pragma unroll
         for (int n = 0; n < NS; n += 2) {
           // matrices: keys n*8.. x cols ks*16.. / +8, keys (n+1)*8.. likewise
           uint32_t bk[4];
           ldmatrix_x4(bk, sK + ((n + (lane >> 4)) * 8 + (lane & 7)) * ld + ks * 16 +
                               ((lane >> 3) & 1) * 8);
-          mma16816(sc[n], qf[ks], bk[0], bk[1]);
-          mma16816(sc[n + 1], qf[ks], bk[2], bk[3]);
+          mma16816(sc[n], qa, bk[0], bk[1]);
+          mma16816(sc[n + 1], qa, bk[2], bk[3]);
         }
       }
     }
@@ -698,7 +719,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_mma_kernel(Args a) {
 namespace wg {
 
 constexpr int BKV = 64;        // keys per kv tile
-constexpr int STAGES = 4;      // kv tiles in flight
 // Registers per thread after setmaxnreg. setmaxnreg moves registers within
 // the CTA's own allocation: the producer warpgroup gives back all but 24,
 // and the consumer warpgroups share the rest (Cfg::CONSUMER_REGS).
@@ -708,6 +728,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int WIDE, int TAILN, int NWG>
 struct Cfg {
   static constexpr int BQ = 64 * NWG;
+  // kv tiles in flight: four up to hd 128; two past it, where a 128-row Q
+  // tile (64 KB at hd 256) and two K+V stages (64 KB each) fill ~192 KB
+  // of the 227 KB a CTA may hold
+  static constexpr int STAGES = WIDE * 64 + TAILN > 128 ? 2 : 4;
   static constexpr int TCH = (TAILN + 15) / 16 * 2;         // tail chunks staged (16-deep steps)
   static constexpr int ROW_BYTES = WIDE * 128 + TCH * 16;   // shared bytes per tile row
   static constexpr int NT = 128 * (NWG + 1);                // consumers, then the producer
@@ -715,6 +739,7 @@ struct Cfg {
   static constexpr int KV_BYTES = BKV * ROW_BYTES;          // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;   // + alignment slack
+  static_assert(SMEM <= 232448, "a CTA holds at most 227 KB of shared memory");
   static constexpr int NO = WIDE * 8 + TAILN / 8;           // n8 tiles of the output
   // CTAs per SM. Two 384-thread CTAs of a head width <= 72 fit an SM (2 x
   // 102 KB of shared memory), so S = 256 runs in one wave of 256 CTAs; the
@@ -722,7 +747,8 @@ struct Cfg {
   static constexpr int MINB = NWG == 2 && WIDE * 64 + TAILN <= 72 ? 2 : 1;
   // ptxas starts every thread at the launch bound's share (at most 240):
   // 168 at one 384-thread CTA per SM, 80 at two. The consumers take what
-  // the producer gives back: 240 (FlashAttention-3's split) or 104.
+  // the producer gives back: 240 (FlashAttention-3's split) or 104. At
+  // hd 256 the O accumulator alone is 128 of a consumer's 240.
   static constexpr int ENTRY_REGS =
       (65536 / (MINB * NT)) / 8 * 8 > 240 ? 240 : (65536 / (MINB * NT)) / 8 * 8;
   static constexpr int CONSUMER_REGS_POOL =
@@ -754,8 +780,8 @@ __global__ void __launch_bounds__(Cfg<WIDE, TAILN, NWG>::NT, Cfg<WIDE, TAILN, NW
   unsigned char* sQ = base;                   // [WIDE][BQ][128 swizzled], [TCH][BQ][16]
   unsigned char* sKV = base + C::Q_BYTES;     // stage st: K then V, each laid out as sQ
   uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
-  uint64_t* empty = full + STAGES;
-  uint64_t* qbar = empty + STAGES;
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = empty + C::STAGES;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / a.H;
@@ -764,21 +790,24 @@ __global__ void __launch_bounds__(Cfg<WIDE, TAILN, NWG>::NT, Cfg<WIDE, TAILN, NW
   const int q0 = blockIdx.y * C::BQ;
   const int q_hi = min(q0 + C::BQ, a.S) - 1;
   const int nkt = (a.Sk + BKV - 1) / BKV;
-  const int tload = (a.hd - 64 * WIDE) / 8;   // tail chunks copied; [tload, TCH) stay zero
+  // tail chunks copied; [tload, TCH) stay zero. Past hd 128 the four
+  // 64-column groups take any hd <= 256: TMA zero-fills a box's columns
+  // past hd, and a zero column adds nothing to either product
+  const int tload = max(0, (a.hd - 64 * WIDE) / 8);
 
   // Zero the tail's pad chunks once (TMA never writes them), then publish
   // them to the async proxy that wgmma reads through.
   for (int e = tid; e < (C::TCH - tload) * C::BQ; e += C::NT)
     reinterpret_cast<uint4*>(sQ + WIDE * C::BQ * 128 + tload * C::BQ * 16)[e] =
         make_uint4(0, 0, 0, 0);
-  for (int e = tid; e < 2 * STAGES * (C::TCH - tload) * BKV; e += C::NT) {
+  for (int e = tid; e < 2 * C::STAGES * (C::TCH - tload) * BKV; e += C::NT) {
     const int tile = e / ((C::TCH - tload) * BKV), r = e % ((C::TCH - tload) * BKV);
     reinterpret_cast<uint4*>(sKV + tile * C::KV_BYTES + WIDE * BKV * 128 + tload * BKV * 16)[r] =
         make_uint4(0, 0, 0, 0);
   }
   if (tid == 0) {
 #pragma unroll
-    for (int st = 0; st < STAGES; ++st) {
+    for (int st = 0; st < C::STAGES; ++st) {
       hopper::mbar_init(&full[st], 1);
       hopper::mbar_init(&empty[st], NWG * 128);
     }
@@ -808,8 +837,8 @@ __global__ void __launch_bounds__(Cfg<WIDE, TAILN, NWG>::NT, Cfg<WIDE, TAILN, NW
       int i = 0;
       for (int kt = next_tile(a, 0, nkt, b, q0, q_hi, &mixed); kt < nkt;
            kt = next_tile(a, kt + 1, nkt, b, q0, q_hi, &mixed), ++i) {
-        const int st = i % STAGES;
-        if (i >= STAGES) hopper::mbar_wait(&empty[st], ((i / STAGES) - 1) & 1);
+        const int st = i % C::STAGES;
+        if (i >= C::STAGES) hopper::mbar_wait(&empty[st], ((i / C::STAGES) - 1) & 1);
         unsigned char* sK = sKV + st * 2 * C::KV_BYTES;
         hopper::mbar_expect_tx(&full[st], 2 * BKV * row_bytes);
         copy_tile(sK, &maps.kw, &maps.kt, &full[st], BKV, kh, kt * BKV);
@@ -845,7 +874,7 @@ __global__ void __launch_bounds__(Cfg<WIDE, TAILN, NWG>::NT, Cfg<WIDE, TAILN, NW
     for (int kt = next_tile(a, 0, nkt, b, q0, q_hi, &mixed); kt < nkt; ++i) {
       bool mixed_next;
       const int kt_next = next_tile(a, kt + 1, nkt, b, q0, q_hi, &mixed_next);
-      const int st = i % STAGES;
+      const int st = i % C::STAGES;
       const unsigned char* sK = sKV + st * 2 * C::KV_BYTES;
       const unsigned char* sV = sK + C::KV_BYTES;
       const int k0 = kt * BKV;
@@ -854,7 +883,7 @@ __global__ void __launch_bounds__(Cfg<WIDE, TAILN, NWG>::NT, Cfg<WIDE, TAILN, NW
                              (!a.causal || q0 >= k0 + BKV - 1) &&
                              (a.window <= 0 || (q0 + C::BQ - 1 - k0 < a.window &&
                                                 k0 + BKV - 1 - q0 < a.window));
-      hopper::mbar_wait(&full[st], (i / STAGES) & 1);
+      hopper::mbar_wait(&full[st], (i / C::STAGES) & 1);
 
       // S = Q K^T: 16-column steps over the swizzled groups, then the tail
       hopper::wgmma_fence();
@@ -1032,10 +1061,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// hd (a multiple of 8, <= 128) as 64-column groups and a tail: 72 = 64 + 8
-// on the main path; 64 and 128 have no tail, hd <= 56 is all tail.
+// hd (a multiple of 8, <= 256) as 64-column groups and a tail: 72 = 64 + 8
+// on the DiT path; 64 and 128 have no tail, hd <= 56 is all tail; past 128
+// four groups (256 on the language models' path), with 128-row CTAs only.
 template <int NWG>
 cudaError_t launch_hd(const Args& a, cudaStream_t stream) {
+  if (a.hd > 128) return launch<4, 0, 2>(a, stream);
   if (a.hd <= 56) return launch<0, 64, NWG>(a, stream);
   if (a.hd == 64) return launch<1, 0, NWG>(a, stream);
   if (a.hd == 72) return launch<1, 8, NWG>(a, stream);
@@ -1071,7 +1102,8 @@ cudaError_t launch_hd(const Args& a, bool bf16_in, cudaStream_t stream) {
   if (bf16_in)
     return launch(flash_fwd_mma_kernel<HD_MAX>, configured_bf16,
                   mma_smem_bytes(HD_MAX), mma_smem_bytes(a.hd), a, stream);
-  constexpr int F32_MAX = HD_MAX <= 64 ? 64 : 128;   // multiples of 64 columns
+  // multiples of 64 columns; hd 256 stages ~212 KB of float32 tiles
+  constexpr int F32_MAX = HD_MAX <= 64 ? 64 : HD_MAX <= 128 ? 128 : 256;
   return launch(flash_fwd_kernel<F32_MAX>, configured_f32, smem_bytes(F32_MAX),
                 smem_bytes(a.hd), a, stream);
 }
@@ -1113,7 +1145,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.map_nk = map_nk;
   a.vec = vec;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 0 || hd > 128 || variant < 0 || variant > 2 || (variant == 0) != (dtype == 0) ||
+  if (hd <= 0 || hd > 256 || variant < 0 || variant > 2 || (variant == 0) != (dtype == 0) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (variant == 2) {
@@ -1125,5 +1157,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (hd <= 64) return (int)launch_hd<64>(a, dtype == 1, st);
   if (hd <= 80) return (int)launch_hd<80>(a, dtype == 1, st);
-  return (int)launch_hd<128>(a, dtype == 1, st);
+  if (hd <= 128) return (int)launch_hd<128>(a, dtype == 1, st);
+  return (int)launch_hd<256>(a, dtype == 1, st);
 }

@@ -6,7 +6,8 @@ Three variants of one function, chosen by :func:`select_variant` from the
 inputs alone:
 
 - ``"wgmma"``: bf16 on TMA, mbarriers and ``wgmma`` (hd a multiple of 8 up
-  to 128, 16-byte aligned bases: what a tensor map can describe);
+  to 256, 16-byte aligned bases: what a tensor map can describe; past
+  hd 128 on a 2-stage kv ring);
 - ``"mma"``: bf16 on ``mma.sync`` with cp.async staging, for the bf16
   shapes a tensor map cannot describe (hd = 70, say);
 - ``"f32"``: float32 on the CUDA cores, so float32 keeps its accuracy.
@@ -30,7 +31,7 @@ from repro_torch.kernels import build
 SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"f32": 0, "mma": 1, "wgmma": 2}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256          # the language models' hd 256 (gemma2 / gemma3)
 
 
 def select_variant(dtype: torch.dtype, hd: int, aligned: bool) -> str:

@@ -1,4 +1,6 @@
-"""Serving entry point of the port: the DiT path of ``repro.launch.serve``.
+"""Serving entry point of the port: ``repro.launch.serve``'s DiT path and
+its language-model path (:func:`serve_lm`: batches of prompts prefilled,
+then greedy KV-cache decode, for the dense, hybrid and SSM models).
 
 Requests carry a class label, a relative-compute budget quantized onto
 the ``--budget-levels`` plan menu, and a deadline; the continuous-batching
@@ -24,8 +26,9 @@ router (``repro_torch.fleet``; ``--router cheapest|rr|affinity``), all on
 the one card and sharing one pipeline, while a background thread warms
 the small-cohort bucket ladder.
 
-Runs on CUDA unless ``--device cpu``. Later slices own the options that
-raise here: ``--mesh`` (distributed) and a language-model ``--arch``.
+Runs on CUDA unless ``--device cpu``. ``--mesh`` (the distributed slice)
+raises here, and so does ``--replicas`` with a language model (the fleet
+serves DiT requests).
 
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --requests 6
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --policy degrade
@@ -35,6 +38,8 @@ raise here: ``--mesh`` (distributed) and a language-model ``--arch``.
       --trace trace.json --metrics-interval 4
   python -m repro_torch.launch.serve --arch dit-xl-2 --replicas 3 \
       --router affinity --requests 12 --T 10
+  python -m repro_torch.launch.serve --arch gemma2-9b --requests 4 \
+      --batch-slots 2 --prompt-len 512 --max-new 16
 """
 from __future__ import annotations
 
@@ -124,6 +129,80 @@ def serve_dit(cfg, args) -> Dict[str, float]:
     if getattr(args, "replicas", 1) > 1:
         return _serve_dit_fleet(cfg, args, pipe, plans)
     return _serve_dit_engine(cfg, args, pipe, plans)
+
+
+def serve_lm(cfg, args) -> Dict[str, float]:
+    """Serve language-model requests as the reference does: random prompts
+    of ``--prompt-len`` tokens (numpy, seed 0) in batches of
+    ``--batch-slots``, each batch prefilled on the default backend, its
+    cache padded by ``--max-new`` positions, then ``--max-new`` - 1 greedy
+    decode steps. Weights are random (``lm.init_params`` from seed 0 on
+    ``args.device``). Returns the counts and the wall times (prefill and
+    decode, each ending in a device synchronisation)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.runtime.padding import pad_kv_cache
+
+    _later_slice_options(args)
+    if getattr(args, "replicas", 1) > 1:
+        raise NotImplementedError("--replicas: the fleet serves DiT requests; "
+                                  "a language-model fleet is not part of the "
+                                  "port")
+    device = resolve_device(getattr(args, "device", None))
+    params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    B = args.batch_slots
+    prefill = st.make_prefill_step(cfg)
+    decode = st.make_decode_step(cfg)
+
+    def sync() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    rng = np.random.default_rng(0)
+    pending: List[np.ndarray] = [
+        rng.integers(0, cfg.vocab_size, size=(args.prompt_len,), dtype=np.int32)
+        for _ in range(args.requests)]
+    done = tokens_out = n_steps = 0
+    prefill_s = decode_s = 0.0
+    t0 = sync()
+    with torch.inference_mode():
+        while pending:
+            batch = [pending.pop(0) for _ in range(min(B, len(pending)))]
+            n = len(batch)
+            t1 = sync()
+            logits, cache = prefill(params, {"tokens": torch.from_numpy(
+                np.stack(batch)).to(device)})
+            # pad the cache along seq so decode can write new positions
+            cache = pad_kv_cache(cache, args.prompt_len, args.max_new)
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            t2 = sync()
+            outs = [tok]
+            for i in range(args.max_new - 1):
+                pos = torch.full((n,), args.prompt_len + i, dtype=torch.int32,
+                                 device=device)
+                logits, cache = decode(params, cache, tok, pos)
+                tok = logits.argmax(-1).to(torch.int32)[:, None]
+                outs.append(tok)
+                tokens_out += n
+                n_steps += 1
+            t3 = sync()
+            prefill_s += t2 - t1
+            decode_s += t3 - t2
+            done += n
+            gen = torch.cat(outs, dim=1)
+            print(f"[batch done] {n} reqs, first gen: "
+                  f"{gen[0].cpu().numpy()[:8].tolist()}", flush=True)
+    dt = sync() - t0
+    print(f"served {done} requests, {tokens_out} tokens in {dt:.1f}s "
+          f"({tokens_out / max(dt, 1e-9):.1f} tok/s)")
+    print(f"[lm] {cfg.name} on {device}: prefill {prefill_s * 1e3:.1f} ms in "
+          f"all, decode {decode_s * 1e3 / max(1, n_steps):.2f} ms a step "
+          f"({n_steps} steps)")
+    return {"served": float(done), "tokens": float(tokens_out),
+            "seconds": dt, "prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_steps": float(n_steps)}
 
 
 def _serve_dit_fleet(cfg, args, pipe, plans) -> Dict[str, float]:
@@ -360,6 +439,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    # LM path
+    ap.add_argument("--batch-slots", type=int, default=4,
+                    help="prompts prefilled and decoded together")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--budget", type=float, default=0.6,
                     help="base relative-compute budget for DiT requests")
     ap.add_argument("--budget-levels", default=None,
@@ -427,9 +511,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     if args.smoke:
         cfg = cfg.reduced()
     if cfg.family != "dit":
-        raise NotImplementedError(f"serving {args.arch!r} (a language "
-                                  f"model) comes with the language-model "
-                                  f"slice of the port")
+        return serve_lm(cfg, args)
     return serve_dit(cfg, args)
 
 

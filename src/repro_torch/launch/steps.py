@@ -1,5 +1,6 @@
-"""Builders of the step functions — the port of ``repro.launch.steps``
-(the DiT steps; the language-model steps come with their slice).
+"""Builders of the step functions — the port of ``repro.launch.steps``:
+the DiT steps and the language models' prefill and decode steps (the
+language-model train step comes with the next language-model slice).
 
 Each DiT loss takes its random draws as arguments (``t``, ``noise``); the
 step (:class:`repro_torch.optim.adamw.TrainStep`) draws them from a
@@ -17,27 +18,35 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.diffusion import schedule as sch
 from repro_torch.models import dit as dit_mod
+from repro_torch.models import lm
 from repro_torch.models.common import dtype_of
 from repro_torch.optim.adamw import TrainStep
 
 Params = Any
 
 
-def _lm_slice(name: str):
-    raise NotImplementedError(f"{name} (a language-model step) comes with "
-                              f"the language-model slice of the port")
-
-
 def make_train_step(*args: Any, **kw: Any) -> Callable:
-    _lm_slice("make_train_step")
+    raise NotImplementedError("make_train_step (language-model training) "
+                              "comes with the next language-model slice of "
+                              "the port")
 
 
-def make_prefill_step(*args: Any, **kw: Any) -> Callable:
-    _lm_slice("make_prefill_step")
+def make_prefill_step(cfg: ModelConfig, backend: str = "xla") -> Callable:
+    """(params, inputs) → (last-position logits [B,V] float32, cache);
+    ``inputs["tokens"]``: [B,S] int. ``backend="pallas"`` runs every
+    layer's attention on the flash kernel."""
+    def prefill_step(params, inputs):
+        return lm.prefill(params, inputs["tokens"], cfg, extra=inputs,
+                          backend=backend)
+    return prefill_step
 
 
-def make_decode_step(*args: Any, **kw: Any) -> Callable:
-    _lm_slice("make_decode_step")
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """(params, cache, token [B,1], pos [B]) → (logits [B,V] float32,
+    cache updated in place)."""
+    def decode_step(params, cache, token, pos):
+        return lm.decode_step(params, cache, token, pos, cfg)
+    return decode_step
 
 
 # ---------------------------------------------------------------------------

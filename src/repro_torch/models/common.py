@@ -1,6 +1,8 @@
 """Common model pieces of the port: the parameter schema, init on a
-``torch.Generator``, LayerNorm, RMSNorm and the sinusoidal timestep
-embedding.
+``torch.Generator``, LayerNorm, RMSNorm, RoPE, soft-capping, the MLP
+activations, the sinusoidal timestep embedding, and :func:`matmul_f32`,
+the one product with a float32 result that every layer rounding once
+uses.
 
 Parameters are nested dicts of tensors with the reference's names, stacked
 ``[L, ...]`` block leaves and ``[in, out]`` matrices, so weights cross from
@@ -10,9 +12,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
 # Parameter schema
@@ -110,6 +113,119 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
     w = 1.0 + scale.float() if zero_centered else scale.float()
     return (y * w).to(dtype)
+
+
+def norm_schema(d: int, norm_type: str) -> Any:
+    if norm_type == "rmsnorm":
+        return {"scale": ParamSpec((d,), ("embed",), init="zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
+
+
+def apply_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               norm_type: str) -> torch.Tensor:
+    if norm_type == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    return layer_norm(x, params["scale"], params.get("bias"))
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: Any = None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, head_dim]; positions: [..., S] int. In float32,
+    cast back to x's dtype (rotate-half layout)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)        # [hd/2]
+    angles = positions[..., None].float() * freqs                # [..., S, hd/2]
+    angles = angles[..., None, :]                                # [..., S, 1, hd/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations, products
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping; no-op when cap == 0."""
+    if cap <= 0.0:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_act(gate: torch.Tensor, up: Optional[torch.Tensor],
+            kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        assert up is not None
+        return F.silu(gate) * up
+    if kind == "geglu":
+        assert up is not None
+        return gelu(gate) * up
+    return gelu(gate)
+
+
+def count_params(tree: Any) -> int:
+    return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """cuBLAS's ``out_dtype=float32`` product of 16-bit operands, which has
+    no derivative in torch: the backward takes the incoming float32
+    gradient back to the operands' dtype and multiplies there, as a
+    16-bit product followed by ``.float()`` would."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g16 = g.to(x2.dtype)
+        gx = g16 @ w.t() if ctx.needs_input_grad[0] else None
+        gw = x2.t() @ g16 if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w`` (+ ``bias``) with a float32 result from operands in x's
+    dtype: the reference's ``preferred_element_type=float32``. Products
+    are summed in float32 and rounded once, by the caller's cast.
+
+    x: [..., d]; w: [d, e] (a transposed view is fine); bias: [e], added
+    in float32. On a CUDA tensor of 16 bits, ``torch.mm`` with
+    ``out_dtype=float32`` (cuBLAS, float32 accumulation and output; not
+    ``addmm``'s overload, which ``FlopCounterMode`` cannot count); the
+    CPU backend has no such overload, so there the operands are upcast
+    (every bf16 product is exact in float32). float32 operands take the
+    plain product (TF32 stays off: ``torch.backends.cuda.matmul``)."""
+    w = w.to(x.dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32 or x.device.type != "cuda":
+        y = torch.matmul(x2.float(), w.float())
+    else:
+        y = _MatmulF32.apply(x2, w)
+    if bias is not None:
+        y = y + bias.float()
+    return y.reshape(*lead, w.shape[-1])
 
 
 def dtype_of(name: str) -> torch.dtype:

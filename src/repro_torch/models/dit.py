@@ -9,8 +9,11 @@ per-layer leaves stacked ``[L, ...]``, matrices ``[in, out]``.
 
 Self-attention goes through ``kernels.attention.ops.flash_attention`` when
 the backend resolves to ``"pallas"`` (the Hopper kernel on CUDA tensors),
-else through the dense path below. Sequence-parallel execution
-(``parallel=``) comes with the distributed slice.
+through ``models.attention.blocked_gqa_attend`` on ``"xla-blocked"``, else
+through the dense path below. Linear layers round once: float32 results
+(``models.common.matmul_f32``), cast to the activations' dtype.
+Sequence-parallel execution (``parallel=``) comes with the distributed
+slice.
 """
 from __future__ import annotations
 
@@ -22,13 +25,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AttnConfig, ModelConfig
 from repro_torch.core import patch as patch_mod
 from repro_torch.kernels.attention import mask as mask_mod
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (ParamSpec, dtype_of, init_tree,
-                                       layer_norm, stack_schema,
+                                       layer_norm, matmul_f32, stack_schema,
                                        timestep_embedding, tree_map)
 
 Params = Dict[str, Any]
@@ -162,13 +165,17 @@ def init_dit(cfg: ModelConfig, generator: torch.Generator) -> Params:
 def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
             lora: Optional[Params] = None, mode: int = 0,
             lora_scale: float = 2.0) -> torch.Tensor:
-    """x @ w (+ LoRA at mode > 0) (+ b), summed in float32, cast to x.dtype."""
-    y = torch.matmul(x, w.to(x.dtype)).float()
-    if lora is not None and mode > 0:
-        a = lora["a"][mode - 1].to(x.dtype)
-        bb = lora["b"][mode - 1].to(x.dtype)
-        r = a.shape[-1]
-        y = y + torch.matmul(torch.matmul(x, a), bb).float() * (lora_scale / r)
+    """x @ w (+ LoRA at mode > 0) (+ b) with float32 results and sums,
+    rounded once to x.dtype, as the reference (``preferred_element_type``
+    float32). The LoRA's inner product ``x @ a`` stays in x.dtype, as
+    there."""
+    if lora is None or mode == 0:
+        return matmul_f32(x, w, b).to(x.dtype)
+    y = matmul_f32(x, w)
+    a = lora["a"][mode - 1].to(x.dtype)
+    bb = lora["b"][mode - 1].to(x.dtype)
+    r = a.shape[-1]
+    y = y + matmul_f32(torch.matmul(x, a), bb) * (lora_scale / r)
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
@@ -213,9 +220,14 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
         o = attn_ops.flash_attention(q, k, v, causal=False,
                                      segment_ids=segment_ids)
     elif resolved == "xla-blocked":
-        raise NotImplementedError("the blocked long-sequence attention path "
-                                  "comes with the language-model slice of "
-                                  "the port")
+        # long (possibly packed) sequences: query blocks with an arithmetic
+        # mask; segment ids thread through, so no [B,H,N,N] score tensor
+        acfg = AttnConfig(num_heads=num_heads, num_kv_heads=num_heads,
+                          head_dim=hd, use_rope=False)
+        pos = torch.arange(N, dtype=torch.int32, device=x.device).expand(B, N)
+        o = attn_mod.blocked_gqa_attend(q, k, v, positions=pos, causal=False,
+                                        window=0, cfg=acfg,
+                                        segment_ids=segment_ids)
     else:
         bias = None
         if segment_ids is not None:

@@ -1,0 +1,53 @@
+"""Padding helpers — the port of ``repro.runtime.padding``: round a count
+up to a bucket boundary, pad a tensor along one axis, and pad a KV cache
+so decode steps can write past the prefill length."""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+
+def round_up_to_multiple(n: int, multiple: int) -> int:
+    """Smallest multiple of ``multiple`` that is >= ``n``."""
+    if multiple < 1:
+        raise ValueError(f"multiple must be >= 1, got {multiple}")
+    return -(-n // multiple) * multiple
+
+
+def pad_to(x: torch.Tensor, target: int, axis: int, value: float = 0.0
+           ) -> torch.Tensor:
+    """Pad ``x`` along ``axis`` up to length ``target`` (``x`` itself if
+    equal)."""
+    cur = x.shape[axis]
+    if cur > target:
+        raise ValueError(f"cannot pad axis {axis} of length {cur} down to "
+                         f"{target}")
+    if cur == target:
+        return x
+    shape = list(x.shape)
+    shape[axis] = target - cur
+    return torch.cat([x, x.new_full(shape, value)], dim=axis)
+
+
+# cache leaf → its sequence axis, counted from the end
+_SEQ_AXIS = {"k": -3, "v": -3, "k_scale": -2, "v_scale": -2}
+
+
+def pad_kv_cache(cache: Any, seq_len: int, extra: int) -> Any:
+    """Pad the KV-cache leaves (``k``, ``v`` [..., S, K, hd]; ``k_scale``,
+    ``v_scale`` [..., S, K]) from ``seq_len`` by ``extra`` positions along
+    the sequence axis so decode steps can write past the prefill length.
+    The SSM state (``h``, ``conv``) passes through.
+
+    Leaves are chosen by name. The reference chooses by shape (any leaf of
+    4+ dims whose third-from-last size equals ``seq_len``), which also
+    pads an SSM state whose head count equals the prompt length and
+    breaks decode there (ROADMAP queue 3); on KV leaves the two agree."""
+    out = {}
+    for name, leaf in cache.items():
+        axis = _SEQ_AXIS.get(name)
+        if axis is not None and leaf.shape[axis] == seq_len:
+            leaf = pad_to(leaf, seq_len + extra, axis=leaf.ndim + axis)
+        out[name] = leaf
+    return out

@@ -841,3 +841,103 @@ def test_resilience_seams_on_card(cuda):
     (ref,) = clean.run()
     assert eng.metrics.total_quarantined == 1
     assert healed.budget_served == 1.0 and torch.equal(healed.x0, ref.x0)
+
+
+# ---------------------------------------------------------------------------
+# Head width 256 (the language models' gemma2 / gemma3 width)
+
+HD256_CASES = [
+    # B, S, H, K, causal, softcap, window
+    (1, 200, 4, 2, True, 50.0, 64),
+    (2, 300, 4, 4, False, 0.0, 0),
+    (1, 64, 2, 1, True, 0.0, 0),
+    (2, 1000, 16, 8, True, 50.0, 256),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["wgmma", "mma", "f32"])
+@pytest.mark.parametrize("case", HD256_CASES, ids=[f"h{i}" for i in range(len(HD256_CASES))])
+def test_hd256_kernel_matches_plain_on_card(cuda, case, variant):
+    """Each variant at hd 256 against the plain version; bf16 inputs
+    select ``wgmma`` and float32 ones ``f32``."""
+    B, S, H, K, causal, cap, win = case
+    dtype = torch.float32 if variant == "f32" else torch.bfloat16
+    rng = np.random.default_rng(S + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, 256), np.float32))
+               .to(cuda, dtype) for h in (H, K, K))
+    kw = dict(causal=causal, softcap=cap, window=win)
+    assert variant_of(q, k, v) == ("f32" if variant == "f32" else "wgmma")
+    got = flash_attention_cuda(q, k, v, **ops.kernel_kwargs(q, k, **kw), variant=variant)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = TOL["float32" if variant == "f32" else "bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_tiny_bf16_lm_prefill_pallas_matches_dense(cuda):
+    """gemma2's reduced config in bf16 at hd 256 (2 layers, window 32,
+    softcap 50, S=96): the ``pallas`` prefill (2 flash launches, both
+    ``wgmma``) against the dense backend, logits within 2e-2 of their
+    scale; then a decode step from each cache agrees too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.runtime.padding import pad_kv_cache
+
+    base = get_config("gemma2-9b").reduced()
+    cfg = base.reduced(attn=dataclasses.replace(base.attn, head_dim=256),
+                       param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out = {}
+    for backend in ("pallas", "dense"):
+        ops.reset_launches()
+        logits, cache = st.make_prefill_step(cfg, backend=backend)(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launches = dict(ops.flash_attention.launches_by_variant)
+        assert launches["wgmma"] == (2 if backend == "pallas" else 0)
+        cache = pad_kv_cache(cache, 96, 1)
+        step, _ = st.make_decode_step(cfg)(params, cache, logits.argmax(-1)[:, None],
+                                           torch.full((2,), 96, device=cuda))
+        out[backend] = (logits, step)
+    for got, want in zip(out["pallas"], out["dense"]):
+        assert torch.isfinite(got).all()
+        rel = ((got - want).norm() / want.norm()).item()
+        assert rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+def test_out_dtype_matmul_matches_f32_upcast(cuda):
+    """``matmul_f32`` on CUDA bf16 (cuBLAS, ``out_dtype=float32``) against
+    the float32 product of the upcast operands (TF32 off): both sum exact
+    bf16 products in float32, in orders that differ; with a bias; and its
+    gradient is the bf16 product's."""
+    from repro_torch.models.common import matmul_f32
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 3584, device=cuda, generator=g).bfloat16().requires_grad_()
+    w = torch.randn(3584, 512, device=cuda, generator=g).bfloat16().requires_grad_()
+    b = torch.randn(512, device=cuda, generator=g)
+    y = matmul_f32(x, w, b)
+    assert y.dtype == torch.float32
+    want = x.float() @ w.float() + b
+    torch.testing.assert_close(y, want, atol=1e-3, rtol=1e-4)
+    y.sum().backward()
+    torch.testing.assert_close(x.grad.float(), (torch.ones(64, 512, device=cuda).bfloat16()
+                                                @ w.detach().t()).float())
+    yt = matmul_f32(x.detach(), w.detach().t().contiguous().t())
+    torch.testing.assert_close(yt, x.detach().float() @ w.detach().float(),
+                               atol=1e-3, rtol=1e-4)
+    # the telemetry's FlopCounterMode counts it (it cannot count addmm's
+    # out_dtype overload)
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        matmul_f32(x.detach(), w.detach(), b)
+    assert fc.get_total_flops() == 2 * 64 * 3584 * 512

@@ -147,4 +147,5 @@ def test_flash_variant_selection(case):
     if dtype == torch.bfloat16:
         assert tfa.select_variant(dtype, hd, aligned=False) == "mma"
         assert tfa.select_variant(dtype, hd - 2, aligned=True) == "mma"
-        assert tfa.select_variant(dtype, 136, aligned=True) == "mma"
+        assert tfa.select_variant(dtype, 136, aligned=True) == "wgmma"
+        assert tfa.select_variant(dtype, 256, aligned=True) == "wgmma"

@@ -283,8 +283,12 @@ def test_unported_paths_raise(xl_small):
     # adaptive and flow plans are ported (tests/test_torch_extensions.py)
     with pytest.raises(NotImplementedError):
         SamplingPlan(T=4, parallel=object())
-    with pytest.raises(NotImplementedError):
-        pipe.sample(SamplingPlan(T=4, attn_backend="xla-blocked"), 1, None)
+    # the blocked attention backend is ported: it samples what dense does
+    x = {be: pipe.sample(SamplingPlan(T=4, attn_backend=be), 1,
+                         torch.Generator().manual_seed(0),
+                         cond=torch.tensor([3])).x0
+         for be in ("xla-blocked", "dense")}
+    torch.testing.assert_close(x["xla-blocked"], x["dense"], **STEP_TOL)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -478,7 +478,7 @@ def test_serve_cli_smoke_on_cpu(capsys, extra):
 @pytest.mark.parametrize("flags,owner", [
     (["--replicas", "2", "--mesh", "2x1"], "distributed"),
     (["--mesh", "1x2"], "distributed"),
-    (["--arch", "mamba2-130m"], "language-model")])
+    (["--arch", "mamba2-130m", "--replicas", "2"], "language-model")])
 def test_serve_cli_later_slices_raise(flags, owner):
     with pytest.raises(NotImplementedError, match=owner):
         tserve.main(["--arch", "dit-xl-2", "--smoke", "--device", "cpu"]

@@ -109,10 +109,12 @@ def test_dit_train_step_draws_reference_shapes(shared, batch):
 
 
 def test_lm_steps_raise_naming_the_slice():
-    for fn in (tsteps.make_train_step, tsteps.make_prefill_step,
-               tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="language-model slice"):
-            fn(None)
+    # the LM train step waits for the next language-model slice; prefill
+    # and decode are ported (tests/test_torch_lm.py)
+    with pytest.raises(NotImplementedError, match="language-model slice"):
+        tsteps.make_train_step(None)
+    for fn in (tsteps.make_prefill_step, tsteps.make_decode_step):
+        assert callable(fn(None))
 
 
 # ---------------------------------------------------------------------------
