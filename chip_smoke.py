@@ -125,7 +125,27 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    to 2 layers, and mamba2-130m whole, each prefilled on the flash
    kernel (B=2, S=2048) and decoded 4 steps, held against dense; then
    ``python -m repro_torch.launch.serve --arch gemma2-9b --requests 4
-   --batch-slots 2 --prompt-len 512 --max-new 16`` in-process.
+   --batch-slots 2 --prompt-len 512 --max-new 16`` in-process;
+12. the MoE, vision and audio language models through the same steps:
+   deepseek-moe-16b whole (28 layers, 64 routed top-6 + 2 shared experts
+   of 1408, 16.88 B random weights drawn on the card, the draw's peak
+   memory printed), prefill B=2 x S=4096 on the flash kernel (28
+   ``wgmma`` launches a prefill) and on dense, logits held against dense,
+   ``dropped_fraction`` at capacity factor 1.25, 16 greedy decode steps
+   from each cache against the weight-bytes bound; one of its MoE layers
+   at full width ([2, 512, 2048], nothing dropped) against
+   ``moe_apply_dense``, where the router's columns rolled by one must read
+   over the limit; grok-1-314b at full width cut to 2 layers and
+   llama-3.2-vision-90b cut to 2 groups (8 self layers on the kernel, 2
+   dense cross layers; gates opened, a seeded [2, 1600, 8192] image),
+   prefill B=2 x S=2048 and 4 decode steps, where a cache whose vision
+   keys and values are zeroed must read over the limit; whisper-small
+   whole (12 non-causal encoder launches over a seeded [4, 1500, 768]
+   frame input, a 64-token prompt, 16 decode steps), where the kernel run
+   causal on the encoder's q/k/v must read over the limit; the flash
+   kernel against its plain version at these shapes (phase 2) and timed
+   against SDPA (phase 6); then the CLI in-process for deepseek-moe-16b
+   and whisper-small.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -348,6 +368,42 @@ LM_SMALL_SEQ, LM_SMALL_DECODE = 2048, 4
 LM_LOGIT_TOL = 6e-2
 LM_CLI = ["--arch", LM_FULL, "--requests", "4", "--batch-slots", "2",
           "--prompt-len", "512", "--max-new", "16"]
+# phase 12: the MoE, vision and audio language models, each prefilled on
+# the flash kernel and on the dense backend and decoded from both caches,
+# logits held as in phase 11 (LM_LOGIT_TOL). (name, layers kept (0: the
+# whole model), batch, prompt, decode steps)
+FAM_RUNS = [("deepseek-moe-16b", 0, 2, 4096, 16), ("grok-1-314b", 2, 2, 2048, 4),
+            ("llama-3.2-vision-90b", 10, 2, 2048, 4), ("whisper-small", 0, 4, 64, 16)]
+# the flash kernel at the shapes these models give it, against its plain
+# version on the output's scale (as the hd-256 shapes): deepseek-moe-16b
+# and grok-1 prefill (causal, GQA group 1 and 6), llama-3.2-vision's self
+# layers (group 8), whisper's encoder (non-causal, 1500 = 11 x 128 + 92
+# keys: a ragged last tile of zero-filled keys that must get no weight)
+FAM_ATTN = [
+    # name, B, S, H, K, hd, causal
+    ("deepseek-moe-16b", 2, 4096, 16, 16, 128, True),
+    ("grok-1-314b", 2, 2048, 48, 8, 128, True),
+    ("llama-3.2-vision-90b", 2, 2048, 64, 8, 128, True),
+    ("whisper-small encoder", 4, 1500, 12, 12, 64, False),
+]
+FAM_ATTN_REL_TOL = 1e-2
+# one deepseek-moe-16b MoE layer at full width, [2, 512, 2048] bf16, with
+# capacity_factor raised to E / k so nothing drops: moe_apply_sorted
+# against the dense oracle as ||y - ref|| / ||ref||; the planted fault
+# (the router's columns rolled by one) must read over the limit. The
+# routed experts are held without the shared ones: the reference's init
+# counts the stacked expert axis in each expert matrix's fan-in, so a
+# routed expert's output is ~8^3 times smaller than the shared MLP's, and
+# beside it a wrong routing moves the layer's output by under 1e-3
+MOE_LAYER_SHAPE = (2, 512)
+MOE_LAYER_TOL = 2e-2
+# the vision model's cross gates start at 0 (tanh 0 = 0 closes the cross
+# path): the phase sets them to this value so the path carries weight
+VLM_GATE = 1.0
+FAM_CLI = [["--arch", "deepseek-moe-16b", "--requests", "4", "--batch-slots", "2",
+            "--prompt-len", "512", "--max-new", "16"],
+           ["--arch", "whisper-small", "--requests", "4", "--batch-slots", "2",
+            "--prompt-len", "64", "--max-new", "16"]]
 
 
 def log(msg: str) -> None:
@@ -2467,6 +2523,277 @@ def phase_lm(gen: torch.Generator, smi: str) -> dict:
     return {"launches": launches, **out}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE, vision and audio language models
+
+
+def phase_family_kernel_checks(gen: torch.Generator) -> float:
+    """The flash kernel at the shapes the MoE, vision and audio models give
+    it, against its plain version (one kv head at a time), on the
+    output's scale. Returns the worst max|err|."""
+    worst = 0.0
+    for name, B, S, H, K, hd, causal in FAM_ATTN:
+        q, k, v = (randn(gen, (B, S, h, hd), torch.bfloat16) for h in (H, K, K))
+        if variant_of(q, k, v) != "wgmma":
+            raise AssertionError(f"{name}: selects {variant_of(q, k, v)}")
+        got = flash_attention_cuda(q, k, v, **ops.kernel_kwargs(q, k, causal=causal))
+        want = flash_ref_by_head(q, k, v, causal=causal).float()
+        err = (got.float() - want).abs().max().item()
+        rel = ((got.float() - want).norm() / want.norm()).item()
+        log(f"[kernel] flash_attention (wgmma) B{B} S{S} H{H} K{K} hd{hd} "
+            f"causal={int(causal)} bf16 ({name}): max|err|={err:.3e}, "
+            f"||err||/||ref||={rel:.3e} (limit {FAM_ATTN_REL_TOL})")
+        if not rel <= FAM_ATTN_REL_TOL:
+            raise AssertionError(f"flash_attention at {name}'s shape disagrees "
+                                 f"with its plain version: rel {rel}")
+        worst = max(worst, err)
+        del q, k, v, got, want
+    return worst
+
+
+def phase_family_timing(gen: torch.Generator) -> dict:
+    """The flash kernel at those shapes in interleaved rounds with SDPA,
+    which computes the same function there (causal or not, GQA, no
+    softcap, no window); the plain version by CUDA events."""
+    out = {}
+    for name, B, S, H, K, hd, causal in FAM_ATTN:
+        q, k, v = (randn(gen, (B, S, h, hd), torch.bfloat16) for h in (H, K, K))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kw = ops.kernel_kwargs(q, k, causal=causal)
+        t = interleaved_ms({
+            "wgmma": lambda: flash_attention_cuda(q, k, v, **kw, variant="wgmma"),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)},
+            calls=5, replays=4)
+        flash_ref_by_head(q, k, v, causal=causal)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(2):
+            flash_ref_by_head(q, k, v, causal=causal)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end) / 2
+        pairs = visible_pairs(S, causal, 0)
+        flops = 4 * B * H * hd * pairs
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        ms, lib = t["wgmma"]["ms"], t["sdpa"]["ms"]
+        log(f"[time] flash_attention B{B} S{S} H{H} K{K} hd{hd} causal={int(causal)} "
+            f"bf16 ({name}), medians of {t['wgmma']['rounds']} interleaved rounds "
+            f"(fastest-slowest): {turns_line(t)}; plain {plain:.3f} ms; bound "
+            f"{bound:.4f} ms ({by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.0f} "
+            f"MB); {bound / ms:.1%} of the bound, {lib / ms:.2f}x sdpa's speed")
+        out[f"B{B} S{S} H{H} K{K} hd{hd} causal {int(causal)} ({name})"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def read_bytes_a_step(params) -> int:
+    """Bytes of the weights one decode step reads: every leaf but the
+    token and position tables, of which it reads a row (a tied table is
+    the head and counts)."""
+    skip = {"pos_embed"} | ({"embed"} if "lm_head" in params else set())
+    return sum(t.numel() * t.element_size() for k, v in params.items()
+               if k not in skip for t in tree_leaves({k: v}))
+
+
+def moe_layer_check(cfg, params, gen, errors: list) -> dict:
+    """Layer 0's routed experts at full width against the dense oracle,
+    nothing dropped; the router's columns rolled by one must read over
+    the limit."""
+    from repro_torch.models.moe import moe_apply_dense, moe_apply_sorted
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items() if k != "shared"}
+    m = dataclasses.replace(cfg.moe, capacity_factor=(cfg.moe.num_experts
+                                                      / cfg.moe.num_experts_per_tok))
+    x = randn(gen, MOE_LAYER_SHAPE + (cfg.d_model,), torch.bfloat16)
+    act = cfg.mlp_activation
+    y, aux = moe_apply_sorted(p, x, m, act)
+    ref, _ = moe_apply_dense(p, x, m, act)
+    rel = rel_err(y, ref)
+    y_f, _ = moe_apply_sorted(dict(p, router=p["router"].roll(1, dims=1)), x, m, act)
+    rel_f = rel_err(y_f, ref)
+    dropped = float(aux["dropped_fraction"])
+    log(f"[families] {cfg.name} MoE layer [{MOE_LAYER_SHAPE[0]}, "
+        f"{MOE_LAYER_SHAPE[1]}, {cfg.d_model}] bf16, routed experts, capacity factor "
+        f"{m.capacity_factor:.3f} (dropped {dropped}): moe_apply_sorted vs "
+        f"moe_apply_dense ||y - ref||/||ref|| = {rel:.3e} (limit {MOE_LAYER_TOL}); "
+        f"planted fault (router columns rolled by one): {rel_f:.3e}")
+    if not rel <= MOE_LAYER_TOL or dropped != 0.0 or not torch.isfinite(y).all():
+        errors.append(f"{cfg.name} MoE layer: rel {rel}, dropped {dropped}")
+    if not rel_f > MOE_LAYER_TOL:
+        errors.append(f"the rolled-router fault reads {rel_f}, within {MOE_LAYER_TOL}")
+    return {"moe_layer_rel": rel, "moe_fault_rel": rel_f}
+
+
+def encoder_fault_check(cfg, params, frames, errors: list) -> dict:
+    """whisper's first encoder layer's q, k, v: the kernel (non-causal)
+    against the plain version, and the kernel run causal, which must read
+    over the limit against the non-causal plain version."""
+    from repro_torch.models.attention import project_qkv
+    from repro_torch.models.common import apply_norm
+    p = tree_map(lambda t: t[0], params["enc_blocks"])
+    h = apply_norm(p["ln1"], frames, cfg.norm_type)
+    q, k, v = (t.contiguous() for t in project_qkv(p["attn"], h, h, cfg.attn))
+    want = flash_ref_by_head(q, k, v, causal=False).float()
+    rels = {}
+    for causal in (False, True):
+        got = flash_attention_cuda(q, k, v, **ops.kernel_kwargs(q, k, causal=causal))
+        rels[causal] = rel_err(got, want)
+    log(f"[families] {cfg.name} encoder layer 0 q/k/v {tuple(q.shape)}: kernel vs "
+        f"plain (non-causal) {rels[False]:.3e} (limit {FAM_ATTN_REL_TOL}); planted "
+        f"fault (kernel run causal): {rels[True]:.3e}")
+    if not rels[False] <= FAM_ATTN_REL_TOL:
+        errors.append(f"{cfg.name} encoder attention {rels[False]}")
+    if not rels[True] > FAM_ATTN_REL_TOL:
+        errors.append(f"the causal-encoder fault reads {rels[True]}, within "
+                      f"{FAM_ATTN_REL_TOL}")
+    return {"encoder_rel": rels[False], "encoder_fault_rel": rels[True]}
+
+
+def family_run(name: str, keep: int, B: int, S: int, n_dec: int,
+               gen: torch.Generator, smi: str, errors: list) -> dict:
+    """One config: weights drawn on the card, prefill on the flash kernel
+    (twice: a first call, then the timed one) and on dense, the
+    logits gap, greedy decode from both caches, the family's planted
+    fault. Returns its readings and its flash launches."""
+    base = get_config(name)
+    cfg = dataclasses.replace(base, num_layers=keep) if keep else base
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_mod.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    if cfg.family == "vlm":                 # open the zero-initialised gates
+        for g in ("gate_attn", "gate_mlp"):
+            params["groups"]["cross"][g].fill_(VLM_GATE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    read_b = read_bytes_a_step(params)
+    log(f"[families] {name} ({cfg.family}, {cfg.num_layers} of {base.num_layers} "
+        f"layers, d={cfg.d_model}, {cfg.attn.num_heads}/{cfg.attn.num_kv_heads} "
+        f"heads x {cfg.head_dim}): {n_params / 1e9:.3f} B parameters drawn on the "
+        f"card in {draw_s:.1f}s, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB (now {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=DEV,
+                                      generator=gen)}
+    if cfg.family == "vlm":
+        inputs["vision"] = randn(gen, (B, cfg.vision_tokens, cfg.d_model), torch.bfloat16)
+    if cfg.family == "audio":
+        inputs["frames"] = randn(gen, (B, cfg.audio_frames, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        k_grp, groups = lm_mod._vlm_group(cfg)
+        n_flash = groups * (k_grp - 1)
+    elif cfg.family == "audio":
+        n_flash = cfg.encoder_layers
+    else:
+        n_flash = cfg.num_layers
+    out = {"launches": 0}
+    for run in ("first", "timed"):
+        before = dict(ops.flash_attention.launches_by_variant)
+        t1 = time.perf_counter()
+        logits_p, cache_p = lm_steps.make_prefill_step(cfg, backend="pallas")(
+            params, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = {k: ops.flash_attention.launches_by_variant[k] - before[k] for k in before}
+        out["launches"] += sum(got.values())
+        if got.get("wgmma", 0) != n_flash or sum(got.values()) != n_flash:
+            errors.append(f"{name} prefill ({run}): flash launches {got}, not "
+                          f"{n_flash} wgmma")
+    aux = {}
+    t1 = time.perf_counter()
+    logits_d, cache_d = lm_mod.prefill(params, inputs["tokens"], cfg, extra=inputs,
+                                       backend="dense", aux_out=aux)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t1
+    rel = rel_logits(logits_p, logits_d)
+    drop = (f", dropped_fraction {float(aux['dropped_fraction']) / cfg.num_layers:.4f} "
+            f"a layer at capacity factor {cfg.moe.capacity_factor}" if aux else "")
+    log(f"[families] {name} prefill B{B} S{S}: flash {wall * 1e3:.1f} ms "
+        f"({n_flash} wgmma launches), dense {dense_s * 1e3:.1f} ms; last-position "
+        f"logits vs dense ||err||/||ref|| = {rel:.3e} (limit {LM_LOGIT_TOL}), argmax "
+        f"equal on {int((logits_p.argmax(-1) == logits_d.argmax(-1)).sum())}/{B}{drop}")
+    if not rel <= LM_LOGIT_TOL or not torch.isfinite(logits_p).all():
+        errors.append(f"{name} prefill logits {rel} > {LM_LOGIT_TOL}")
+    if cfg.moe is not None and keep == 0:
+        out.update(moe_layer_check(cfg, params, gen, errors))
+    if cfg.family == "audio":
+        out.update(encoder_fault_check(cfg, params, inputs["frames"], errors))
+
+    cache_p = pad_kv_cache(cache_p, S, n_dec)
+    cache_d = pad_kv_cache(cache_d, S, n_dec)
+    fault = None
+    if cfg.family == "vlm":     # the vision keys and values zeroed
+        fault = {k: (torch.zeros_like(t) if k in ("xk", "xv") else t.clone())
+                 for k, t in cache_d.items()}
+    first = logits_d.argmax(-1).to(torch.int32)[:, None]
+    dec_d, fed, _ = lm_decode(cfg, params, cache_d, first, S, n_dec)
+    dec_p, _, dec_s = lm_decode(cfg, params, cache_p, first, S, n_dec, feed=fed)
+    worst, clear, agree = lm_check_decode(name, dec_p, dec_d, errors)
+    decode_ms = dec_s * 1e3 / n_dec
+    bound = read_b / HBM_BYTES_PER_S * 1e3
+    log(f"[families] {name} {n_dec} greedy decode steps from each cache: "
+        f"{decode_ms:.2f} ms a step; bound {bound:.2f} ms for the "
+        f"{read_b / 1e9:.2f} GB of weights a step reads at 3.35 TB/s "
+        f"({bound / decode_ms:.1%} of it); logits vs the dense cache's: worst "
+        f"step {worst:.3e}; greedy tokens equal on {agree}/{clear} rows with a "
+        f"clear top-2 gap (of {B * n_dec}) ({smi})")
+    if not torch.isfinite(dec_p).all():
+        errors.append(f"{name}: decode logits not finite")
+    if fault is not None:
+        dec_f, _, _ = lm_decode(cfg, params, fault, first, S, n_dec, feed=fed)
+        rel_f = max(rel_logits(dec_f[:, i], dec_d[:, i]) for i in range(n_dec))
+        log(f"[families] {name} planted fault (decode from a cache whose vision "
+            f"keys and values are zeroed): worst step {rel_f:.3e}")
+        if not rel_f > LM_LOGIT_TOL:
+            errors.append(f"the zeroed vision cache reads {rel_f}, within {LM_LOGIT_TOL}")
+        out["vision_fault_rel"] = rel_f
+    out.update(prefill_ms=wall * 1e3, dense_prefill_ms=dense_s * 1e3, logits_rel=rel,
+               decode_ms=decode_ms, decode_bound_ms=bound, decode_rel=worst)
+    if aux:
+        out["dropped_fraction"] = float(aux["dropped_fraction"]) / cfg.num_layers
+    return out
+
+
+def phase_lm_families(gen: torch.Generator, smi: str) -> dict:
+    """The MoE, vision and audio models through make_prefill_step /
+    make_decode_step and the CLI. Every check reads before any limit is
+    applied; then the phase fails on any miss."""
+    from repro_torch.launch import serve as serve_mod
+
+    t0 = time.perf_counter()
+    errors = []
+    ops.reset_launches()
+    launches = 0
+    results = {}
+    for name, keep, B, S, n_dec in FAM_RUNS:
+        r = family_run(name, keep, B, S, n_dec, gen, smi, errors)
+        launches += r.pop("launches")
+        results[name] = r
+        torch.cuda.empty_cache()
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    if ops.flash_attention.launches != launches or by_variant.get("wgmma") != launches:
+        errors.append(f"flash launches {ops.flash_attention.launches} by variant "
+                      f"{by_variant}, expected {launches} wgmma")
+    total = ops.flash_attention.launches
+    for argv in FAM_CLI:
+        t1 = time.perf_counter()
+        cli = serve_mod.main(argv)
+        log(f"[families] repro_torch.launch.serve {' '.join(argv)}: served "
+            f"{cli['served']:.0f} requests, {cli['tokens']:.0f} decode tokens "
+            f"(prefill {cli['prefill_s'] * 1e3:.0f} ms, decode "
+            f"{cli['decode_s'] * 1e3 / cli['decode_steps']:.2f} ms a step), "
+            f"{time.perf_counter() - t1:.1f}s with the weights' draw")
+        if cli["served"] != 4 or cli["tokens"] != 4 * 15:
+            errors.append(f"the CLI {argv[1]} served {cli}")
+        torch.cuda.empty_cache()
+    log(f"[families] flash launches on the path {total}, by variant {by_variant}; "
+        f"phase done in {time.perf_counter() - t0:.1f}s ({smi})")
+    if errors:
+        raise AssertionError("MoE, vision and audio serving: " + "; ".join(errors))
+    return {"launches": total, **results}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2479,10 +2806,12 @@ def main() -> None:
     gen_new = torch.Generator(device=DEV).manual_seed(SEED + 1)
     gen_t2i = torch.Generator(device=DEV).manual_seed(SEED + 2)
     gen_hd256 = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    gen_fam = torch.Generator(device=DEV).manual_seed(SEED + 6)
     phase_build()
     worst = phase_kernel_checks(gen, gen_new)
     worst = max(worst, phase_t2i_kernel_checks(gen_t2i))
     worst = max(worst, phase_hd256_kernel_checks(gen_hd256))
+    worst = max(worst, phase_family_kernel_checks(gen_fam))
     worst_new = phase_new_kernel_checks(gen, gen_new)
     main_path = phase_main_path(gen)
     pipe = main_path.pop("pipe")
@@ -2490,6 +2819,7 @@ def main() -> None:
     launches.update(phase_mamba_layer(gen))
     times = phase_timing(gen)
     times["shapes"].update(phase_hd256_timing(gen_hd256))
+    times["shapes"].update(phase_family_timing(gen_fam))
     torch.cuda.empty_cache()
     new_times = phase_new_timing(gen)
     serving = phase_serving(pipe, smi)
@@ -2504,11 +2834,13 @@ def main() -> None:
                               smi)
     torch.cuda.empty_cache()
     lm = phase_lm(torch.Generator(device=DEV).manual_seed(SEED + 5), smi)
+    torch.cuda.empty_cache()
+    families = phase_lm_families(torch.Generator(device=DEV).manual_seed(SEED + 7), smi)
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
              "train_then_serve": training["launches"], **fleet["launches"],
-             "lm_serving": lm["launches"]}
+             "lm_serving": lm["launches"], "lm_families": families["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

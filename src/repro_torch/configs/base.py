@@ -1,11 +1,9 @@
 """Config dataclasses of the PyTorch port.
 
 The same plain frozen dataclasses as ``repro.configs.base``, field for
-field, so a config means the same thing in both packages. The port holds
-the DiT configurations, the dense, hybrid and SSM language models and the
-training configuration. ``MoEConfig`` is data only here: the MoE layer,
-the vision and audio models and their configs come with the next
-language-model slice, so ``reduced()`` of an MoE config raises.
+field, so a config means the same thing in both packages: the DiT
+configurations, every language model (dense, MoE, hybrid, SSM, vision,
+audio) and the training configuration.
 """
 from __future__ import annotations
 
@@ -145,9 +143,6 @@ class ModelConfig:
 
     def reduced(self, **overrides: Any) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
-        if self.moe is not None:
-            raise NotImplementedError("MoE configs come with the next "
-                                      "language-model slice of the port")
         attn = None
         if self.attn is not None:
             a = self.attn
@@ -156,6 +151,12 @@ class ModelConfig:
                 a, num_heads=4, num_kv_heads=kv if 4 % kv == 0 else 1,
                 head_dim=16,
                 sliding_window=min(a.sliding_window, 32) if a.sliding_window else 0)
+        moe = None
+        if self.moe is not None:
+            moe = replace(self.moe, num_experts=4,
+                          num_experts_per_tok=min(2, self.moe.num_experts_per_tok),
+                          num_shared_experts=min(1, self.moe.num_shared_experts),
+                          expert_d_ff=32 if self.moe.expert_d_ff else 0)
         ssm = None
         if self.ssm is not None:
             ssm = replace(self.ssm, state_dim=16, head_dim=16, chunk_size=16)
@@ -167,7 +168,7 @@ class ModelConfig:
         kw: dict = dict(
             num_layers=2, d_model=64, d_ff=128 if self.d_ff else 0,
             vocab_size=256 if self.vocab_size else 0,
-            attn=attn, moe=None, ssm=ssm, dit=dit,
+            attn=attn, moe=moe, ssm=ssm, dit=dit,
             encoder_layers=2 if self.encoder_layers else 0,
             audio_frames=16 if self.audio_frames else 0,
             vision_tokens=8 if self.vision_tokens else 0,

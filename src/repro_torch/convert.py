@@ -55,8 +55,10 @@ def params_from_numpy(tree: Any, device: Any = None,
 def lm_params_from_numpy(tree: Any, cfg: Any, device: Any = None) -> Any:
     """The reference's language-model tree (``repro.models.lm.init_params``
     as numpy) → the port's, cast to ``cfg.param_dtype``: names, stacked
-    ``[L, ...]`` leaves and ``[in, out]`` matrices as they are. Raises
-    unless every name and shape is the port's ``lm_schema(cfg)``'s."""
+    ``[L, ...]`` leaves (the vision model's nested ``groups`` ``[G, k-1,
+    ...]`` / ``[G, ...]``, whisper's ``enc_blocks`` / ``dec_blocks`` /
+    ``pos_embed``) and ``[in, out]`` matrices as they are. Raises unless
+    every name and shape is the port's ``lm_schema(cfg)``'s."""
     from repro_torch.models.common import ParamSpec, dtype_of, tree_map
     from repro_torch.models.lm import lm_schema
 

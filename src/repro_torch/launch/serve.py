@@ -134,11 +134,13 @@ def serve_dit(cfg, args) -> Dict[str, float]:
 def serve_lm(cfg, args) -> Dict[str, float]:
     """Serve language-model requests as the reference does: random prompts
     of ``--prompt-len`` tokens (numpy, seed 0) in batches of
-    ``--batch-slots``, each batch prefilled on the default backend, its
-    cache padded by ``--max-new`` positions, then ``--max-new`` - 1 greedy
-    decode steps. Weights are random (``lm.init_params`` from seed 0 on
-    ``args.device``). Returns the counts and the wall times (prefill and
-    decode, each ending in a device synchronisation)."""
+    ``--batch-slots``, each batch prefilled on the default backend (the
+    vision model's image states and whisper's audio frames zeros, as the
+    reference feeds them), its cache padded by ``--max-new`` positions,
+    then ``--max-new`` - 1 greedy decode steps. Weights are random
+    (``lm.init_params`` from seed 0 on ``args.device``). Returns the
+    counts and the wall times (prefill and decode, each ending in a device
+    synchronisation)."""
     from repro_torch.device import resolve_device
     from repro_torch.launch import steps as st
     from repro_torch.models import lm
@@ -172,8 +174,14 @@ def serve_lm(cfg, args) -> Dict[str, float]:
             batch = [pending.pop(0) for _ in range(min(B, len(pending)))]
             n = len(batch)
             t1 = sync()
-            logits, cache = prefill(params, {"tokens": torch.from_numpy(
-                np.stack(batch)).to(device)})
+            inputs = {"tokens": torch.from_numpy(np.stack(batch)).to(device)}
+            if cfg.family == "vlm":      # the stub front ends: zero states
+                inputs["vision"] = torch.zeros(
+                    (n, cfg.vision_tokens, cfg.d_model), device=device)
+            if cfg.family == "audio":
+                inputs["frames"] = torch.zeros(
+                    (n, cfg.audio_frames, cfg.d_model), device=device)
+            logits, cache = prefill(params, inputs)
             # pad the cache along seq so decode can write new positions
             cache = pad_kv_cache(cache, args.prompt_len, args.max_new)
             tok = logits.argmax(-1).to(torch.int32)[:, None]

@@ -33,8 +33,11 @@ def make_train_step(*args: Any, **kw: Any) -> Callable:
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "xla") -> Callable:
     """(params, inputs) → (last-position logits [B,V] float32, cache);
-    ``inputs["tokens"]``: [B,S] int. ``backend="pallas"`` runs every
-    layer's attention on the flash kernel."""
+    ``inputs["tokens"]``: [B,S] int, with ``inputs["vision"]`` [B,
+    vision_tokens, d] for the vision model and ``inputs["frames"]`` [B,
+    audio_frames, d] for whisper. ``backend="pallas"`` runs on the flash
+    kernel the attention the reference sends to its Pallas kernel (see
+    ``models/lm.py``)."""
     def prefill_step(params, inputs):
         return lm.prefill(params, inputs["tokens"], cfg, extra=inputs,
                           backend=backend)

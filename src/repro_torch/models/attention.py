@@ -1,8 +1,9 @@
 """Grouped-query attention of the port: backend selection, the language
 models' layers (RoPE, sliding windows, soft-capping, QKV bias, QK-norm,
-prefill and KV-cache decode, the int8 cache) and the blocked long-sequence
-path, with the reference's names and rules (``repro.models.attention``),
-so a plan means the same in both packages.
+prefill and KV-cache decode, the int8 cache, cross-attention to vision or
+encoder states) and the blocked long-sequence path, with the reference's
+names and rules (``repro.models.attention``), so a plan means the same in
+both packages.
 
 ``"pallas"`` names the segment-aware flash kernel: in the port that is
 the Hopper kernel of ``kernels.attention`` (its plain version on CPU
@@ -79,6 +80,17 @@ def attention_schema(d_model: int, cfg: AttnConfig) -> Params:
         s["q_norm"] = {"scale": ParamSpec((hd,), (None,), init="zeros")}
         s["k_norm"] = {"scale": ParamSpec((hd,), (None,), init="zeros")}
     return s
+
+
+def cross_attention_schema(d_model: int, cfg: AttnConfig, kv_dim: int = 0) -> Params:
+    kv_dim = kv_dim or d_model
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamSpec((d_model, H, hd), ("embed", "heads", None)),
+        "wk": ParamSpec((kv_dim, K, hd), ("embed", "kv_heads", None)),
+        "wv": ParamSpec((kv_dim, K, hd), ("embed", "kv_heads", None)),
+        "wo": ParamSpec((H, hd, d_model), ("heads", None, "embed")),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -191,17 +203,19 @@ def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(out, dim=1)[:, :S]
 
 
+def _proj(inp: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[..., d] x [d, heads, hd] → [..., heads, hd] in ``dtype``."""
+    d, heads, hd = w.shape
+    return torch.matmul(inp, w.to(dtype).reshape(d, heads * hd)).reshape(
+        *inp.shape[:-1], heads, hd)
+
+
 def project_qkv(params: Params, x: torch.Tensor, kv_x: torch.Tensor,
                 cfg: AttnConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    def proj(inp, w):
-        d, heads, hd = w.shape
-        return torch.matmul(inp, w.to(x.dtype).reshape(d, heads * hd)).reshape(
-            *inp.shape[:-1], heads, hd)
-
-    q = proj(x, params["wq"])
-    k = proj(kv_x, params["wk"])
-    v = proj(kv_x, params["wv"])
+    q = _proj(x, params["wq"], x.dtype)
+    k = _proj(kv_x, params["wk"], x.dtype)
+    v = _proj(kv_x, params["wv"], x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -258,6 +272,24 @@ def attention(params: Params, x: torch.Tensor, cfg: AttnConfig, *,
     out = _attend(q, k, v, cfg, positions, causal=causal, window=window,
                   segment_ids=segment_ids, backend=backend)
     return _out_proj(params, out, x.dtype)
+
+
+def cross_attention(params: Params, x: torch.Tensor, kv: torch.Tensor,
+                    cfg: AttnConfig,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: [B,Sq,d] attends to kv: [B,Sk,d_kv] (non-causal, no RoPE, dense
+    as in the reference); ``kv_valid``: optional [B,Sk] bool, False keys
+    get no weight."""
+    q = _proj(x, params["wq"], x.dtype)
+    k = _proj(kv, params["wk"], x.dtype)
+    v = _proj(kv, params["wv"], x.dtype)
+    B, Sq = x.shape[:2]
+    Sk = kv.shape[1]
+    zeros_q = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+    zeros_k = torch.zeros((B, Sk), dtype=torch.int32, device=x.device)
+    bias = make_attention_bias(zeros_q, zeros_k, causal=False, window=0,
+                               k_valid=kv_valid)
+    return _out_proj(params, gqa_attend(q, k, v, bias, cfg), x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Decoder blocks of the language models — the port of
-``repro.models.blocks`` for the dense, hybrid (hymba: attention and
-Mamba2 heads in parallel) and SSM (mamba2) families.
+``repro.models.blocks``: one ``block_schema`` / ``block_apply`` pair for
+the dense, MoE, SSM (mamba2) and hybrid (hymba: attention and Mamba2
+heads in parallel) layers, and the gated cross-attention block of the
+vision model.
 
 The SSM branches run ``models.ssm.ssm_apply`` without ``use_kernel``, as
-the reference's ``block_apply`` does. The MoE feed-forward and the
-cross-attention blocks (vision / audio) come with the next language-model
-slice and raise here.
+the reference's ``block_apply`` does; the MoE feed-forward is
+``models.moe.moe_apply_sorted``, whose aux losses ``block_apply`` returns.
 """
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (attention_schema, decode_attention,
-                                          prefill_attention)
-from repro_torch.models.common import apply_norm, norm_schema
+from repro_torch.models.attention import (attention_schema, cross_attention,
+                                          cross_attention_schema,
+                                          decode_attention, prefill_attention)
+from repro_torch.models.common import ParamSpec, apply_norm, norm_schema
 from repro_torch.models.mlp import mlp_apply, mlp_schema
+from repro_torch.models.moe import moe_apply_sorted, moe_schema
 
 Params = Dict[str, Any]
 
@@ -27,8 +30,6 @@ NEXT_LM_SLICE = "the next language-model slice of the port"
 
 
 def block_schema(cfg: ModelConfig) -> Params:
-    if cfg.family == "moe" or cfg.moe is not None:
-        raise NotImplementedError(f"MoE blocks come with {NEXT_LM_SLICE}")
     d = cfg.d_model
     s: Params = {}
     if cfg.family == "ssm":          # pure mamba2: norm → ssm → residual
@@ -44,27 +45,50 @@ def block_schema(cfg: ModelConfig) -> Params:
     if cfg.use_post_norm:
         s["post_ln1"] = norm_schema(d, cfg.norm_type)
     s["ln2"] = norm_schema(d, cfg.norm_type)
-    s["mlp"] = mlp_schema(d, cfg.d_ff, cfg.mlp_activation)
+    if cfg.family == "moe" or cfg.moe is not None:
+        s["moe"] = moe_schema(d, cfg.moe, cfg.d_ff, cfg.mlp_activation)
+    else:
+        s["mlp"] = mlp_schema(d, cfg.d_ff, cfg.mlp_activation)
     if cfg.use_post_norm:
         s["post_ln2"] = norm_schema(d, cfg.norm_type)
     return s
 
 
 def cross_block_schema(cfg: ModelConfig, kv_dim: int = 0) -> Params:
-    raise NotImplementedError(f"cross-attention blocks (vision / audio) come "
-                              f"with {NEXT_LM_SLICE}")
+    """Gated cross-attention block (llama-3.2-vision style); both gates
+    start at zero, so tanh(0) = 0 closes the block until trained."""
+    d = cfg.d_model
+    return {
+        "ln1": norm_schema(d, cfg.norm_type),
+        "xattn": cross_attention_schema(d, cfg.attn, kv_dim),
+        "gate_attn": ParamSpec((1,), (None,), init="zeros"),
+        "ln2": norm_schema(d, cfg.norm_type),
+        "mlp": mlp_schema(d, cfg.d_ff, cfg.mlp_activation),
+        "gate_mlp": ParamSpec((1,), (None,), init="zeros"),
+    }
 
 
-def cross_block_apply(*args: Any, **kw: Any) -> torch.Tensor:
-    raise NotImplementedError(f"cross-attention blocks (vision / audio) come "
-                              f"with {NEXT_LM_SLICE}")
+def _gate(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """tanh of a gate in float32, cast to the residual's dtype."""
+    return torch.tanh(g.float()).to(dtype)
+
+
+def cross_block_apply(p: Params, x: torch.Tensor, kv: torch.Tensor,
+                      cfg: ModelConfig,
+                      kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gated cross-attention block (vision / encoder conditioning)."""
+    h = apply_norm(p["ln1"], x, cfg.norm_type)
+    y = cross_attention(p["xattn"], h, kv, cfg.attn, kv_valid=kv_valid)
+    x = x + _gate(p["gate_attn"], x.dtype) * y
+    h2 = apply_norm(p["ln2"], x, cfg.norm_type)
+    y2 = mlp_apply(p["mlp"], h2, cfg.mlp_activation)
+    return x + _gate(p["gate_mlp"], x.dtype) * y2
 
 
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     if "moe" in p:
-        raise NotImplementedError(f"the MoE feed-forward comes with "
-                                  f"{NEXT_LM_SLICE}")
+        return moe_apply_sorted(p["moe"], h, cfg.moe, cfg.mlp_activation)
     return mlp_apply(p["mlp"], h, cfg.mlp_activation), {}
 
 

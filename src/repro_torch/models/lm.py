@@ -1,15 +1,24 @@
-"""Language-model wrapper of the port — ``repro.models.lm`` for the dense,
-hybrid and SSM families: schema, init, prefill and KV-cache decode.
+"""Language-model wrapper of the port — ``repro.models.lm`` for every
+family (dense, MoE, hybrid, SSM, vision, audio): schema, init, prefill and
+KV-cache decode.
 
 Parameters are the reference's tree: per-layer leaves stacked ``[L, ...]``
-under ``blocks``, matrices ``[in, out]``. Layers run as a Python loop over
+under ``blocks`` (the vision model's self layers ``[G, k-1, ...]`` and its
+cross layers ``[G, ...]`` under ``groups``; whisper's ``enc_blocks`` and
+``dec_blocks``), matrices ``[in, out]``. Layers run as a Python loop over
 those leaves, so each layer's window is a static int (the reference's
-unrolled route); the cache is stacked ``[L, ...]`` the same way. Decode
-writes each layer's new K/V entry and SSM state into the cache it is
-given, in place, and returns that cache.
+unrolled route); the cache is stacked the same way. Decode writes each
+layer's new K/V entry and SSM state into the cache it is given, in place,
+and returns that cache.
 
-The vision and audio models, MoE, and training (``forward_train``,
-``lm_loss``) come with the next language-model slice and raise here.
+Which attention runs the flash kernel on ``backend="pallas"`` follows the
+reference: every self-attention layer of the dense, MoE and hybrid
+models, the vision model's self layers (its cross layers are dense), and
+whisper's encoder (non-causal; its decoder's attention is dense). Decode
+is dense over the cache everywhere.
+
+Training (``forward_train``, ``lm_loss``) comes with the next
+language-model slice and raises here.
 """
 from __future__ import annotations
 
@@ -22,36 +31,70 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.blocks import NEXT_LM_SLICE, block_apply, block_schema
+from repro_torch.models.attention import (_out_proj, _proj, attention_schema,
+                                          cross_attention,
+                                          cross_attention_schema,
+                                          decode_attention, gqa_attend,
+                                          prefill_attention)
+from repro_torch.models.blocks import (NEXT_LM_SLICE, _gate, block_apply,
+                                       block_schema, cross_block_apply,
+                                       cross_block_schema)
 from repro_torch.models.common import (ParamSpec, apply_norm, dtype_of,
                                        init_tree, matmul_f32, norm_schema,
                                        softcap, stack_schema)
+from repro_torch.models.mlp import mlp_apply, mlp_schema
 
 Params = Dict[str, Any]
 
-LM_FAMILIES = ("dense", "hybrid", "ssm")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in LM_FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) "
-                                  f"comes with {NEXT_LM_SLICE}")
+VLM_GROUP = 5     # llama-3.2-vision: 1 cross-attn layer per 5 layers
 
 
 # ---------------------------------------------------------------------------
 # Schema
 
 
+def _audio_dec_block_schema(cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    return {
+        "ln1": norm_schema(d, cfg.norm_type),
+        "attn": attention_schema(d, cfg.attn),
+        "lnx": norm_schema(d, cfg.norm_type),
+        "xattn": cross_attention_schema(d, cfg.attn),
+        "ln2": norm_schema(d, cfg.norm_type),
+        "mlp": mlp_schema(d, cfg.d_ff, cfg.mlp_activation),
+    }
+
+
+def _vlm_group(cfg: ModelConfig) -> Tuple[int, int]:
+    """(layers a group, groups): k-1 self layers then one cross layer."""
+    k = cfg.cross_attn_every or VLM_GROUP
+    assert cfg.num_layers % k == 0, (cfg.num_layers, k)
+    return k, cfg.num_layers // k
+
+
 def lm_schema(cfg: ModelConfig) -> Params:
-    _check_family(cfg)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     s: Params = {
         "embed": ParamSpec((V, d), ("vocab", "embed"), init="embed"),
         "final_norm": norm_schema(d, cfg.norm_type),
-        "blocks": stack_schema(block_schema(cfg), L),
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((d, V), ("embed", "vocab"))
+    if cfg.family == "vlm":
+        k, G = _vlm_group(cfg)
+        s["groups"] = {
+            "self": stack_schema(stack_schema(block_schema(cfg), k - 1, None), G),
+            "cross": stack_schema(cross_block_schema(cfg), G),
+        }
+        s["vision_proj"] = ParamSpec((d, d), ("embed", "mlp"))
+    elif cfg.family == "audio":
+        s["enc_blocks"] = stack_schema(block_schema(cfg), cfg.encoder_layers)
+        s["enc_norm"] = norm_schema(d, cfg.norm_type)
+        s["dec_blocks"] = stack_schema(_audio_dec_block_schema(cfg), L)
+        s["pos_embed"] = ParamSpec((cfg.max_seq_len, d), (None, "embed"),
+                                   init="embed")
+    else:
+        s["blocks"] = stack_schema(block_schema(cfg), L)
     return s
 
 
@@ -90,6 +133,22 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Aux losses of the MoE layers, summed over layers
+
+
+def _aux_zero(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    if cfg.moe is None:
+        return {}
+    return {k: torch.zeros((), dtype=torch.float32)
+            for k in ("load_balance", "router_z", "dropped_fraction")}
+
+
+def _aux_add(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    return {k: acc[k] + aux.get(k, 0.0) for k in acc}
+
+
+# ---------------------------------------------------------------------------
 # Serving: prefill + decode
 
 
@@ -101,8 +160,10 @@ def _layer(tree: Params, i: int) -> Params:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = None) -> Params:
     """Stacked per-layer cache of zeros on ``device`` (default CUDA): an
-    empty cache to decode into, the int8 one with its bf16 scales."""
-    _check_family(cfg)
+    empty cache to decode into, the int8 one with its bf16 scales. The
+    vision model's self-attention cache is ``[G, k-1, ...]`` with the
+    vision keys and values ``xk`` / ``xv`` ``[G, B, vision_tokens, K,
+    hd]``; whisper's holds the encoder states ``enc`` ``[B, frames, d]``."""
     device = resolve_device(device)
     dt = dtype_of(cfg.compute_dtype)
     L = cfg.num_layers
@@ -115,11 +176,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     c: Params = {}
     if cfg.attn is not None:
         K, hd = cfg.attn.num_kv_heads, cfg.attn.head_dim
-        c["k"] = zeros((L, batch, max_len, K, hd), kv_dt)
-        c["v"] = zeros((L, batch, max_len, K, hd), kv_dt)
+        if cfg.family == "vlm":
+            k, G = _vlm_group(cfg)
+            lead: Tuple[int, ...] = (G, k - 1)
+        else:
+            lead = (L,)
+        c["k"] = zeros(lead + (batch, max_len, K, hd), kv_dt)
+        c["v"] = zeros(lead + (batch, max_len, K, hd), kv_dt)
         if int8:
-            c["k_scale"] = zeros((L, batch, max_len, K), torch.bfloat16)
-            c["v_scale"] = zeros((L, batch, max_len, K), torch.bfloat16)
+            c["k_scale"] = zeros(lead + (batch, max_len, K), torch.bfloat16)
+            c["v_scale"] = zeros(lead + (batch, max_len, K), torch.bfloat16)
+        if cfg.family == "vlm":
+            c["xk"] = zeros((G, batch, cfg.vision_tokens, K, hd), dt)
+            c["xv"] = zeros((G, batch, cfg.vision_tokens, K, hd), dt)
+        elif cfg.family == "audio":
+            c["enc"] = zeros((batch, cfg.audio_frames, cfg.d_model), dt)
     if cfg.ssm is not None:
         d_in, H, P = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm)
         N = cfg.ssm.state_dim
@@ -129,26 +200,113 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return c
 
 
+def _store(cache: Params, index: Tuple[int, ...], n: Tuple[int, ...],
+           c: Params) -> None:
+    """Write one layer's cache entries at ``index`` of the stacked leaves
+    (each allocated ``n + shape`` at its first write)."""
+    for k, t in c.items():
+        if k not in cache:
+            cache[k] = t.new_empty(n + tuple(t.shape))
+        cache[k][index].copy_(t)
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             extra: Optional[Dict[str, torch.Tensor]] = None,
-            backend: str = "xla") -> Tuple[torch.Tensor, Params]:
+            backend: str = "xla",
+            aux_out: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, Params]:
     """Process the prompt, return (last-position logits [B,V] float32,
-    cache). Each layer's cache is written into one stacked tensor per
-    leaf, allocated at the first layer."""
-    _check_family(cfg)
+    cache). ``extra``: ``vision`` [B, vision_tokens, d] (vlm) or
+    ``frames`` [B, audio_frames, d] (audio). Each layer's cache is written
+    into one stacked tensor per leaf. ``aux_out``, when given, receives
+    the MoE layers' aux losses summed over layers (``_aux_add``; the
+    reference's prefill drops them)."""
     x = embed_tokens(params, tokens, cfg)
-    windows = layer_windows(cfg)
     cache: Params = {}
-    for i in range(cfg.num_layers):
-        x, c, _ = block_apply(_layer(params["blocks"], i), x, cfg,
-                              window=int(windows[i]), mode="prefill",
-                              backend=backend)
-        for k, t in c.items():
-            if k not in cache:
-                cache[k] = t.new_empty((cfg.num_layers,) + tuple(t.shape))
-            cache[k][i].copy_(t)
+    if cfg.family == "audio":
+        enc = _audio_encode(params, extra["frames"], cfg, backend)
+        S = x.shape[1]
+        x = x + params["pos_embed"][:S].to(x.dtype)[None]
+        x, cache = _audio_decoder(params["dec_blocks"], x, enc, cfg,
+                                  mode="prefill")
+        cache["enc"] = enc
+    elif cfg.family == "vlm":
+        vis = extra["vision"].to(x.dtype)
+        vis = torch.matmul(vis, params["vision_proj"].to(x.dtype))
+        x, cache = _vlm_prefill(params["groups"], x, vis, cfg, backend)
+    else:
+        windows = layer_windows(cfg)
+        aux = _aux_zero(cfg)
+        for i in range(cfg.num_layers):
+            x, c, a = block_apply(_layer(params["blocks"], i), x, cfg,
+                                  window=int(windows[i]), mode="prefill",
+                                  backend=backend)
+            _store(cache, (i,), (cfg.num_layers,), c)
+            aux = _aux_add(aux, a)
+        if aux_out is not None:
+            aux_out.update(aux)
     logits = unembed(params, x[:, -1:], cfg)[:, 0]
     return logits, cache
+
+
+def _vlm_prefill(groups: Params, x: torch.Tensor, vis: torch.Tensor,
+                 cfg: ModelConfig, backend: str) -> Tuple[torch.Tensor, Params]:
+    """Each group: its k-1 self layers (window 0, on ``backend``), then the
+    gated cross layer over the projected vision states, whose keys and
+    values are cached as ``xk`` / ``xv``."""
+    k, G = _vlm_group(cfg)
+    cache: Params = {}
+    for g in range(G):
+        p_self = _layer(groups["self"], g)
+        for j in range(k - 1):
+            x, c, _ = block_apply(_layer(p_self, j), x, cfg, window=0,
+                                  mode="prefill", backend=backend)
+            _store(cache, (g, j), (G, k - 1), c)
+        p_cross = _layer(groups["cross"], g)
+        xa = p_cross["xattn"]
+        _store(cache, (g,), (G,), {"xk": _proj(vis, xa["wk"], x.dtype),
+                                   "xv": _proj(vis, xa["wv"], x.dtype)})
+        x = cross_block_apply(p_cross, x, vis, cfg)
+    return x, cache
+
+
+def _audio_encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+                  backend: str = "xla") -> torch.Tensor:
+    """Whisper encoder over frame embeddings [B,F,d] (the conv front end
+    is a stub, as in the reference: frames arrive embedded); non-causal
+    self-attention on ``backend``."""
+    h = frames.to(dtype_of(cfg.compute_dtype))
+    for i in range(cfg.encoder_layers):
+        h, _, _ = block_apply(_layer(params["enc_blocks"], i), h, cfg,
+                              window=0, mode="encode", backend=backend)
+    return apply_norm(params["enc_norm"], h, cfg.norm_type)
+
+
+def _audio_decoder(dec_p: Params, x: torch.Tensor, enc: torch.Tensor,
+                   cfg: ModelConfig, mode: str, cache: Optional[Params] = None,
+                   pos: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Params]:
+    """Whisper's decoder layers (the reference's ``_audio_decoder_scan``):
+    causal self-attention (dense, as the reference's takes no backend),
+    cross-attention to the encoder states, MLP. ``prefill`` returns the
+    stacked K/V cache; ``decode`` writes into ``cache`` in place."""
+    L = cfg.num_layers
+    out: Params = {} if cache is None else cache
+    for i in range(L):
+        p = _layer(dec_p, i)
+        a_in = apply_norm(p["ln1"], x, cfg.norm_type)
+        if mode == "decode":
+            c = {"k": cache["k"][i], "v": cache["v"][i]}
+            a, _ = decode_attention(p["attn"], c, a_in, pos, cfg.attn)
+        else:
+            a, c = prefill_attention(p["attn"], a_in, cfg.attn)
+            _store(out, (i,), (L,), c)
+        x = x + a
+        xa_in = apply_norm(p["lnx"], x, cfg.norm_type)
+        x = x + cross_attention(p["xattn"], xa_in, enc, cfg.attn)
+        m_in = apply_norm(p["ln2"], x, cfg.norm_type)
+        x = x + mlp_apply(p["mlp"], m_in, cfg.mlp_activation)
+    return x, out
 
 
 def decode_step(params: Params, cache: Params, token: torch.Tensor,
@@ -156,8 +314,16 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. token: [B,1] int; pos: [B] int. Returns (logits
     [B,V] float32, the cache, updated in place)."""
-    _check_family(cfg)
     x = embed_tokens(params, token, cfg)
+    if cfg.family == "audio":
+        pe = params["pos_embed"][pos.to(device=x.device, dtype=torch.long)]
+        x = x + pe[:, None].to(x.dtype)
+        x, _ = _audio_decoder(params["dec_blocks"], x, cache["enc"], cfg,
+                              mode="decode", cache=cache, pos=pos)
+        return unembed(params, x, cfg)[:, 0], cache
+    if cfg.family == "vlm":
+        x = _vlm_decode(params["groups"], x, cache, pos, cfg)
+        return unembed(params, x, cfg)[:, 0], cache
     windows = layer_windows(cfg)
     for i in range(cfg.num_layers):
         c = _layer(cache, i)
@@ -168,6 +334,32 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
             if t is not c[k]:            # the SSM state comes back anew
                 cache[k][i].copy_(t)
     return unembed(params, x, cfg)[:, 0], cache
+
+
+def _vlm_decode(groups: Params, x: torch.Tensor, cache: Params,
+                pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Each group: its self layers decode against their cache (K/V only,
+    as the reference's), then the gated cross layer attends to the cached
+    vision keys and values (dense, no mask)."""
+    k, G = _vlm_group(cfg)
+    for g in range(G):
+        p_self = _layer(groups["self"], g)
+        for j in range(k - 1):
+            c = {"k": cache["k"][g, j], "v": cache["v"][g, j]}
+            x, _, _ = block_apply(_layer(p_self, j), x, cfg, window=0,
+                                  mode="decode", cache=c, pos=pos)
+        p = _layer(groups["cross"], g)
+        xk, xv = cache["xk"][g], cache["xv"][g]
+        a_in = apply_norm(p["ln1"], x, cfg.norm_type)
+        q = _proj(a_in, p["xattn"]["wq"], x.dtype)
+        bias = torch.zeros((x.shape[0], 1, xk.shape[1]), dtype=torch.float32,
+                           device=x.device)
+        o = _out_proj(p["xattn"], gqa_attend(q, xk, xv, bias, cfg.attn), x.dtype)
+        x = x + _gate(p["gate_attn"], x.dtype) * o
+        m_in = apply_norm(p["ln2"], x, cfg.norm_type)
+        x = x + _gate(p["gate_mlp"], x.dtype) * mlp_apply(p["mlp"], m_in,
+                                                          cfg.mlp_activation)
+    return x
 
 
 def forward_train(*args: Any, **kw: Any):

@@ -40,10 +40,16 @@ def pad_kv_cache(cache: Any, seq_len: int, extra: int) -> Any:
     the sequence axis so decode steps can write past the prefill length.
     The SSM state (``h``, ``conv``) passes through.
 
+    The vision model's ``[G, k-1, B, S, K, hd]`` leaves pad on the same
+    axis; its vision keys and values (``xk``, ``xv``) and whisper's
+    encoder states (``enc``) pass through whole.
+
     Leaves are chosen by name. The reference chooses by shape (any leaf of
     4+ dims whose third-from-last size equals ``seq_len``), which also
-    pads an SSM state whose head count equals the prompt length and
-    breaks decode there (ROADMAP queue 3); on KV leaves the two agree."""
+    pads an SSM state whose head count equals the prompt length, and the
+    vision keys and values when the image has as many tokens as the
+    prompt, and breaks decode there (ROADMAP queue 3); on KV leaves the
+    two agree."""
     out = {}
     for name, leaf in cache.items():
         axis = _SEQ_AXIS.get(name)

@@ -91,9 +91,18 @@ def test_mamba2_config_equals_reference_field_for_field():
 
 
 def test_moe_reduced_still_raises():
-    cfg = dataclasses.replace(tcfgs.get_config("mamba2-130m"), moe=object())
-    with pytest.raises(NotImplementedError):
-        cfg.reduced()
+    # MoE configs reduce since the MoE slice of the port: by the
+    # reference's rule (4 experts, top-2 at most, 1 shared at most,
+    # expert width 32), field for field
+    kw = dict(num_experts=64, num_experts_per_tok=6, num_shared_experts=2,
+              expert_d_ff=1408)
+    got = dataclasses.replace(tcfgs.get_config("mamba2-130m"),
+                              moe=tcfgs.MoEConfig(**kw)).reduced()
+    want = dataclasses.replace(jcfgs.get_config("mamba2-130m"),
+                               moe=jcfgs.MoEConfig(**kw)).reduced()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.moe == tcfgs.MoEConfig(num_experts=4, num_experts_per_tok=2,
+                                      num_shared_experts=1, expert_d_ff=32)
 
 
 @pytest.mark.parametrize("zero_centered", [True, False])
