@@ -145,7 +145,28 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    causal on the encoder's q/k/v must read over the limit; the flash
    kernel against its plain version at these shapes (phase 2) and timed
    against SDPA (phase 6); then the CLI in-process for deepseek-moe-16b
-   and whisper-small.
+   and whisper-small;
+13. language-model training through ``launch/steps.make_train_step``
+   (dense attention, as the reference trains; no kernel has a backward):
+   gemma2-9b at full width cut to 4 layers (2 local at window 4096, 2
+   global) at B=1 x S=8192 with remat "block", and deepseek-moe-16b cut
+   to 2 layers at B=2 x 4096, each one warm and 3 timed steps (ms/step,
+   tokens/s, TFLOP/s against the model FLOPs, peak memory); 1. one
+   reduced float32 config per family, gradients card against CPU; 2.
+   the training forward's last-position logits against ``lm.prefill``'s
+   on dense and on the flash kernel; 3. every bf16 gradient leaf against
+   a float32 copy's, where remat recomputing each layer with the next
+   layer's window (a planted fault) must read over the limit; 4. remat
+   "block" against "none"; 5. 12 steps on one batch must learn, and the
+   sign-flipped update must not; 6. the trained gemma2-9b cut saved and
+   restored by ``Checkpointer``, then a flash prefill and 4 decode steps
+   equal bit for bit to the in-memory parameters' (one ``wgmma`` launch
+   a layer a prefill); hymba-1.5b cut, mamba2-130m whole,
+   llama-3.2-vision-90b cut to one group (its cross layer and vision
+   projection trained, the language model frozen) and whisper-small
+   whole, 2 steps each; 7. ``python -m repro_torch.launch.train --arch
+   mamba2-130m --steps 4`` and ``--arch deepseek-moe-16b --smoke``
+   in-process.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -161,6 +182,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -168,8 +190,14 @@ import time
 import warnings
 from pathlib import Path
 
-import numpy as np
-import torch
+# before torch touches the card: phase 13's training steps free and
+# allocate float32 tensors of 2-8 GB in changing sizes, which fragment
+# fixed segments (a first run held 29 GB reserved but unallocated when an
+# 8 GB request failed)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 if not (ROOT / "src" / "repro_torch").is_dir():
@@ -404,6 +432,50 @@ FAM_CLI = [["--arch", "deepseek-moe-16b", "--requests", "4", "--batch-slots", "2
             "--prompt-len", "512", "--max-new", "16"],
            ["--arch", "whisper-small", "--requests", "4", "--batch-slots", "2",
             "--prompt-len", "64", "--max-new", "16"]]
+
+# phase 13: language-model training, bf16, random weights drawn on the
+# card. (name, layers kept, batch, sequence): gemma2-9b at full width cut
+# to 2 local (window 4096) and 2 global layers at one 8192-token row, so
+# the window binds; deepseek-moe-16b at full width cut to 2 layers. Both
+# take one warm step, then LMT_K timed steps through make_train_step
+# (remat "block", their configs' default).
+LMT_DENSE = ("gemma2-9b", 4, 1, 8192)
+LMT_MOE = ("deepseek-moe-16b", 2, 2, 4096)
+LMT_K, LMT_LR = 3, 1e-4
+# check 3: each bf16 gradient leaf against a float32 copy's (TF32 off) as
+# ||g - g32|| / ||g32||; the planted fault (each layer recomputed in the
+# backward with the next layer's window) must read over it. Fixed before
+# the first card run (PERF.md §6): bf16 rounds each activation to ~4e-3,
+# and a wrong window changes the attention of every query past 4096 in
+# half the recomputed layers. On an H100 80GB HBM3 (700 W) sound leaves
+# read at most 1.18e-2 and the fault 0.485
+LMT_GRAD_TOL = 0.1
+# check 4: remat "none" at gemma2-9b's cut needs every layer's float32
+# scores at once; 6144 tokens keep it under the card's memory (the window
+# still binds)
+LMT_REMAT_SEQ = 6144
+# check 5: LMT_LEARN_N steps on one batch of the trainer's corpus
+# (B x S below), mean(last LEARN_TAIL) / first loss under the limit, and
+# over it with the update's sign flipped. Fixed before the first card run
+# (PERF.md §6); on an H100 80GB HBM3 (700 W) the sound run reads 0.188
+# and the flipped one 1.93
+LMT_LEARN_B, LMT_LEARN_S, LMT_LEARN_N, LMT_LEARN_LR = 2, 1024, 12, 3e-4
+LMT_LEARN_LIMIT = 0.7
+# one config per remaining family, 2 steps each: (name, layers kept (0:
+# whole), batch, sequence). The vision cut (one group: 4 self layers and
+# the cross layer, 6.4 B parameters) trains its cross layer and vision
+# projection with the language model frozen, as Llama 3.2 Vision trained
+# its adapter: the moments of 6.4 B parameters (51 GB) do not fit beside
+# them
+LMT_FAMILIES = [("hymba-1.5b", 2, 2, 2048), ("mamba2-130m", 0, 4, 2048),
+                ("llama-3.2-vision-90b", 5, 1, 2048), ("whisper-small", 0, 4, 448)]
+# check 1: one reduced float32 config per family, card against CPU, at
+# the tests' shapes
+LMT_CPU_ARCHS = ("gemma2-9b", "hymba-1.5b", "mamba2-130m", "deepseek-moe-16b",
+                 "llama-3.2-vision-90b", "whisper-small")
+LMT_DECODE = 4
+LMT_CLI = [["--arch", "mamba2-130m", "--steps", "4"],
+           ["--arch", "deepseek-moe-16b", "--smoke"]]
 
 
 def log(msg: str) -> None:
@@ -2794,6 +2866,449 @@ def phase_lm_families(gen: torch.Generator, smi: str) -> dict:
     return {"launches": total, **results}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: language-model training
+
+
+def lm_cut(name: str, keep: int):
+    """(the config, the config cut to ``keep`` layers (0: whole))."""
+    base = get_config(name)
+    return base, (dataclasses.replace(base, num_layers=keep) if keep else base)
+
+
+def lm_train_batch(cfg, B: int, S: int, seed: int, gen: torch.Generator,
+                   device=None) -> dict:
+    """B x S tokens and targets of the trainer's corpus (the reference's
+    bigram stream, make_lm_batch_fn), and a seeded image or frames (bf16
+    on the card, else float32)."""
+    from repro_torch.data import pipeline as dp
+    device = device or DEV
+    b = dp.make_lm_batch_fn(cfg.vocab_size, S, B)(0, 0, 1, np.random.default_rng(seed))
+    out = {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "targets")}
+    dt = torch.bfloat16 if device == DEV else torch.float32
+    for key, n, fam in (("vision", cfg.vision_tokens, "vlm"),
+                        ("frames", cfg.audio_frames, "audio")):
+        if cfg.family == fam:
+            out[key] = torch.randn((B, n, cfg.d_model), generator=gen,
+                                   device=gen.device).to(device, dt)
+    return out
+
+
+def lm_train_flops(cfg, params, B: int, S: int) -> float:
+    """Model FLOPs of a step: 6 x parameters (a MoE's active ones: the
+    routed experts at k / E) x tokens, plus QK and PV over the pairs each
+    layer's mask lets through, forward and backward (12 x B x H x hd x
+    pairs); the remat recompute is not counted."""
+    n = sum(t.numel() for t in tree_leaves(params))
+    if cfg.moe is not None:
+        routed = sum(t.numel() for k, t in params["blocks"]["moe"].items()
+                     if k in ("w_in", "w_gate", "w_out"))
+        n -= routed * (1 - cfg.moe.num_experts_per_tok / cfg.moe.num_experts)
+    a = cfg.attn
+    pairs = sum(visible_pairs(S, True, int(w)) for w in lm_mod.layer_windows(cfg))
+    return 6 * n * B * S + 12 * B * a.num_heads * a.head_dim * pairs
+
+
+def lm_grads(cfg, params, batch):
+    from repro_torch.optim import adamw
+    return adamw.value_and_grad(lambda p, b: lm_mod.lm_loss(p, b, cfg), params,
+                                batch)
+
+
+def leaf_rels(grads, ref) -> list:
+    """||g - ref|| / ||ref|| per leaf, in float32."""
+    return [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+            for a, b in zip(tree_leaves(grads), tree_leaves(ref))]
+
+
+class RematNextWindow:
+    """The planted fault of check 3: each layer is recomputed in the
+    backward with the next layer's window (what a checkpointed function
+    that read the loop's window from its enclosing scope would see)."""
+
+    def __init__(self, cfg):
+        self.windows = lm_mod.layer_windows(cfg)
+
+    def __enter__(self):
+        self.orig, seen = lm_mod._train_block, {}
+
+        def faulty(p, x, window, *rest):
+            again = id(p) in seen
+            i = seen.setdefault(id(p), len(seen))
+            if again:
+                window = int(self.windows[(i + 1) % len(self.windows)])
+            return self.orig(p, x, window, *rest)
+
+        lm_mod._train_block = faulty
+        return self
+
+    def __exit__(self, *exc):
+        lm_mod._train_block = self.orig
+
+
+def lm_timed_steps(step, params, opt, batch, k: int):
+    """One warm step, then ``k`` timed ones (CUDA events): (params, opt,
+    the timed ms, peak memory over all, the losses)."""
+    ms, peak, losses = [], 0, []
+    for i in range(k + 1):
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt, m), dt = cuda_ms(lambda: step(params, opt, batch))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        losses.append(m["loss"])
+        if i:
+            ms.append(dt)
+    return params, opt, ms, peak, [float(x) for x in losses]
+
+
+def lm_full_width_run(name: str, keep: int, B: int, S: int, gen, smi: str,
+                      errors: list) -> dict:
+    """Draw, time LMT_K steps, check training forward against serving
+    forward on dense and pallas (check 2). Returns its readings with the
+    drawn and the trained parameters, the config and the batch."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import adamw
+    base, cfg = lm_cut(name, keep)
+    t0 = time.perf_counter()
+    params = lm_mod.init_params(cfg, gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = lm_train_batch(cfg, B, S, SEED, gen)
+    tc = TrainConfig(learning_rate=LMT_LR, warmup_steps=0, schedule="constant")
+    step = lm_steps.make_train_step(cfg, tc)
+    trained, opt, ms, peak, losses = lm_timed_steps(
+        step, params, adamw.init_opt_state(params), batch, LMT_K)
+    # where a step's time goes: the forward alone (no graph, so no
+    # recompute), forward and backward, AdamW on those gradients
+    with torch.no_grad():
+        _, fwd_ms = cuda_ms(lambda: lm_mod.lm_loss(trained, batch, cfg))
+    (_, grads), grad_ms = cuda_ms(lambda: step.loss_and_grads(trained, batch))
+    _, opt_ms = cuda_ms(lambda: adamw.adamw_update(trained, grads, opt, tc))
+    del opt, grads
+    torch.cuda.empty_cache()
+    step_ms = float(np.median(ms))
+    split = dict(forward_ms=fwd_ms, backward_ms=grad_ms - fwd_ms, adamw_ms=opt_ms)
+    flops = lm_train_flops(cfg, params, B, S)
+    windows = sorted(set(lm_mod.layer_windows(cfg).tolist()))
+    log(f"[lm-train] {name} ({cfg.num_layers} of {base.num_layers} layers, "
+        f"d={cfg.d_model}, windows {windows}, remat {cfg.remat!r}), "
+        f"{n_params / 1e9:.3f} B parameters, B={B} x S={S}: {step_ms:.1f} ms/step "
+        f"(median of {LMT_K}: {', '.join(f'{x:.1f}' for x in ms)}), "
+        f"{B * S / step_ms * 1e3:.0f} tokens/s, {flops / 1e12:.1f} TFLOP a step, "
+        f"{flops / step_ms / 1e9:.1f} TFLOP/s, peak memory {peak / 1e9:.2f} GB; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{time.perf_counter() - t0:.1f}s with the draw ({smi})")
+    log(f"[lm-train] {name} a step's split (CUDA events, one run each): "
+        f"forward alone {fwd_ms:.1f} ms, forward + backward {grad_ms:.1f} ms "
+        f"(backward with the remat recompute {grad_ms - fwd_ms:.1f}), "
+        f"adamw_update {opt_ms:.1f} ms, the rest "
+        f"{step_ms - grad_ms - opt_ms:.1f} ms")
+    if not all(np.isfinite(losses)) or not all(torch.isfinite(t).all()
+                                               for t in tree_leaves(trained)):
+        errors.append(f"{name}: training not finite: {losses}")
+
+    # check 2: the training forward's last position against prefill's
+    with torch.no_grad():
+        logits, _ = lm_mod.forward_train(params, batch["tokens"], cfg)
+        last = logits[:, -1].clone()
+        del logits
+        rels = {}
+        for backend in ("dense", "pallas"):
+            before = ops.flash_attention.launches_by_variant.get("wgmma", 0)
+            got, cache = lm_steps.make_prefill_step(cfg, backend=backend)(
+                params, {"tokens": batch["tokens"]})
+            del cache
+            rels[backend] = rel_logits(last, got)
+            if backend == "pallas" and (ops.flash_attention.launches_by_variant
+                                        .get("wgmma", 0) - before != cfg.num_layers):
+                errors.append(f"{name}: the pallas prefill's flash launches")
+    log(f"[lm-train] {name} check 2: forward_train's last-position logits vs "
+        f"prefill's ||err||/||ref||: dense {rels['dense']:.3e}, pallas "
+        f"{rels['pallas']:.3e} (limit {LM_LOGIT_TOL})")
+    if not max(rels.values()) <= LM_LOGIT_TOL:
+        errors.append(f"{name}: training vs serving forward {rels}")
+    return dict(cfg=cfg, params=params, trained=trained, batch=batch, ms=step_ms,
+                tokens_s=B * S / step_ms * 1e3, tflops=flops / step_ms / 1e9,
+                peak_gb=peak / 1e9, losses=losses, flash=cfg.num_layers,
+                forward_rel=rels, **split)
+
+
+def lm_remat_check(name: str, cfg, params, batch, errors: list) -> float:
+    """Check 4: remat "block" against "none": equal loss, every gradient
+    leaf within LMT_GRAD_TOL. Returns the worst leaf."""
+    (l0, _), g0 = lm_grads(dataclasses.replace(cfg, remat="none"), params, batch)
+    (l1, _), g1 = lm_grads(dataclasses.replace(cfg, remat="block"), params, batch)
+    worst = max(leaf_rels(g1, g0))
+    log(f"[lm-train] {name} check 4, remat 'block' vs 'none' at B="
+        f"{batch['tokens'].shape[0]} x S={batch['tokens'].shape[1]}: loss "
+        f"{float(l1):.6f} vs {float(l0):.6f} (equal: {torch.equal(l0, l1)}), "
+        f"worst gradient leaf {worst:.3e} (limit {LMT_GRAD_TOL})")
+    if not torch.equal(l0, l1) or not worst <= LMT_GRAD_TOL:
+        errors.append(f"{name}: remat changes the step: {float(l1)} vs "
+                      f"{float(l0)}, {worst}")
+    return worst
+
+
+def lm_precision_check(run: dict, errors: list) -> dict:
+    """Check 3: each bf16 gradient leaf against a float32 copy's, sound
+    and with the planted remat fault."""
+    cfg, params, batch = run["cfg"], run["params"], run["batch"]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    (l32, _), g32 = lm_grads(cfg32, p32, batch)
+    del p32
+    torch.cuda.empty_cache()
+    (l16, _), g16 = lm_grads(cfg, params, batch)
+    sound = leaf_rels(g16, g32)
+    del g16
+    with RematNextWindow(cfg):
+        (_, _), gf = lm_grads(cfg, params, batch)
+    fault = leaf_rels(gf, g32)
+    del gf, g32
+    torch.cuda.empty_cache()
+    log(f"[lm-train] {cfg.name} check 3, bf16 vs float32 gradients (TF32 "
+        f"off), {len(sound)} leaves: loss {float(l16):.6f} vs {float(l32):.6f}; "
+        f"||g - g32||/||g32|| median {np.median(sound):.3e}, worst "
+        f"{max(sound):.3e} (limit {LMT_GRAD_TOL}); planted fault (remat with "
+        f"the next layer's window): worst {max(fault):.3e}, median "
+        f"{np.median(fault):.3e}")
+    if not max(sound) <= LMT_GRAD_TOL:
+        errors.append(f"{cfg.name}: bf16 gradients {max(sound)} > {LMT_GRAD_TOL}")
+    if not max(fault) > LMT_GRAD_TOL:
+        errors.append(f"the planted remat fault reads {max(fault)}, within "
+                      f"{LMT_GRAD_TOL}")
+    return {"bf16_grad_rel": max(sound), "remat_fault_rel": max(fault)}
+
+
+def lm_train_then_serve(run: dict, errors: list) -> int:
+    """Check 6: the trained parameters through Checkpointer.save /
+    restore, then a pallas prefill and LMT_DECODE decode steps from the
+    restored and the in-memory parameters, equal bit for bit; flash
+    launches one a layer a prefill, all wgmma. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    cfg, params, toks = run["cfg"], run["trained"], run["batch"]["tokens"]
+    S = toks.shape[1]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_")
+    try:
+        ck = Checkpointer(ckpt_dir, device=DEV)
+        t1 = time.perf_counter()
+        ck.save(LMT_K + 1, {"params": params})
+        ck.wait()
+        save_s = time.perf_counter() - t1
+        nbytes = sum(f.stat().st_size for f in Path(ck.root).rglob("*.npy"))
+        t1 = time.perf_counter()
+        restored = ck.restore()[0]["params"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mism = [i for i, (a, b) in enumerate(zip(tree_leaves(restored), tree_leaves(params)))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    out, fed, before = {}, None, dict(ops.flash_attention.launches_by_variant)
+    for name, p in (("in memory", params), ("restored", restored)):
+        logits, cache = lm_steps.make_prefill_step(cfg, backend="pallas")(
+            p, {"tokens": toks})
+        cache = pad_kv_cache(cache, S, LMT_DECODE)
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        dec, f, _ = lm_decode(cfg, p, cache, first, S, LMT_DECODE, feed=fed)
+        fed = f if fed is None else fed
+        out[name] = (logits, dec)
+    got = {k: ops.flash_attention.launches_by_variant[k] - before.get(k, 0)
+           for k in ops.flash_attention.launches_by_variant}
+    launches = sum(got.values())
+    same = all(torch.equal(a, b) for a, b in zip(out["in memory"], out["restored"]))
+    log(f"[lm-train] {cfg.name} check 6: {LMT_K + 1} steps trained, "
+        f"Checkpointer.save {nbytes / 1e9:.2f} GB in {save_s:.1f}s, restored in "
+        f"{restore_s:.1f}s, leaves differing {mism}; pallas prefill of the "
+        f"{S}-token batch + {LMT_DECODE} decode steps from each: logits "
+        f"restored == in memory bit for bit: {same}; flash launches {got} "
+        f"(expected {cfg.num_layers} x 2 prefills, all wgmma)")
+    if mism or not same:
+        errors.append(f"{cfg.name}: restored parameters serve differently")
+    if not launches == got.get("wgmma", 0) == 2 * cfg.num_layers:
+        errors.append(f"{cfg.name}: train-then-serve flash launches {got}")
+    if not all(torch.isfinite(t).all() for t in out["restored"]):
+        errors.append(f"{cfg.name}: served logits not finite")
+    return launches
+
+
+def lm_family_run(name: str, keep: int, B: int, S: int, gen, smi: str,
+                  errors: list) -> dict:
+    """Two train steps of one config at full width; the vision cut trains
+    its cross layer and vision projection, the language model frozen."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import adamw
+    base, cfg = lm_cut(name, keep)
+    params = lm_mod.init_params(cfg, gen)
+    mask = None
+    if cfg.family == "vlm":
+        for g in ("gate_attn", "gate_mlp"):
+            params["groups"]["cross"][g].fill_(VLM_GATE)
+        mask = {k: tree_map(lambda _: k in ("groups", "vision_proj"), v)
+                for k, v in params.items()}
+        mask["groups"]["self"] = tree_map(lambda _: False, mask["groups"]["self"])
+        # a frozen leaf's moments are never read: 0-d
+        zero = lambda t, on: torch.zeros(t.shape if on else (), device=DEV)
+        opt = {"m": tree_map(zero, params, mask), "v": tree_map(zero, params, mask),
+               "step": torch.zeros((), dtype=torch.int32, device=DEV)}
+    else:
+        opt = adamw.init_opt_state(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = lm_train_batch(cfg, B, S, SEED, gen)
+    tc = TrainConfig(learning_rate=LMT_LR, warmup_steps=0, schedule="constant")
+    step = lm_steps.make_train_step(cfg, tc, trainable=mask)
+    new, opt, ms, peak, losses = lm_timed_steps(step, params, opt, batch, 1)
+    moved = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(new),
+                                                      tree_leaves(params)))
+    log(f"[lm-train] {name} ({cfg.family}, {cfg.num_layers} of {base.num_layers} "
+        f"layers, d={cfg.d_model}, {n_params / 1e9:.3f} B parameters"
+        + (", the language model frozen" if mask else "")
+        + f"), B={B} x S={S}: 2 steps, the second {ms[0]:.1f} ms, peak memory "
+        f"{peak / 1e9:.2f} GB; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{moved} of {len(tree_leaves(params))} leaves moved")
+    if not all(np.isfinite(losses)) or not moved or not all(
+            torch.isfinite(t).all() for t in tree_leaves(new)):
+        errors.append(f"{name}: training not finite or nothing moved")
+    return {"ms": ms[0], "peak_gb": peak / 1e9}
+
+
+def lm_card_against_cpu(errors: list) -> float:
+    """Check 1: one reduced float32 config per family, the loss and every
+    gradient leaf card against CPU from the same weights and batch (every
+    all-zero leaf filled), each leaf within CARD_CPU_TOL of its norm.
+    Returns the worst reading."""
+    worst = 0.0
+    for arch in LMT_CPU_ARCHS:
+        cfg = get_config(arch).reduced()
+        g = torch.Generator().manual_seed(SEED)
+        params = tree_map(lambda t: t if t.any() else torch.randn(
+            t.shape, generator=g) * 0.1, lm_mod.init_params(cfg, g))
+        batch = lm_train_batch(cfg, 2, 40, SEED, g, device=torch.device("cpu"))
+        outs = {}
+        for dev in ("cpu", DEV):
+            to = lambda t: t.to(dev)
+            (loss, _), grads = lm_grads(cfg, tree_map(to, params), tree_map(to, batch))
+            outs[str(dev)] = (loss.cpu(), [t.cpu() for t in tree_leaves(grads)])
+        (lc, gc), (lg, gg) = outs["cpu"], outs[str(DEV)]
+        errs = [abs(float(lg - lc)) / abs(float(lc))]
+        errs += [float((a - b).abs().max() / b.norm().clamp_min(1e-30))
+                 for a, b in zip(gg, gc)]
+        log(f"[lm-train] check 1, {arch} reduced float32, card vs CPU: loss "
+            f"{float(lg):.6f} vs {float(lc):.6f}, worst loss / gradient-leaf error "
+            f"{max(errs):.2e} of {len(gc)} leaves (tol {CARD_CPU_TOL})")
+        if not max(errs) <= CARD_CPU_TOL:
+            errors.append(f"{arch}: card vs CPU {max(errs)}")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
+    """Language-model training through make_train_step and the trainer's
+    CLI: gemma2-9b and deepseek-moe-16b at full width (cut in depth),
+    checks 1-7 (see the module docstring). Every check reads before any
+    limit is applied, so one run prints them all; then the phase fails on
+    any miss."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    errors = []
+    ops.reset_launches()
+    out = {}
+
+    # gemma2-9b cut: timed steps, checks 2, 6, 3, 4, 5
+    run = lm_full_width_run(*LMT_DENSE, gen, smi, errors)
+    launches = run["flash"]
+    launches += lm_train_then_serve(run, errors)
+    run.pop("trained")
+    torch.cuda.empty_cache()
+    out.update(lm_precision_check(run, errors))
+    cfg, params = run["cfg"], run["params"]
+    short = {k: v[:, :LMT_REMAT_SEQ] for k, v in run.pop("batch").items()}
+    out["remat_rel"] = lm_remat_check(cfg.name, cfg, params, short, errors)
+    del short
+    torch.cuda.empty_cache()
+    ltc = TrainConfig(learning_rate=LMT_LEARN_LR, warmup_steps=0, schedule="constant")
+    lstep = lm_steps.make_train_step(cfg, ltc)
+    lbatch = lm_train_batch(cfg, LMT_LEARN_B, LMT_LEARN_S, SEED + 1, gen)
+    ratios = {}
+    for name, fn in (("sound", lstep), ("sign flipped", flip_update(lstep))):
+        traj, ratios[name] = learning_check(fn, params, adamw.init_opt_state(params),
+                                            lbatch, LMT_LEARN_N)
+        log(f"[lm-train] check 5 ({name}), {LMT_LEARN_N} steps on one batch of "
+            f"the trainer's corpus (B={LMT_LEARN_B} x S={LMT_LEARN_S}, lr "
+            f"{LMT_LEARN_LR}): loss {', '.join(f'{x:.4f}' for x in traj)}; "
+            f"mean(last {LEARN_TAIL}) / first = {ratios[name]:.4f} (limit "
+            f"{LMT_LEARN_LIMIT})")
+        torch.cuda.empty_cache()
+    if not ratios["sound"] < LMT_LEARN_LIMIT:
+        errors.append(f"LM training does not learn: {ratios['sound']}")
+    if not ratios["sign flipped"] >= LMT_LEARN_LIMIT:
+        errors.append(f"the learning check misses a sign-flipped update: "
+                      f"{ratios['sign flipped']}")
+    out["learn"] = ratios
+    keep = ("ms", "tokens_s", "tflops", "peak_gb", "forward_rel", "forward_ms",
+            "backward_ms", "adamw_ms")
+    out[cfg.name] = {k: run[k] for k in keep}
+    del run, params, lbatch
+    torch.cuda.empty_cache()
+
+    # deepseek-moe-16b cut: timed steps, checks 2 and 4
+    run = lm_full_width_run(*LMT_MOE, gen, smi, errors)
+    launches += run["flash"]
+    run.pop("trained")
+    torch.cuda.empty_cache()
+    out["moe_remat_rel"] = lm_remat_check(run["cfg"].name, run["cfg"], run["params"],
+                                          run["batch"], errors)
+    out[run["cfg"].name] = {k: run[k] for k in keep}
+    del run
+    torch.cuda.empty_cache()
+
+    # the remaining families, 2 steps each
+    for spec in LMT_FAMILIES:
+        out[spec[0]] = lm_family_run(*spec, gen, smi, errors)
+        torch.cuda.empty_cache()
+
+    out["card_cpu_err"] = lm_card_against_cpu(errors)
+
+    # check 7: the trainer's CLI in-process
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    for argv in LMT_CLI:
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_cli_")
+        try:
+            t1 = time.perf_counter()
+            cli = train_mod.main(argv + ["--ckpt-dir", ckpt_dir])
+            wall = time.perf_counter() - t1
+            kept = Checkpointer(cli["ckpt_root"], device=DEV).all_steps()
+            nbytes = sum(f.stat().st_size for f in Path(cli["ckpt_root"]).rglob("*.npy"))
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 100
+        log(f"[lm-train] repro_torch.launch.train {' '.join(argv)}: {wall:.1f}s, "
+            f"losses {cli['losses']}; checkpoints at steps {kept}, "
+            f"{nbytes / 1e9:.2f} GB on disk")
+        if (int(cli["opt"]["step"]) != steps or kept[-1] != steps
+                or not all(np.isfinite(l) for _, l in cli["losses"])):
+            errors.append(f"the CLI {' '.join(argv)}: {cli['losses']}")
+        del cli
+        torch.cuda.empty_cache()
+
+    by_variant = dict(ops.flash_attention.launches_by_variant)
+    if ops.flash_attention.launches != launches or by_variant.get("wgmma") != launches:
+        errors.append(f"flash launches {by_variant}, expected {launches} wgmma")
+    log(f"[lm-train] flash launches on the path {ops.flash_attention.launches} "
+        f"(expected {launches}), by variant {by_variant}; phase done in "
+        f"{time.perf_counter() - t0:.1f}s ({smi})")
+    if errors:
+        raise AssertionError("language-model training: " + "; ".join(errors))
+    return {"launches": launches, **out}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2836,11 +3351,14 @@ def main() -> None:
     lm = phase_lm(torch.Generator(device=DEV).manual_seed(SEED + 5), smi)
     torch.cuda.empty_cache()
     families = phase_lm_families(torch.Generator(device=DEV).manual_seed(SEED + 7), smi)
+    torch.cuda.empty_cache()
+    lm_train = phase_lm_train(torch.Generator(device=DEV).manual_seed(SEED + 8), smi)
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
              "train_then_serve": training["launches"], **fleet["launches"],
-             "lm_serving": lm["launches"], "lm_families": families["launches"]}
+             "lm_serving": lm["launches"], "lm_families": families["launches"],
+             "lm_train_then_serve": lm_train["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -1,9 +1,11 @@
 """Builders of the step functions — the port of ``repro.launch.steps``:
-the DiT steps and the language models' prefill and decode steps (the
-language-model train step comes with the next language-model slice).
+the language models' train, prefill and decode steps and the DiT steps.
 
-Each DiT loss takes its random draws as arguments (``t``, ``noise``); the
-step (:class:`repro_torch.optim.adamw.TrainStep`) draws them from a
+The language-model train step takes no draws; with ``n_microbatches``
+it splits the batch along B and sums float32 gradients, as the
+reference's scan does. Each DiT loss takes its random draws as
+arguments (``t``, ``noise``); the step
+(:class:`repro_torch.optim.adamw.TrainStep`) draws them from a
 ``torch.Generator`` in the reference's shapes and dtypes, then takes
 gradients and applies AdamW. Training runs the dense attention path, as
 the reference does at 256 unsegmented tokens (no Pallas kernel of the
@@ -19,16 +21,60 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.diffusion import schedule as sch
 from repro_torch.models import dit as dit_mod
 from repro_torch.models import lm
-from repro_torch.models.common import dtype_of
-from repro_torch.optim.adamw import TrainStep
+from repro_torch.models.common import dtype_of, tree_map
+from repro_torch.optim.adamw import TrainStep, value_and_grad
 
 Params = Any
 
 
-def make_train_step(*args: Any, **kw: Any) -> Callable:
-    raise NotImplementedError("make_train_step (language-model training) "
-                              "comes with the next language-model slice of "
-                              "the port")
+class _MicrobatchedStep(TrainStep):
+    """A train step whose gradients are accumulated over ``n`` equal
+    slices of the batch along B: ``acc + g.float() / n`` per leaf (the
+    loss likewise), the last slice's metrics, then each gradient cast
+    back to its parameter's dtype before AdamW."""
+
+    def __init__(self, loss_fn, tc: TrainConfig, n: int,
+                 trainable: Optional[Params] = None):
+        super().__init__(loss_fn, _no_draws, tc, trainable)
+        self.n = n
+
+    def loss_and_grads(self, params: Params, batch: Dict
+                       ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
+        n = self.n
+        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        l_acc = torch.zeros((), dtype=torch.float32,
+                            device=batch["tokens"].device)
+        for i in range(n):
+            mb = {k: v.chunk(n)[i] for k, v in batch.items()}
+            (loss, metrics), g = value_and_grad(self.loss_fn, params, mb)
+            g_acc = tree_map(lambda a, b: a + b.float() / n, g_acc, g)
+            l_acc = l_acc + loss / n
+        return (l_acc, metrics), tree_map(lambda g, p: g.to(p.dtype), g_acc,
+                                          params)
+
+
+def _no_draws(batch: Dict, generator: Optional[torch.Generator]) -> Dict:
+    return {}
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig,
+                    n_microbatches: int = 1,
+                    trainable: Optional[Params] = None,
+                    backend: str = "xla") -> TrainStep:
+    """``(params, opt_state, batch) → (params, opt_state, metrics)``: the
+    language-model loss (``lm.lm_loss``), its gradients, AdamW.
+
+    ``batch``: ``tokens`` / ``targets`` [B,S] int, optional ``loss_mask``
+    and ``segment_ids``, and ``vision`` / ``frames`` for those families.
+    ``n_microbatches > 1`` splits B into that many slices taken one after
+    another (bounds activation memory; see DESIGN.md §5)."""
+    def loss_fn(params, batch):
+        return lm.lm_loss(params, batch, cfg, backend=backend)
+
+    if n_microbatches > 1:
+        return _MicrobatchedStep(loss_fn, tc, n_microbatches, trainable)
+    return TrainStep(loss_fn, _no_draws, tc, trainable)
 
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "xla") -> Callable:

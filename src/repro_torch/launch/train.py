@@ -1,20 +1,25 @@
-"""Training entry point of the port: the DiT branch of
-``repro.launch.train``.
+"""Training entry point of the port — ``repro.launch.train``.
 
+  python -m repro_torch.launch.train --arch deepseek-7b --smoke --steps 20 \
+      --device cpu
   python -m repro_torch.launch.train --arch dit-xl-2 --smoke --steps 50 \
       --device cpu
   python -m repro_torch.launch.train --arch dit-xl-2 --smoke --steps 50 \
       --flexi --recipe shared      # FlexiDiT fine-tune, alternating modes
   python -m repro_torch.launch.train --arch dit-xl-2 --steps 4 --flexi \
       --recipe lora                # full width on the card
+  python -m repro_torch.launch.train --arch mamba2-130m --steps 4
 
-``--flexi`` flexifies a freshly initialized DiT to the weak patch size
-(1, 4, 4) and alternates step functions for modes 0 and 1; ``--recipe
-lora`` adds rank-8 LoRAs and freezes the base (§3.2). Parameters and the
-AdamW state are checkpointed to ``--ckpt-dir`` every ``--ckpt-every``
-steps and at the end, in the reference's layout. Runs on CUDA unless
-``--device cpu``. A language-model ``--arch`` comes with the
-language-model slice of the port.
+A language model trains on the reference's synthetic bigram corpus
+(``data.pipeline.make_lm_batch_fn``, ``--batch`` x ``--seq`` tokens),
+which feeds tokens only: the vision and audio models, whose forward also
+needs an image or frames, are refused (they train through
+``launch.steps.make_train_step``). ``--flexi`` flexifies a freshly
+initialized DiT to the weak patch size (1, 4, 4) and alternates step
+functions for modes 0 and 1; ``--recipe lora`` adds rank-8 LoRAs and
+freezes the base (§3.2). Parameters and the AdamW state are checkpointed
+to ``--ckpt-dir`` every ``--ckpt-every`` steps and at the end, in the
+reference's layout. Runs on CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -33,9 +38,20 @@ from repro_torch.data import pipeline as dp
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as st
 from repro_torch.models import dit as dit_mod
+from repro_torch.models import lm
 from repro_torch.optim import adamw, ema
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.runtime.straggler import StragglerDetector
+
+
+def build_lm_training(cfg, tc, batch, seq, device):
+    params = lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(tc.seed))
+    opt = adamw.init_opt_state(params)
+    step_fn = st.make_train_step(cfg, tc)
+    loader = dp.HostShardedLoader(
+        dp.make_lm_batch_fn(cfg.vocab_size, seq, batch), seed=tc.seed)
+    return params, opt, step_fn, loader
 
 
 def build_dit_training(cfg, tc, batch, device, mode=0, trainable=None):
@@ -56,6 +72,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--arch", default="dit-xl-2")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--flexi", action="store_true",
@@ -74,10 +91,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    if cfg.family != "dit":
-        raise NotImplementedError(f"training {args.arch!r} (a language "
-                                  f"model) comes with the language-model "
-                                  f"slice of the port")
+    if cfg.family in ("vlm", "audio"):
+        raise ValueError(f"{args.arch!r} ({cfg.family}) needs "
+                         f"{'an image' if cfg.family == 'vlm' else 'frames'}"
+                         f" with its tokens, and the trainer's corpus feeds "
+                         f"tokens only; train it through "
+                         f"launch.steps.make_train_step")
     device = resolve_device(args.device)
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=10,
                      total_steps=args.steps)
@@ -87,7 +106,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     hb = HeartbeatMonitor(n_workers=1, timeout_s=600)
     sd = StragglerDetector(n_workers=1)
 
-    if args.flexi:
+    if cfg.family != "dit":
+        params, opt, fn, loader = build_lm_training(cfg, tc, args.batch,
+                                                    args.seq, device)
+        step_fns = [fn]
+    elif args.flexi:
         from repro_torch.core import flexify, trainable_mask
         base_params = dit_mod.init_dit(
             cfg, torch.Generator(device=device).manual_seed(0))
@@ -115,7 +138,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     for step in range(args.steps):
         t0 = time.time()
         batch = {k: torch.as_tensor(v).to(device)
-                 for k, v in next(loader).items() if k in ("x0", "cond")}
+                 for k, v in next(loader).items()
+                 if k in ("tokens", "targets", "x0", "cond")}
         fn = step_fns[step % len(step_fns)]
         params, opt, metrics = fn(params, opt, batch, gen)
         ema_state = ema.ema_update(ema_state, params, tc.ema_rate)

@@ -30,7 +30,8 @@ from repro_torch.configs.base import AttnConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attention import mask as mask_mod
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.models.common import ParamSpec, apply_rope, rms_norm
+from repro_torch.models.common import (ParamSpec, _MatmulF32, apply_rope,
+                                       rms_norm)
 
 Params = Dict[str, Any]
 
@@ -121,10 +122,26 @@ def make_attention_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with a float32 result: on CUDA 16-bit operands
-    through ``torch.bmm(out_dtype=float32)``, else on upcast operands."""
+    through ``torch.bmm(out_dtype=float32)`` (``_MatmulF32``'s backward),
+    else on upcast operands."""
     if a.device.type == "cuda" and a.dtype != torch.float32:
-        return torch.bmm(a, b.to(a.dtype), out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b.to(a.dtype))
     return torch.bmm(a.float(), b.float())
+
+
+def _scores(s: torch.Tensor, bias: torch.Tensor, hd: int,
+            cfg: AttnConfig) -> torch.Tensor:
+    """Scores scaled by 1/sqrt(hd), soft-capped and biased: in place,
+    unless autograd records them (tanh's backward keeps its output)."""
+    if torch.is_grad_enabled() and s.requires_grad:
+        s = s / math.sqrt(hd)
+        if cfg.logit_softcap > 0.0:
+            s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+        return s + bias
+    s.div_(math.sqrt(hd))
+    if cfg.logit_softcap > 0.0:
+        s.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
+    return s.add_(bias)
 
 
 def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,11 +160,7 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for b in range(B):
         qb = q[b].reshape(Sq, K, G, hd).permute(1, 2, 0, 3).reshape(K, G * Sq, hd)
         s = bmm_f32(qb, k[b].permute(1, 2, 0)).view(K, G, Sq, Sk)
-        s.div_(math.sqrt(hd))
-        if cfg.logit_softcap > 0.0:
-            s.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
-        s.add_(bias[b])
-        p = torch.softmax(s, dim=-1).to(v.dtype)
+        p = torch.softmax(_scores(s, bias[b], hd, cfg), dim=-1).to(v.dtype)
         del s
         o = bmm_f32(p.view(K, G * Sq, Sk), v[b].permute(1, 0, 2))
         out.append(o.view(K, G, Sq, hd).permute(2, 0, 1, 3).reshape(Sq, H, hd)

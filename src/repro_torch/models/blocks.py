@@ -26,8 +26,6 @@ from repro_torch.models.moe import moe_apply_sorted, moe_schema
 
 Params = Dict[str, Any]
 
-NEXT_LM_SLICE = "the next language-model slice of the port"
-
 
 def block_schema(cfg: ModelConfig) -> Params:
     d = cfg.d_model

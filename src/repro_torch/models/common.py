@@ -189,23 +189,25 @@ def count_params(tree: Any) -> int:
 
 
 class _MatmulF32(torch.autograd.Function):
-    """cuBLAS's ``out_dtype=float32`` product of 16-bit operands, which has
-    no derivative in torch: the backward takes the incoming float32
-    gradient back to the operands' dtype and multiplies there, as a
-    16-bit product followed by ``.float()`` would."""
+    """cuBLAS's ``out_dtype=float32`` product of 16-bit operands (``mm``
+    of 2-D, ``bmm`` of 3-D operands), which has no derivative in torch:
+    the backward takes the incoming float32 gradient back to the
+    operands' dtype and multiplies there, as a 16-bit product followed by
+    ``.float()`` would."""
 
     @staticmethod
-    def forward(ctx, x2, w):
-        ctx.save_for_backward(x2, w)
-        return torch.mm(x2, w, out_dtype=torch.float32)
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        op = torch.bmm if a.dim() == 3 else torch.mm
+        return op(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        g16 = g.to(x2.dtype)
-        gx = g16 @ w.t() if ctx.needs_input_grad[0] else None
-        gw = x2.t() @ g16 if ctx.needs_input_grad[1] else None
-        return gx, gw
+        a, b = ctx.saved_tensors
+        g16 = g.to(a.dtype)
+        ga = g16 @ b.mT if ctx.needs_input_grad[0] else None
+        gb = a.mT @ g16 if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor,

@@ -1,6 +1,6 @@
 """Language-model wrapper of the port — ``repro.models.lm`` for every
-family (dense, MoE, hybrid, SSM, vision, audio): schema, init, prefill and
-KV-cache decode.
+family (dense, MoE, hybrid, SSM, vision, audio): schema, init, the
+training forward and loss, prefill and KV-cache decode.
 
 Parameters are the reference's tree: per-layer leaves stacked ``[L, ...]``
 under ``blocks`` (the vision model's self layers ``[G, k-1, ...]`` and its
@@ -17,28 +17,31 @@ models, the vision model's self layers (its cross layers are dense), and
 whisper's encoder (non-causal; its decoder's attention is dense). Decode
 is dense over the cache everywhere.
 
-Training (``forward_train``, ``lm_loss``) comes with the next
-language-model slice and raises here.
+Training (``forward_train``, ``lm_loss``) runs the reference's train
+mode: the same layer loop with ``mode="train"`` (dense attention on the
+reference's ``"xla"`` backend; no Pallas kernel has a backward rule), the
+MoE aux losses summed over layers, and ``cfg.remat == "block"`` as
+activation checkpointing of each layer (each vision group).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (_out_proj, _proj, attention_schema,
-                                          cross_attention,
+from repro_torch.models.attention import (_out_proj, _proj, attention,
+                                          attention_schema, cross_attention,
                                           cross_attention_schema,
                                           decode_attention, gqa_attend,
                                           prefill_attention)
-from repro_torch.models.blocks import (NEXT_LM_SLICE, _gate, block_apply,
-                                       block_schema, cross_block_apply,
-                                       cross_block_schema)
+from repro_torch.models.blocks import (_gate, block_apply, block_schema,
+                                       cross_block_apply, cross_block_schema)
 from repro_torch.models.common import (ParamSpec, apply_norm, dtype_of,
                                        init_tree, matmul_f32, norm_schema,
                                        softcap, stack_schema)
@@ -149,12 +152,115 @@ def _aux_add(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Serving: prefill + decode
+# Train forward
 
 
 def _layer(tree: Params, i: int) -> Params:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _remat(cfg: ModelConfig, fn: Callable, *args: Any) -> Any:
+    """``fn(*args)``; under ``cfg.remat == "block"`` (and autograd on) as
+    activation checkpointing: its activations are recomputed in the
+    backward from these same arguments, so everything ``fn`` depends on
+    (the layer's parameters, its window) is an argument, never a name of
+    the caller's loop. Other values run plainly: the reference acts on
+    ``"block"`` alone."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_block(p: Params, x: torch.Tensor, window: int,
+                 segment_ids: Optional[torch.Tensor], cfg: ModelConfig,
+                 backend: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decoder layer in train mode: (x, its aux losses)."""
+    x, _, aux = block_apply(p, x, cfg, window=window, mode="train",
+                            segment_ids=segment_ids, backend=backend)
+    return x, aux
+
+
+def _vlm_train_group(p_self: Params, p_cross: Params, x: torch.Tensor,
+                     vis: torch.Tensor, cfg: ModelConfig,
+                     backend: str) -> torch.Tensor:
+    """One vision group in train mode: k-1 self layers (window 0), then
+    the gated cross layer over the projected vision states."""
+    k, _ = _vlm_group(cfg)
+    for j in range(k - 1):
+        x, _, _ = block_apply(_layer(p_self, j), x, cfg, window=0,
+                              mode="train", backend=backend)
+    return cross_block_apply(p_cross, x, vis, cfg)
+
+
+def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  extra: Optional[Dict[str, torch.Tensor]] = None,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  backend: str = "xla"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens: [B,S] int → (logits [B,S,V] float32, aux losses: the MoE
+    layers' ``load_balance``, ``router_z`` and ``dropped_fraction`` summed
+    over layers, empty for the other families). ``extra``: ``vision``
+    (vlm) or ``frames`` (audio), as in :func:`prefill`; ``segment_ids``
+    [B,S] keeps packed documents apart (dense, MoE and hybrid layers, as
+    the reference)."""
+    x = embed_tokens(params, tokens, cfg)
+    aux = _aux_zero(cfg)
+    if cfg.family == "vlm":
+        vis = extra["vision"].to(x.dtype)
+        vis = torch.matmul(vis, params["vision_proj"].to(x.dtype))
+        _, G = _vlm_group(cfg)
+        for g in range(G):
+            x = _remat(cfg, _vlm_train_group, _layer(params["groups"]["self"], g),
+                       _layer(params["groups"]["cross"], g), x, vis, cfg,
+                       backend)
+    elif cfg.family == "audio":
+        enc = _audio_encode(params, extra["frames"], cfg, backend)
+        S = x.shape[1]
+        x = x + params["pos_embed"][:S].to(x.dtype)[None]
+        x, _ = _audio_decoder(params["dec_blocks"], x, enc, cfg, mode="train")
+    else:
+        if cfg.sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel (the reference's sharding constraint on "
+                "each layer's output) comes with the distributed slice of "
+                "the port")
+        windows = layer_windows(cfg)
+        for i in range(cfg.num_layers):
+            x, a = _remat(cfg, _train_block, _layer(params["blocks"], i), x,
+                          int(windows[i]), segment_ids, cfg, backend)
+            aux = _aux_add(aux, a)
+    return unembed(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            backend: str = "xla"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy of ``batch["targets"]`` (masked mean over
+    ``loss_mask`` when given), plus every aux loss: (total, metrics with
+    ``loss`` the cross-entropy alone). The reference's sum includes
+    ``dropped_fraction``, which carries no gradient."""
+    logits, aux = forward_train(params, batch["tokens"], cfg, extra=batch,
+                                backend=backend,
+                                segment_ids=batch.get("segment_ids"))
+    logp = torch.log_softmax(logits, dim=-1)
+    del logits        # the backward needs logp only: one [B, S, V] float32 less
+    nll = -logp.gather(-1, batch["targets"][..., None].long())[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        loss = torch.mean(nll)
+    total = loss + sum(aux.values()) if aux else loss
+    return total, {"loss": loss, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -289,7 +395,9 @@ def _audio_decoder(dec_p: Params, x: torch.Tensor, enc: torch.Tensor,
     """Whisper's decoder layers (the reference's ``_audio_decoder_scan``):
     causal self-attention (dense, as the reference's takes no backend),
     cross-attention to the encoder states, MLP. ``prefill`` returns the
-    stacked K/V cache; ``decode`` writes into ``cache`` in place."""
+    stacked K/V cache; ``decode`` writes into ``cache`` in place;
+    ``train`` runs ``attention`` on its default backend (dense at
+    whisper's lengths) and returns no cache."""
     L = cfg.num_layers
     out: Params = {} if cache is None else cache
     for i in range(L):
@@ -298,9 +406,11 @@ def _audio_decoder(dec_p: Params, x: torch.Tensor, enc: torch.Tensor,
         if mode == "decode":
             c = {"k": cache["k"][i], "v": cache["v"][i]}
             a, _ = decode_attention(p["attn"], c, a_in, pos, cfg.attn)
-        else:
+        elif mode == "prefill":
             a, c = prefill_attention(p["attn"], a_in, cfg.attn)
             _store(out, (i,), (L,), c)
+        else:
+            a = attention(p["attn"], a_in, cfg.attn, causal=True)
         x = x + a
         xa_in = apply_norm(p["lnx"], x, cfg.norm_type)
         x = x + cross_attention(p["xattn"], xa_in, enc, cfg.attn)
@@ -361,12 +471,3 @@ def _vlm_decode(groups: Params, x: torch.Tensor, cache: Params,
                                                           cfg.mlp_activation)
     return x
 
-
-def forward_train(*args: Any, **kw: Any):
-    raise NotImplementedError(f"forward_train (language-model training) "
-                              f"comes with {NEXT_LM_SLICE}")
-
-
-def lm_loss(*args: Any, **kw: Any):
-    raise NotImplementedError(f"lm_loss (language-model training) comes "
-                              f"with {NEXT_LM_SLICE}")

@@ -135,7 +135,8 @@ class TrainStep:
     take gradients of ``loss_fn(params, batch, **draws)``, then AdamW.
 
     The draws are the loss's arguments, so a caller may hand in its own
-    (``with_draws``), for example another package's draws.
+    (``with_draws``), for example another package's draws. A step that
+    draws nothing (the language models') needs no generator.
     """
 
     def __init__(self, loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
@@ -158,6 +159,7 @@ class TrainStep:
         return params, opt_state, {**metrics, **om}
 
     def __call__(self, params: Params, opt_state: Dict, batch: Dict,
-                 generator: torch.Generator) -> Tuple[Params, Dict, Dict]:
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[Params, Dict, Dict]:
         return self.with_draws(params, opt_state, batch,
                                **self.draw(batch, generator))

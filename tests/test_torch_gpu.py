@@ -1011,3 +1011,45 @@ def test_moe_sorted_matches_dense_oracle_on_card(cuda):
     y_f, _ = moe_apply_sorted(dict(p, router=p["router"].roll(1, dims=1)), x, m,
                               cfg.mlp_activation)
     assert ((y_f.float() - ref.float()).norm() / ref.float().norm()).item() > 2e-2
+
+
+# ---------------------------------------------------------------------------
+# Language-model training on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma2-9b", "hymba-1.5b", "mamba2-130m",
+                                  "deepseek-moe-16b", "llama-3.2-vision-90b",
+                                  "whisper-small"])
+def test_lm_train_card_matches_cpu(cuda, arch):
+    """One reduced float32 config per family (every all-zero leaf filled):
+    lm_loss and every gradient leaf on the card against the CPU from the
+    same weights and batch (TF32 off), the loss within 1e-5 relative and
+    each leaf within 1e-5 of its norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(0)
+    params = tree_map(lambda t: t if t.any() else torch.randn(
+        t.shape, generator=g) * 0.1, lm.init_params(cfg, g))
+    b = dp.make_lm_batch_fn(cfg.vocab_size, 40, 2)(0, 0, 1, np.random.default_rng(0))
+    batch = {k: torch.from_numpy(b[k]) for k in ("tokens", "targets")}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((2, cfg.vision_tokens, cfg.d_model), generator=g)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.audio_frames, cfg.d_model), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        to = lambda t: t.to(dev)
+        (loss, _), grads = adamw.value_and_grad(
+            lambda p, bb: lm.lm_loss(p, bb, cfg), tree_map(to, params),
+            tree_map(to, batch))
+        out[str(dev)] = (loss.cpu(), [t.cpu() for t in tree_leaves(grads)])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(float(lg - lc)) <= 1e-5 * abs(float(lc))
+    for a, want in zip(gg, gc):
+        assert (a - want).abs().max() <= 1e-5 * want.norm(), arch

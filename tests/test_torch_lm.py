@@ -156,10 +156,16 @@ def test_convert_refuses_a_tree_of_another_schema():
 
 
 def test_later_families_raise_naming_the_slice():
-    # every family serves now; language-model training still raises
-    for fn in (tlm.forward_train, tlm.lm_loss, tsteps.make_train_step):
-        with pytest.raises(NotImplementedError, match="language-model slice"):
-            fn(None)
+    # every family serves and trains now; what still raises is the
+    # sequence-parallel constraint, which the distributed slice owns
+    jcfg, tcfg, jp, tp = setup("deepseek-7b")
+    cfg = dataclasses.replace(tcfg, sequence_parallel=True)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        tlm.forward_train(tp, toks, cfg)
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        tsteps.make_train_step(cfg, None)(tp, None, {"tokens": toks,
+                                                     "targets": toks})
 
 
 # ---------------------------------------------------------------------------

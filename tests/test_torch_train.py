@@ -109,10 +109,19 @@ def test_dit_train_step_draws_reference_shapes(shared, batch):
 
 
 def test_lm_steps_raise_naming_the_slice():
-    # the LM train step waits for the next language-model slice; prefill
-    # and decode are ported (tests/test_torch_lm.py)
-    with pytest.raises(NotImplementedError, match="language-model slice"):
-        tsteps.make_train_step(None)
+    # the LM steps are ported (tests/test_torch_lm.py,
+    # tests/test_torch_lm_train.py); a sequence-parallel config raises,
+    # naming the distributed slice, when the train step runs
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-7b").reduced(),
+                              sequence_parallel=True)
+    step = tsteps.make_train_step(cfg, TrainConfig())
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    from repro_torch.models import lm as tlm
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        step(params, tadamw.init_opt_state(params),
+             {"tokens": toks, "targets": toks})
     for fn in (tsteps.make_prefill_step, tsteps.make_decode_step):
         assert callable(fn(None))
 
@@ -247,8 +256,10 @@ def test_train_cli_lora_smoke_leaves_a_restorable_checkpoint(tmp_path):
 
 
 def test_train_cli_refuses_a_language_model():
-    with pytest.raises(NotImplementedError, match="language-model slice"):
-        ttrain.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu"])
+    # the CLI trains the LMs that take tokens alone
+    # (tests/test_torch_lm_train.py); whisper's forward also needs frames
+    with pytest.raises(ValueError, match="make_train_step"):
+        ttrain.main(["--arch", "whisper-small", "--smoke", "--device", "cpu"])
 
 
 def test_train_step_after_sampling_in_one_process(tiny_dit_cfg):
