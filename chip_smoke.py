@@ -166,7 +166,42 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    projection trained, the language model frozen) and whisper-small
    whole, 2 steps each; 7. ``python -m repro_torch.launch.train --arch
    mamba2-130m --steps 4`` and ``--arch deepseek-moe-16b --smoke``
-   in-process.
+   in-process;
+14. sequence-parallel sampling (``repro_torch.distributed``): the
+   kernels built here before any rank starts, then rank processes
+   (``launch/mesh.run_ranks``), every one on this card over Gloo, each
+   building DiT-XL/2 at full width (phase 3's weights recipe, a fresh
+   seed, bf16) and sampling n = 4 at CFG 1.5, T = 10 DDIM, budgets 0.6
+   and 1.0 through ``FlexiPipeline(mesh=)``: Ulysses on (1 x 2), (1 x 4)
+   and (2 x 2) (the batch split over 'data'), 'auto' on (1 x 3) (the
+   ring: 16 heads do not divide by 3; 256 and 64 tokens pad to 258 and
+   66) and the ring forced on (1 x 4). Each x0 is held against this
+   process's single-device ``FlexiPipeline.sample`` with the same
+   generator as ||x0 - ref|| / ||ref||: Ulysses at 3e-3 (phase 7's
+   limit); the ring, whose float32 sums run in another order, at 6e-3,
+   beside single-device with the kernel's keys visited in reverse order
+   (the same function, other sums), and against Ulysses on (1 x 4) at
+   6e-3; Ulysses runs 28 flash launches a forward on every rank, all
+   ``wgmma``, the ring none; the q/k/v/o bytes sent (the ring's K/V),
+   summed over ranks, equal n x ``PartitionPlan.collective_bytes``; a
+   budget switch back builds no runner; FLOPs and relative compute equal
+   the single-device run's; the Ulysses q/k/v sequence chunks joined in
+   reversed rank order and the ring's last hop skipped (planted faults)
+   must read over their limits. Per call at full width on the ranks: one
+   layer's q/k/v at DiT-XL/2's shape (B 8, 256 tokens, 16 x 72; padded
+   to 258 on (1 x 3)) and at the t2i shape (B 2, 4096 tokens, 16 x 128)
+   through Ulysses (bf16) and the ring (float32), gathered, against
+   single-device flash at the kernel's tolerance and against float32
+   plain attention at 1e-5; each planted fault must move the output by
+   over 0.1 (relative). Then the text-to-image transformer at full
+   width (4096 tokens) by ``flow_euler`` at budget 0.6, Ulysses (1 x 4),
+   against single-device under the same limit; the flash kernel at the
+   Ulysses inner shapes against its plain version and timed against
+   SDPA; and ``python -m repro_torch.launch.serve --arch dit-xl-2 --mesh
+   1x2 --dist-backend gloo`` as a subprocess. Walls per sample are
+   printed beside single-device's: ranks sharing one card, with Gloo
+   staging every collective through the host, price the mechanism, not
+   scaling.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -180,7 +215,9 @@ there is no CUDA card or no port next to this file.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -3309,6 +3346,445 @@ def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
     return {"launches": launches, **out}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: sequence-parallel sampling across rank processes
+
+
+# (name, mesh, ParallelSpec.attn): every rank on this card over Gloo
+SP_RUNS = [("1x2", (1, 2), "ulysses"), ("1x4", (1, 4), "ulysses"),
+           ("2x2", (2, 2), "ulysses"), ("1x3", (1, 3), "auto"),
+           ("1x4-ring", (1, 4), "ring")]
+# Ulysses runs each head's attention on the flash kernel as single-device
+# does; its runs are held at SERVE_X0_TOL. The ring computes the same
+# function with its float32 sums in another order (the reference's
+# streaming softmax), and with bf16 activations over 28 layers x 10 DDIM
+# steps any such change moves x0 by ~3e-3: the phase prints single-device
+# with the kernel's keys visited in reverse order beside it. On an H100
+# 80GB HBM3 (700 W) Ulysses read 0 to 5.2e-7, the ring 3.19e-3 to 3.83e-3,
+# reversed keys 3.01e-3 / 3.81e-3 and the ring with its last hop skipped
+# 9.02e-3 (PERF.md §6, PR 24): the ring's limit sits between.
+SP_RING_X0_TOL = 6e-3
+SP_N, SP_BUDGETS, SP_LABELS = 4, (0.6, 1.0), (207, 360, 387, 974)
+SP_SEED, SP_DRAW_SEED, SP_T2I_SEED = SEED + 9, 4242, SEED + 10
+# the runs that also serve a planted fault, its limit and what it is
+SP_PLANTS = {"1x4": (SERVE_X0_TOL, "the Ulysses q/k/v sequence chunks "
+                     "joined in reversed rank order"),
+             "1x4-ring": (SP_RING_X0_TOL, "the ring's last hop skipped")}
+# Ulysses and the ring per call at full width, on the seq meshes: one
+# layer's q/k/v at DiT-XL/2's shape (the CFG-doubled batch of 4, 256
+# tokens, padded to 258 on (1 x 3)) and at the text-to-image transformer's
+# (4096 tokens); each planted fault must move the output by over
+# SP_CALL_PLANT_MIN (relative)
+SP_DIT_CALL, SP_T2I_CALL = (2 * SP_N, 256, 16, 72), (2, 4096, 16, 128)
+SP_CALLS = {(1, 2): [("ulysses", SP_DIT_CALL)],
+            (1, 3): [("ring", SP_DIT_CALL)],
+            (1, 4): [("ulysses", SP_DIT_CALL), ("ring", SP_DIT_CALL),
+                     ("ulysses", SP_T2I_CALL), ("ring", SP_T2I_CALL)]}
+SP_RING_CALL_TOL, SP_CALL_PLANT_MIN = 1e-5, 0.1
+SP_TIMEOUT_S = 420.0
+# the Ulysses inner attention at sp 4: DiT-XL/2 (CFG-doubled batch of 4,
+# 4 of 16 heads) and the text-to-image transformer (4 of 16 heads)
+SP_ATTN = [(2 * SP_N, 256, 4, 72), (2 * SP_N, 64, 4, 72), (2, 4096, 4, 128)]
+SP_CLI = ["--arch", "dit-xl-2", "--mesh", "1x2", "--dist-backend", "gloo",
+          "--requests", "4", "--batch-slots", "2", "--T", str(T_STEPS),
+          "--budget-levels", "0.6,1.0", "--attn-backend", "pallas"]
+
+
+def sp_plan(b: float, attn=None, **kw) -> SamplingPlan:
+    from repro_torch.distributed import ParallelSpec
+    return SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas",
+                        parallel=None if attn is None else ParallelSpec(attn=attn),
+                        **kw)
+
+
+@contextlib.contextmanager
+def reversed_keys():
+    """Single-device attention with the keys (and values) handed to the
+    flash kernel in reverse order: the same function, its float32 sums in
+    another order (unsegmented self-attention only)."""
+    sound = ops.flash_attention
+
+    def reverse(q, k, v, **kw):
+        assert kw.get("segment_ids") is None, "unsegmented attention only"
+        return sound(q, k.flip(1), v.flip(1), **kw)
+
+    ops.flash_attention = reverse
+    try:
+        yield
+    finally:
+        ops.flash_attention = sound
+
+
+@contextlib.contextmanager
+def planted_fault(impl: str, sp: int):
+    """Ulysses: the q/k/v sequence chunks the inbound all-to-all brings
+    joined in reversed rank order (so every rank gets back another rank's
+    tokens' outputs). Ring: the last hop of every attention skipped (the
+    previous chunk accumulated twice, the last never seen; every rank
+    skips the same calls)."""
+    from repro_torch.distributed import attention as dist_attn
+    name = "join_seq_chunks" if impl == "ulysses" else "rotate"
+    sound = getattr(dist_attn, name)
+    calls = itertools.count()
+
+    def skip_last_hop(x, group, kind):
+        if next(calls) % (3 * (sp - 1)) >= 3 * (sp - 2):
+            return x
+        return sound(x, group, kind)
+
+    setattr(dist_attn, name, (lambda x: sound(x.flip(0))) if impl == "ulysses"
+            else skip_last_hop)
+    try:
+        yield
+    finally:
+        setattr(dist_attn, name, sound)
+
+
+def sp_timed(pipe, plan, n, device, **kw) -> dict:
+    """One sample with its flash launches, collective bytes, runners built
+    and wall (CUDA synchronised on both ends)."""
+    from repro_torch.distributed import attention as dist_attn
+    built = pipe.cache_stats()["compiled"]
+    ops.reset_launches()
+    dist_attn.reset_comm_bytes()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    res = pipe.sample(plan, n, torch.Generator(device=device).manual_seed(
+        SP_DRAW_SEED), **kw)
+    torch.cuda.synchronize(device)
+    return {"wall": time.perf_counter() - t0,
+            "x0": res.x0.float().cpu().numpy(), "flops": res.flops,
+            "relative_compute": res.relative_compute,
+            "launches": ops.flash_attention.launches,
+            "by_variant": dict(ops.flash_attention.launches_by_variant),
+            "bytes": dict(dist_attn.comm_bytes),
+            "built": pipe.cache_stats()["compiled"] - built}
+
+
+def sp_calls(device: torch.device, mesh, calls) -> dict:
+    """Ulysses and the ring per call on this rank: one layer's q/k/v drawn
+    whole from a shared seed (padded with segment -1 to a multiple of sp),
+    this rank's slice through the collective, sound and planted, against
+    this rank's rows of single-device attention on the whole inputs: the
+    flash kernel for Ulysses (bf16, the kernel's tolerance), float32 plain
+    attention for the ring (float32 inputs, SP_RING_CALL_TOL). Returns the
+    squared norms the parent sums into errors over the gathered output."""
+    import torch.distributed as dist
+    from repro_torch.distributed import attention as dist_attn
+    group = mesh.get_group("seq")
+    sp, j = dist.get_world_size(group), mesh.get_local_rank("seq")
+    out = {}
+    for i, (impl, (B, N, H, hd)) in enumerate(calls):
+        gen = torch.Generator(device=device).manual_seed(SP_SEED + 100 + i)
+        pad = -N % sp
+        q, k, v = (F.pad(torch.randn((B, N, H, hd), generator=gen,
+                                     device=device), (0, 0, 0, 0, 0, pad))
+                   for _ in range(3))
+        seg = torch.zeros((B, N + pad), dtype=torch.int32, device=device)
+        seg[:, N:] = -1
+        n = (N + pad) // sp
+        rows, real = slice(j * n, (j + 1) * n), min(n, N - j * n)
+        if impl == "ulysses":
+            q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+            want = ops.flash_attention(q, k, v, causal=False,
+                                       segment_ids=seg)[:, rows]
+            tol = TOL[torch.bfloat16]
+        else:
+            s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows], k[:, :N])
+            want = torch.einsum("bhqk,bkhd->bqhd",
+                                (s / hd ** 0.5).softmax(-1), v[:, :N])
+            tol = SP_RING_CALL_TOL
+            del s
+        want = want[:, :real].float()
+        loc = [x[:, rows].contiguous() for x in (q, k, v)]
+        kw = dict(group=group, segment_ids=seg[:, rows].contiguous(),
+                  attn_backend="pallas")
+        fn = dist_attn.ATTN_FNS[impl]
+        got = fn(*loc, **kw)[:, :real].float()
+        with planted_fault(impl, sp):
+            planted = fn(*loc, **kw)[:, :real].float()
+        diff = (got - want).abs()
+        out[f"{impl} B{B} N{N} H{H} hd{hd}"] = dict(
+            tol=tol, max_abs_err=diff.max().item(),
+            ok=bool((diff <= tol + tol * want.abs()).all()),
+            err2=(got - want).norm().item() ** 2,
+            planted2=(planted - want).norm().item() ** 2,
+            ref2=want.norm().item() ** 2)
+    return out
+
+
+def sp_rank(rank: int, device: torch.device, runs, t2i: bool) -> dict:
+    """One rank of phase 14 (spawned ranks import this file by path). Every
+    rank builds the meshes in the same order, the same weights from the
+    same seed, and samples every run."""
+    from repro_torch.launch.mesh import make_inference_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {}
+    for _, shape, _ in runs:
+        if shape not in meshes:
+            meshes[shape] = make_inference_mesh(*shape, device=device,
+                                                backend="gloo")
+    params, cfg = trained_like_xl(torch.Generator(device=device)
+                                  .manual_seed(SP_SEED))
+    pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=device)
+    del params
+    cond = torch.tensor(SP_LABELS, device=device)
+    out = {"runs": {}}
+    for name, shape, attn in runs:
+        pipe.set_mesh(meshes[shape])
+        got = {b: sp_timed(pipe, sp_plan(b, attn), SP_N, device, cond=cond)
+               for b in SP_BUDGETS}
+        # a budget switch back on the fixed mesh, timed warm
+        got["again"] = sp_timed(pipe, sp_plan(SP_BUDGETS[0], attn), SP_N,
+                                device, cond=cond)
+        if name in SP_PLANTS:
+            with planted_fault(attn, shape[1]):
+                got["planted"] = sp_timed(pipe, sp_plan(SP_BUDGETS[0], attn),
+                                          SP_N, device, cond=cond)
+        out["runs"][name] = got
+    del pipe
+    torch.cuda.empty_cache()
+    out["calls"] = {shape: sp_calls(device, mesh, SP_CALLS[shape])
+                    for shape, mesh in meshes.items() if shape in SP_CALLS}
+    torch.cuda.empty_cache()
+    if t2i:
+        gen = torch.Generator(device=device).manual_seed(SP_T2I_SEED)
+        params, cfg = trained_like_t2i(gen)
+        text = randn(gen, (1, cfg.dit.text_len, cfg.dit.text_dim))
+        x_T = randn(gen, (1,) + tuple(cfg.dit.latent_shape))
+        pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=device,
+                             mesh=meshes[(1, 4)])
+        del params
+        out["t2i"] = sp_timed(pipe, sp_plan(T2I_BUDGETS[0], "ulysses",
+                                            solver="flow_euler",
+                                            guidance_scale=0.0),
+                              1, device, cond=text, x_T=x_T)
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_kernel_shapes(gen: torch.Generator, smi: str) -> dict:
+    """The flash kernel at the Ulysses inner shapes: against its plain
+    version (the DiT shapes at TOL, the 4096-token one on its own scale),
+    then timed in interleaved rounds with the mma kernel and SDPA."""
+    out = {}
+    for B, S, H, hd in SP_ATTN:
+        q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+        seg = torch.zeros((B, S), dtype=torch.int32, device=DEV)
+        kw = ops.kernel_kwargs(q, k, causal=False, segment_ids=seg)
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        if S > 1024:
+            err = rel_err(got, want)
+            if not err <= T2I_ATTN_REL_TOL:
+                raise AssertionError(f"flash B{B} S{S} H{H} hd{hd}: "
+                                     f"||o - ref|| / ||ref|| {err:.3e}")
+        else:
+            err = check(f"flash B{B} S{S} H{H} hd{hd}", got, want,
+                        TOL[torch.bfloat16])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        big = S > 1024
+        t = interleaved_ms({
+            "wgmma": lambda: flash_attention_cuda(q, k, v, **kw, variant="wgmma"),
+            "mma": lambda: flash_attention_cuda(q, k, v, **kw, variant="mma"),
+            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)},
+            **(dict(calls=5, replays=4) if big else {}))
+        plain = graph_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                         **(dict(calls=2, replays=2) if big else {}))
+        bound, by = attention_bound_ms(B, S, H, hd, torch.bfloat16)
+        ms = t["wgmma"]["ms"]
+        log(f"[sp-kernel] flash B{B} S{S} H{H} hd{hd} bf16 (Ulysses inner, "
+            f"sp 4): vs plain {err:.3e}; {turns_line(t)}; plain {plain:.4f} "
+            f"ms; bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound, "
+            f"{t['sdpa']['ms'] / ms:.2f}x sdpa's speed ({smi})")
+        out[f"B{B} S{S} H{H} hd{hd}"] = dict(
+            ms=ms, prev_ms=t["mma"]["ms"], plain_ms=plain,
+            library_ms=t["sdpa"]["ms"], bound_ms=bound, bound_by=by,
+            max_abs_err=(got.float() - want.float()).abs().max().item())
+    return out
+
+
+def phase_seq_parallel(smi: str) -> dict:
+    from repro_torch.distributed import plan_partition
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    build.build_all()        # every kernel built before any rank starts
+    shapes = sp_kernel_shapes(torch.Generator(device=DEV).manual_seed(SP_SEED),
+                              smi)
+    # the single-device references, with this process's flash kernel
+    params, cfg = trained_like_xl(torch.Generator(device=DEV).manual_seed(SP_SEED))
+    pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+    del params
+    cond = torch.tensor(SP_LABELS, device=DEV)
+    ref = {b: sp_timed(pipe, sp_plan(b), SP_N, DEV, cond=cond)
+           for b in SP_BUDGETS}
+    ref_warm = sp_timed(pipe, sp_plan(SP_BUDGETS[0]), SP_N, DEV, cond=cond)
+    with reversed_keys():
+        rev = {b: sp_timed(pipe, sp_plan(b), SP_N, DEV, cond=cond)
+               for b in SP_BUDGETS}
+    for b in SP_BUDGETS:
+        log(f"[sp] single-device budget {b}, the kernel's keys visited in "
+            f"reverse order: ||x0 - single|| / ||single|| "
+            f"{rel_err(torch.from_numpy(rev[b]['x0']), torch.from_numpy(ref[b]['x0'])):.3e}"
+            f" (the same function, float32 sums in another order; {smi})")
+    schedules = {b: sp_plan(b).resolve_schedule(cfg) for b in SP_BUDGETS}
+    del pipe
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(SP_T2I_SEED)
+    tparams, tcfg = trained_like_t2i(gen)
+    text = randn(gen, (1, tcfg.dit.text_len, tcfg.dit.text_dim))
+    x_T = randn(gen, (1,) + tuple(tcfg.dit.latent_shape))
+    tpipe = FlexiPipeline(tparams, tcfg, linear_schedule(1000), device=DEV)
+    del tparams
+    t2i_plan = sp_plan(T2I_BUDGETS[0], solver="flow_euler", guidance_scale=0.0)
+    t2i_ref = sp_timed(tpipe, t2i_plan, 1, DEV, cond=text, x_T=x_T)
+    del tpipe
+    torch.cuda.empty_cache()
+    log(f"[sp] single-device references in {time.perf_counter() - t0:.1f}s "
+        f"({smi})")
+
+    groups, calls = {}, {}
+    for world, runs in ((2, SP_RUNS[:1]), (3, SP_RUNS[3:4]),
+                        (4, [SP_RUNS[1], SP_RUNS[2], SP_RUNS[4]])):
+        t1 = time.perf_counter()
+        res = run_ranks(sp_rank, world, backend="gloo", device="cuda",
+                        timeout_s=SP_TIMEOUT_S, args=(runs, world == 4))
+        log(f"[sp] {world} ranks ({', '.join(r[0] for r in runs)}) in "
+            f"{time.perf_counter() - t1:.1f}s ({smi})")
+        for name, *_ in runs:
+            groups[name] = [r["runs"][name] for r in res]
+        for shape in res[0]["calls"]:
+            calls[shape] = [r["calls"][shape] for r in res]
+        if world == 4:
+            t2i_ranks = [r["t2i"] for r in res]
+
+    errors, launches = [], 0
+    for name, (d_sz, s_sz), attn in SP_RUNS:
+        ranks = groups[name]
+        for b in SP_BUDGETS + ("again",):
+            bb = SP_BUDGETS[0] if b == "again" else b
+            plan = sp_plan(bb, attn)
+            part = plan_partition(cfg, schedules[bb], s_sz, plan.parallel)
+            impl = part.phases[0][0].impl
+            tol = SERVE_X0_TOL if impl == "ulysses" else SP_RING_X0_TOL
+            fwd = forward_calls(plan, cfg)
+            want_bytes = SP_N * part.collective_bytes(
+                cfg, cfg_scale_active=plan.guidance_active)
+            kind = "qkvo" if impl == "ulysses" else "kv"
+            sent = sum(r[b]["bytes"].get(kind, 0) for r in ranks)
+            errs = [rel_err(torch.from_numpy(r[b]["x0"]),
+                            torch.from_numpy(ref[bb]["x0"])) for r in ranks]
+            per_rank = [r[b]["launches"] for r in ranks]
+            want_l = cfg.num_layers * fwd if impl == "ulysses" else 0
+            if not all(e <= tol for e in errs):
+                errors.append(f"{name} {b}: x0 vs single-device {errs}")
+            if per_rank != [want_l] * len(ranks) or any(
+                    r[b]["by_variant"]["wgmma"] != want_l for r in ranks):
+                errors.append(f"{name} {b}: flash launches {per_rank}, "
+                              f"expected {want_l} a rank, all wgmma")
+            if sent != want_bytes:
+                errors.append(f"{name} {b}: {kind} bytes {sent} != ledger "
+                              f"{want_bytes}")
+            if any(r[b]["flops"] != ref[bb]["flops"] or r[b]["relative_compute"]
+                   != ref[bb]["relative_compute"] for r in ranks):
+                errors.append(f"{name} {b}: flops / relative compute differ")
+            if b == "again" and any(r[b]["built"] for r in ranks):
+                errors.append(f"{name}: the budget switch built runners")
+            launches += sum(per_rank)
+            other = {k: sum(r[b]["bytes"].get(k, 0) for r in ranks)
+                     for k in ("segment_ids", "tokens", "x0")}
+            wall = max(r[b]["wall"] for r in ranks)
+            ref_wall = (ref_warm if b == "again" else ref[bb])["wall"]
+            log(f"[sp] {name} {impl} budget {bb}{' (switch back)' if b == 'again' else ''}"
+                f": pad {[p.pad for p, n in part.phases if n]}, ||x0 - "
+                f"single|| / ||single|| max {max(errs):.3e} (tol {tol}); "
+                f"flash launches a rank {per_rank[0]} = "
+                f"{cfg.num_layers} x {fwd} forwards"
+                f"{'' if want_l else ' (the ring: none)'}; {kind} bytes over ranks "
+                f"{sent} == {SP_N} x ledger {want_bytes / SP_N:.0f}; beside "
+                f"them {other}; built {max(r[b]['built'] for r in ranks)}; wall "
+                f"{wall / SP_N * 1e3:.1f} ms a sample vs single-device "
+                f"{ref_wall / SP_N * 1e3:.1f} ms ({smi}; ranks share this "
+                f"card and Gloo stages every collective through the host: "
+                f"the mechanism's price, not scaling)")
+    ring, uly = groups["1x4-ring"], groups["1x4"]
+    for b in SP_BUDGETS:
+        e = max(rel_err(torch.from_numpy(r[b]["x0"]), torch.from_numpy(u[b]["x0"]))
+                for r, u in zip(ring, uly))
+        log(f"[sp] ring vs Ulysses on (1 x 4), budget {b}: {e:.3e} (tol "
+            f"{SP_RING_X0_TOL}; {smi})")
+        if not e <= SP_RING_X0_TOL:
+            errors.append(f"ring vs ulysses {b}: {e}")
+    for (d_sz, s_sz), ranks in calls.items():
+        for key in ranks[0]:
+            rs = [r[key] for r in ranks]
+            ref2 = sum(r["ref2"] for r in rs)
+            err = (sum(r["err2"] for r in rs) / ref2) ** 0.5
+            planted = (sum(r["planted2"] for r in rs) / ref2) ** 0.5
+            against = ("single-device flash" if key.startswith("ulysses")
+                       else "float32 plain attention")
+            log(f"[sp-call] {key} on ({d_sz} x {s_sz}), gathered against "
+                f"{against}: max|err| {max(r['max_abs_err'] for r in rs):.3e}"
+                f" (tol {rs[0]['tol']} abs + rel), ||o - ref|| / ||ref|| "
+                f"{err:.3e}; planted fault {planted:.3e} (must exceed "
+                f"{SP_CALL_PLANT_MIN}; {smi})")
+            if not all(r["ok"] for r in rs):
+                errors.append(f"{key} on ({d_sz} x {s_sz}) per call: "
+                              f"{[r['max_abs_err'] for r in rs]}")
+            if not planted > SP_CALL_PLANT_MIN:
+                errors.append(f"planted {key} on ({d_sz} x {s_sz}) per call "
+                              f"read {planted}")
+    for name, (tol, what) in SP_PLANTS.items():
+        planted = [rel_err(torch.from_numpy(r["planted"]["x0"]),
+                           torch.from_numpy(ref[SP_BUDGETS[0]]["x0"]))
+                   for r in groups[name]]
+        log(f"[sp] planted fault on {name} ({what}): {min(planted):.3e} (must "
+            f"exceed {tol}; {smi})")
+        if not min(planted) > tol:
+            errors.append(f"planted fault on {name} read {planted}")
+
+    t2i_errs = [rel_err(torch.from_numpy(r["x0"]), torch.from_numpy(t2i_ref["x0"]))
+                for r in t2i_ranks]
+    nfe = T_STEPS
+    t2i_part = plan_partition(tcfg, t2i_plan.resolve_schedule(tcfg), 4,
+                              sp_plan(T2I_BUDGETS[0], "ulysses").parallel)
+    t2i_bytes = sum(r["bytes"].get("qkvo", 0) for r in t2i_ranks)
+    t2i_launch = [r["launches"] for r in t2i_ranks]
+    log(f"[sp] t2i {tcfg.num_layers}L d={tcfg.d_model} "
+        f"{dit_mod.tokens_for_mode(tcfg, 0)} tokens flow_euler budget "
+        f"{T2I_BUDGETS[0]} on (1 x 4) Ulysses: ||x0 - single|| / ||single|| "
+        f"max {max(t2i_errs):.3e} (tol {SERVE_X0_TOL}); flash launches a rank "
+        f"{t2i_launch[0]} = {tcfg.num_layers} x {nfe} NFEs; qkvo bytes "
+        f"{t2i_bytes} (ledger {t2i_part.collective_bytes(tcfg, cfg_scale_active=False):.0f});"
+        f" wall {max(r['wall'] for r in t2i_ranks):.2f} s a sample vs "
+        f"single-device {t2i_ref['wall']:.2f} s ({smi})")
+    if not max(t2i_errs) <= SERVE_X0_TOL:
+        errors.append(f"t2i x0 vs single-device {t2i_errs}")
+    if t2i_launch != [tcfg.num_layers * nfe] * 4 or any(
+            r["by_variant"]["wgmma"] != tcfg.num_layers * nfe for r in t2i_ranks):
+        errors.append(f"t2i flash launches {t2i_launch}")
+    if t2i_bytes != t2i_part.collective_bytes(tcfg, cfg_scale_active=False):
+        errors.append(f"t2i bytes {t2i_bytes}")
+    launches += sum(t2i_launch)
+
+    t1 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *SP_CLI], capture_output=True, text=True,
+                         timeout=SP_TIMEOUT_S, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    tail = cli.stdout.strip().splitlines()[-3:]
+    log(f"[sp] CLI {' '.join(SP_CLI)}: exit {cli.returncode} in "
+        f"{time.perf_counter() - t1:.1f}s; {tail} ({smi})")
+    if cli.returncode != 0 or "served 4 requests" not in cli.stdout:
+        errors.append(f"CLI --mesh 1x2 failed:\n{cli.stdout[-2000:]}"
+                      f"\n{cli.stderr[-3000:]}")
+    if errors:
+        raise AssertionError("phase 14: " + "; ".join(errors))
+    log(f"[sp] phase 14 in {time.perf_counter() - t0:.1f}s ({smi})")
+    return {"launches": launches, "shapes": shapes}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3353,12 +3829,16 @@ def main() -> None:
     families = phase_lm_families(torch.Generator(device=DEV).manual_seed(SEED + 7), smi)
     torch.cuda.empty_cache()
     lm_train = phase_lm_train(torch.Generator(device=DEV).manual_seed(SEED + 8), smi)
+    torch.cuda.empty_cache()
+    seq_parallel = phase_seq_parallel(smi)
+    times["shapes"].update(seq_parallel["shapes"])
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
              "train_then_serve": training["launches"], **fleet["launches"],
              "lm_serving": lm["launches"], "lm_families": families["launches"],
-             "lm_train_then_serve": lm_train["launches"]}
+             "lm_train_then_serve": lm_train["launches"],
+             "seq_parallel": seq_parallel["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -13,7 +13,8 @@ of 2-byte void elements (descr ``'<V2'``, the raw bfloat16 bits) with
 manifest dtype, so those bits come back as ``torch.bfloat16``; the
 reference's own restore hands them back as raw ``|V2`` arrays. Restored
 tensors land on CUDA unless the caller asks for ``device="cpu"``. Elastic
-restore onto a mesh (``shardings=``) comes with the distributed slice.
+restore onto a mesh (``shardings=``) comes with the distributed slice
+that shards training.
 """
 from __future__ import annotations
 
@@ -161,7 +162,8 @@ class Checkpointer:
         checkpointer's unless given), each leaf in its manifest dtype."""
         if shardings is not None:
             raise NotImplementedError("elastic restore onto a mesh comes with "
-                                      "the distributed slice of the port")
+                                      "the distributed slice of the port "
+                                      "that shards training")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints in {self.root}")

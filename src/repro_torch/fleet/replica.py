@@ -6,10 +6,9 @@ Two engine kinds sit behind the same pump/submit surface:
 * ``packed`` — the continuous-batching :class:`ServingEngine` (the
   normal case; single-replica-equivalent sampling);
 * ``fixed`` — :class:`FixedSlotEngine`, a per-level fixed-slot batcher
-  driving ``FlexiPipeline.sample`` directly. The JAX package runs it for
-  sequence-parallel replicas; sequence-parallel plans (``plan.parallel``)
-  come with the distributed slice of the port, so here it serves
-  unsharded plans only.
+  driving ``FlexiPipeline.sample`` directly. It takes sequence-parallel
+  plans (``plan.parallel``): every rank of the pipeline's mesh runs the
+  same engine with the same submissions (``launch/serve.py --mesh``).
 
 **Virtual time.** A single-process fleet shares one card, so replica
 compute serializes and wall-clock can never show N-replica throughput.
@@ -94,7 +93,8 @@ class FixedSlotEngine:
     given), so results match a standalone single-request ``sample``.
     (``ddpm`` ancestral noise is drawn for the batch from its first
     request's seed; per-request ddpm determinism under rebatching is what
-    the packed engine is for.)
+    the packed engine is for.) Sequence-parallel plans run on the
+    pipeline's mesh; every rank then returns the whole batch.
     """
 
     def __init__(self, pipe: FlexiPipeline,
@@ -102,9 +102,6 @@ class FixedSlotEngine:
                  batch_size: int = 4,
                  clock: Optional[Callable[[], float]] = None,
                  base_seed: int = 0x5e41):
-        if any(p.parallel is not None for p in plans.values()):
-            raise NotImplementedError("sequence-parallel plans come with the "
-                                      "distributed slice of the port")
         self.pipe = pipe
         self.cfg = pipe.cfg
         self.device = pipe.device

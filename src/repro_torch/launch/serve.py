@@ -26,9 +26,18 @@ router (``repro_torch.fleet``; ``--router cheapest|rr|affinity``), all on
 the one card and sharing one pipeline, while a background thread warms
 the small-cohort bucket ladder.
 
-Runs on CUDA unless ``--device cpu``. ``--mesh`` (the distributed slice)
-raises here, and so does ``--replicas`` with a language model (the fleet
-serves DiT requests).
+The mesh path: ``--mesh DATAxSEQ`` serves DiT requests sequence-parallel
+(``repro_torch.distributed``) from fixed batch slots of ``--batch-slots``
+requests, in DATA x SEQ rank processes started here
+(``launch.mesh.run_ranks``), every rank running the same loop; rank 0's
+``[batch n]`` and ``served`` lines are printed. The backend follows the
+rule of ``launch/mesh.py``: ``gloo`` on the CPU, ``nccl`` when every rank
+has its own card, and ranks that share a card need ``--dist-backend
+gloo``. ``--mesh`` with ``--replicas`` (a router over multi-process
+replicas) is not ported and raises, and so does ``--replicas`` with a
+language model (the fleet serves DiT requests).
+
+Runs on CUDA unless ``--device cpu``.
 
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --requests 6
   python -m repro_torch.launch.serve --arch dit-xl-2 --smoke --policy degrade
@@ -40,6 +49,8 @@ serves DiT requests).
       --router affinity --requests 12 --T 10
   python -m repro_torch.launch.serve --arch gemma2-9b --requests 4 \
       --batch-slots 2 --prompt-len 512 --max-new 16
+  python -m repro_torch.launch.serve --arch dit-xl-2 --mesh 1x2 \
+      --dist-backend gloo --requests 4 --batch-slots 2 --T 10
 """
 from __future__ import annotations
 
@@ -51,6 +62,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+
+# ``--mesh``: seconds before the rank processes are stopped and the run fails
+MESH_TIMEOUT_S = 900.0
 
 
 def parse_budget_levels(arg: Optional[str], base: float) -> List[float]:
@@ -103,23 +117,23 @@ def build_plan_menu(cfg, args, parallel=None) -> Dict[float, "object"]:
     return plans
 
 
-def _later_slice_options(args) -> None:
-    """Options whose code comes with a later slice of the port raise."""
-    if getattr(args, "mesh", None):
-        raise NotImplementedError("--mesh comes with the distributed slice "
-                                  "of the port")
-
-
 def serve_dit(cfg, args) -> Dict[str, float]:
     """Serve DiT sampling requests through the continuous-batching engine
-    (or, with ``--replicas`` > 1, a fleet of them) on ``args.device``
-    (CUDA unless 'cpu'). Returns the metrics summary."""
+    (or, with ``--replicas`` > 1, a fleet of them; with ``--mesh``, the
+    sequence-parallel fixed-slot path) on ``args.device`` (CUDA unless
+    'cpu'). Returns the metrics summary."""
     from repro_torch.device import resolve_device
     from repro_torch.diffusion import schedule as sch
     from repro_torch.models import dit as dit_mod
     from repro_torch.pipeline import FlexiPipeline
 
-    _later_slice_options(args)
+    if getattr(args, "mesh", None):
+        if getattr(args, "replicas", 1) > 1:
+            raise NotImplementedError(
+                "--mesh with --replicas needs a router over multi-process "
+                "replicas, which a later distributed slice of the port "
+                "brings (ROADMAP queue 1)")
+        return _serve_dit_mesh(cfg, args)
     device = resolve_device(getattr(args, "device", None))
     gen = torch.Generator(device=device).manual_seed(0)
     params = dit_mod.init_dit(cfg, gen)          # smoke: untrained weights
@@ -146,7 +160,10 @@ def serve_lm(cfg, args) -> Dict[str, float]:
     from repro_torch.models import lm
     from repro_torch.runtime.padding import pad_kv_cache
 
-    _later_slice_options(args)
+    if getattr(args, "mesh", None):
+        raise NotImplementedError("--mesh: sequence-parallel language "
+                                  "models come with the distributed-training "
+                                  "slice of the port")
     if getattr(args, "replicas", 1) > 1:
         raise NotImplementedError("--replicas: the fleet serves DiT requests; "
                                   "a language-model fleet is not part of the "
@@ -211,6 +228,103 @@ def serve_lm(cfg, args) -> Dict[str, float]:
     return {"served": float(done), "tokens": float(tokens_out),
             "seconds": dt, "prefill_s": prefill_s, "decode_s": decode_s,
             "decode_steps": float(n_steps)}
+
+
+def _serve_dit_mesh(cfg, args) -> Dict[str, float]:
+    """``--mesh DATAxSEQ``: the plan menu and its shard lines here, then
+    DATA x SEQ ranks serving fixed batch slots (:func:`_serve_mesh_rank`).
+    Returns rank 0's summary."""
+    from repro_torch.distributed import ParallelSpec, plan_partition
+    from repro_torch.launch.mesh import default_backend, parse_mesh_arg, run_ranks
+
+    d_sz, s_sz = parse_mesh_arg(args.mesh)
+    world = d_sz * s_sz
+    device = torch.device("cuda" if getattr(args, "device", None) is None
+                          else args.device)
+    backend = (getattr(args, "dist_backend", None)
+               or default_backend(world, device.type))
+    print(f"[mesh] data={d_sz} seq={s_sz} over {world} ranks ({backend}, "
+          f"{device.type})")
+    parallel = ParallelSpec() if s_sz > 1 else None
+    plans = build_plan_menu(cfg, args, parallel)
+    if parallel is not None:
+        for b in sorted(plans):
+            part = plan_partition(cfg, plans[b].resolve_schedule(cfg), s_sz,
+                                  parallel)
+            per_phase = " ".join(f"m{p.mode}:{p.tokens}+{p.pad}pad/{p.sp}"
+                                 for p, nn in part.phases if nn)
+            coll = part.collective_bytes(
+                cfg, cfg_scale_active=args.cfg_scale != 0)
+            print(f"[shard]   {per_phase} impl={part.phases[0][0].impl} "
+                  f"collective={coll / 1e6:.1f}MB/sample "
+                  f"eff={part.parallel_efficiency(cfg):.3f}")
+    # CPU ranks share the host's cores: one intra-op thread each
+    out = run_ranks(_serve_mesh_rank, world, backend=backend,
+                    device=device.type, timeout_s=MESH_TIMEOUT_S,
+                    threads=1 if device.type == "cpu" else None,
+                    args=(cfg, args, plans, (d_sz, s_sz)))
+    for line in out[0]["lines"]:
+        print(line)
+    return out[0]["summary"]
+
+
+def _serve_mesh_rank(rank: int, device: torch.device, cfg, args, plans,
+                     mesh_shape) -> Dict[str, object]:
+    """One rank of ``--mesh``: the reference's fixed-batch-slot driver.
+    Every rank builds the same weights and queue and samples every batch
+    (padded to exactly ``--batch-slots`` requests, so each batch replays
+    its level's runner); rank 0 returns the progress lines."""
+    from repro_torch.diffusion import schedule as sch
+    from repro_torch.launch.mesh import make_inference_mesh
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.pipeline import FlexiPipeline
+
+    mesh = make_inference_mesh(*mesh_shape, device=device)
+    params = dit_mod.init_dit(cfg, torch.Generator(device=device).manual_seed(0))
+    pipe = FlexiPipeline(params, cfg, sch.linear_schedule(args.train_T),
+                         device=device, mesh=mesh)
+    B = args.batch_slots
+    levels = sorted(plans)
+    rng = np.random.default_rng(0)
+    queue: Dict[float, List[int]] = {b: [] for b in levels}
+    for i in range(args.requests):
+        queue[levels[i % len(levels)]].append(
+            int(rng.integers(0, cfg.dit.num_classes)))
+    lines: List[str] = []
+    done = batches = 0
+    total_flops = 0.0
+    t0 = time.time()
+    while any(queue.values()):
+        # fill the slots from the fullest level
+        b = max(queue, key=lambda k: len(queue[k]))
+        labels = [queue[b].pop(0) for _ in range(min(B, len(queue[b])))]
+        n_real = len(labels)
+        labels += [labels[-1]] * (B - n_real)
+        gen = torch.Generator(device=device).manual_seed(100 + batches)
+        res = pipe.sample(plans[b], B, gen,
+                          cond=torch.tensor(labels, device=device))
+        x0_std = float(res.x0[:n_real].float().std())
+        done += n_real
+        batches += 1
+        total_flops += res.flops * n_real / B
+        lines.append(f"[batch {batches}] budget={b:.2f} served={n_real} "
+                     f"(pad={B - n_real}) rel_compute="
+                     f"{res.relative_compute:.3f} x0_std={x0_std:.3f}")
+    dt = time.time() - t0
+    stats = pipe.cache_stats()
+    lines.append(f"served {done} requests in {batches} batches, {dt:.1f}s "
+                 f"({done / max(dt, 1e-9):.2f} img/s), "
+                 f"{total_flops / 1e9:.2f} GFLOPs total")
+    lines.append(f"[cache] runners={stats['runners']} "
+                 f"compiled={stats['compiled']} hits={stats['hits']} "
+                 f"misses={stats['misses']}")
+    if stats["compiled"] > len(levels):
+        raise AssertionError("budget switches must not build beyond one "
+                             "runner per plan")
+    return {"lines": lines if rank == 0 else [],
+            "summary": {"served": float(done), "batches": float(batches),
+                        "seconds": dt, "img_per_s": done / max(dt, 1e-9),
+                        "runners": float(stats["compiled"])}}
 
 
 def _serve_dit_fleet(cfg, args, pipe, plans) -> Dict[str, float]:
@@ -449,7 +563,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                          "kernels' plain versions)")
     # LM path
     ap.add_argument("--batch-slots", type=int, default=4,
-                    help="prompts prefilled and decoded together")
+                    help="prompts prefilled and decoded together (with "
+                         "--mesh: DiT requests sampled together)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--budget", type=float, default=0.6,
@@ -510,9 +625,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--router", default="cheapest",
                     choices=["cheapest", "rr", "affinity"],
                     help="fleet placement policy (--replicas > 1)")
-    # an option of a later slice: accepted by the parser, refused by
-    # serve_dit
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None, metavar="DATAxSEQ",
+                    help="serve DiT requests sequence-parallel over DATA x "
+                         "SEQ rank processes started here, e.g. 1x2")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--mesh: the torch.distributed backend (default: "
+                         "gloo on the CPU, nccl when every rank has its own "
+                         "card; ranks sharing a card need gloo)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

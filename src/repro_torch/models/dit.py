@@ -12,8 +12,10 @@ the backend resolves to ``"pallas"`` (the Hopper kernel on CUDA tensors),
 through ``models.attention.blocked_gqa_attend`` on ``"xla-blocked"``, else
 through the dense path below. Linear layers round once: float32 results
 (``models.common.matmul_f32``), cast to the activations' dtype.
-Sequence-parallel execution (``parallel=``) comes with the distributed
-slice.
+Sequence-parallel execution (``parallel=``, a
+``distributed.engine.SeqParallel``): every rank keeps its own token shard
+through the blocks, self-attention runs Ulysses or the ring over the
+mesh's sequence axis, and the tokens are gathered before the de-embedding.
 """
 from __future__ import annotations
 
@@ -204,15 +206,18 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
          segment_ids: Optional[torch.Tensor] = None,
          parallel: Optional[Any] = None,
          attn_backend: str = "auto") -> torch.Tensor:
-    if parallel is not None:
-        raise NotImplementedError("sequence-parallel attention comes with the "
-                                  "distributed slice of the port")
     B, N, d = x.shape
     hd = d // num_heads
     la = lora or {}
     q = _linear(x, p["wq"], lora=la.get("wq"), mode=mode).reshape(B, N, num_heads, hd)
     k = _linear(x, p["wk"], lora=la.get("wk"), mode=mode).reshape(B, N, num_heads, hd)
     v = _linear(x, p["wv"], lora=la.get("wv"), mode=mode).reshape(B, N, num_heads, hd)
+    if parallel is not None and parallel.sp > 1:
+        # x is this rank's token shard: Ulysses all-to-all or the ring over
+        # the mesh's sequence axis (padding tokens carry segment id -1)
+        o = parallel.attend(q, k, v, segment_ids=segment_ids)
+        return _linear(o.reshape(B, N, d), p["wo"], lora=la.get("wo"),
+                       mode=mode)
     resolved = attn_mod.resolve_backend(attn_backend, n_tokens=N,
                                         segmented=segment_ids is not None)
     if resolved == "pallas":
@@ -388,14 +393,26 @@ def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,
     With ``block_cache`` the return value is ``(out, new_delta)``: on a
     refresh step the deep blocks run (the output IS their result) and
     the fresh residual ``h_deep - h_shallow`` is returned; on a skip step
-    only the shallow blocks run and the cached delta is replayed."""
-    if parallel is not None:
-        raise NotImplementedError("sequence-parallel execution comes with the "
-                                  "distributed slice of the port")
+    only the shallow blocks run and the cached delta is replayed.
+
+    With ``parallel`` (sp > 1) every rank embeds all tokens, pads them to a
+    multiple of sp (segment id -1), keeps its own shard through the blocks
+    and gathers the shards before the de-embedding; the token count, and
+    so the sharding, changes at phase boundaries and is re-padded per
+    call."""
     dit = cfg.dit
     ls = latent_shape or dit.latent_shape
     dtype = dtype_of(cfg.compute_dtype)
     tok = embed_mode_tokens(params, x_t, cfg, mode, ls)
+
+    n_real = tok.shape[1]
+    seg_ids = None
+    sharded = parallel is not None and parallel.sp > 1
+    if sharded:
+        if block_cache is not None:
+            raise ValueError("the activation cache does not compose with "
+                             "sequence-parallel execution yet (ROADMAP)")
+        tok, seg_ids = parallel.pad_and_shard(tok)
 
     text = None
     if dit.conditioning == "text":
@@ -408,6 +425,7 @@ def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,
         for i in range(lo, hi):
             h = dit_block_apply(_layer(params["blocks"], i), h, c, cfg,
                                 mode=mode, text=text, text_mask=text_mask,
+                                segment_ids=seg_ids, parallel=parallel,
                                 attn_backend=attn_backend)
         return h
 
@@ -422,6 +440,8 @@ def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,
             tok, new_delta = h_deep, h_deep - tok
         else:
             tok, new_delta = tok + block_cache.delta, block_cache.delta
+    if sharded:
+        tok = parallel.unshard(tok, n_real)
 
     ada = _linear(_silu_f32(c, dtype), params["final"]["ada"]["w"],
                   params["final"]["ada"]["b"])

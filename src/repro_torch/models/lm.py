@@ -224,7 +224,7 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             raise NotImplementedError(
                 "sequence_parallel (the reference's sharding constraint on "
                 "each layer's output) comes with the distributed slice of "
-                "the port")
+                "the port that shards training")
         windows = layer_windows(cfg)
         for i in range(cfg.num_layers):
             x, a = _remat(cfg, _train_block, _layer(params["blocks"], i), x,

@@ -16,6 +16,17 @@ over one guided NFE per ``("nfe", mode, scale, LoRA variant, backend)``,
 so a budget switch between calls builds nothing).
 :meth:`FlexiPipeline.packed_step` hands the serving engine its
 step-granular packed runners from the same cache.
+
+With a mesh (``FlexiPipeline(..., mesh=...)``, a ``DeviceMesh`` with dims
+``("data", "seq")`` from ``launch.mesh.make_inference_mesh``) every rank
+runs ``sample`` with the same arguments. Plans carrying a ``ParallelSpec``
+run sequence-parallel over the 'seq' axis (``distributed.engine``); the
+batch splits over 'data' when it divides (``runtime.sharding.batch_spec``)
+and every rank returns the whole batch. Every rank draws the prior and
+the DDPM noise for the whole batch and keeps its own rows, so a sample
+equals the single-device one by construction. The mesh fingerprint and
+the spec join the runner key: a budget switch on a fixed mesh builds
+nothing, a new mesh builds fresh runners.
 """
 from __future__ import annotations
 
@@ -35,9 +46,12 @@ from repro_torch.core.scheduler import FlexiSchedule
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import flow, sampler
 from repro_torch.diffusion import schedule as sch
+from repro_torch.distributed import attention as dist_attn
+from repro_torch.distributed.engine import SeqParallel, mesh_fingerprint
 from repro_torch.models.common import dtype_of, tree_map
 from repro_torch.pipeline.packed import PackLayout, make_packed_step_fn
 from repro_torch.pipeline.plan import FLOW_SOLVERS, SamplingPlan
+from repro_torch.runtime.sharding import axis_sizes, batch_spec
 
 Params = Dict[str, Any]
 # eps_transform(eps, x, t) -> eps — e.g. spectral filtering probes (Fig. 2)
@@ -75,9 +89,11 @@ class FlexiPipeline:
     """
 
     def __init__(self, params: Params, cfg: ModelConfig,
-                 sched: sch.DiffusionSchedule, device: Any = None):
+                 sched: sch.DiffusionSchedule, device: Any = None,
+                 mesh: Optional[Any] = None):
         assert cfg.family == "dit" and cfg.dit is not None, cfg.name
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = tree_map(lambda a: a.to(self.device), params)
         self.cfg = cfg
         self.sched = sched
@@ -90,6 +106,12 @@ class FlexiPipeline:
         # thread (fleet.warmup) racing the serving thread on one key builds
         # it once and the counters stay exact
         self._cache_lock = threading.Lock()
+
+    def set_mesh(self, mesh: Optional[Any]) -> None:
+        """Attach or swap the device mesh. Runners are keyed by the mesh
+        fingerprint: a new mesh builds new runners, a fixed mesh (any
+        number of budget switches) builds none."""
+        self.mesh = mesh
 
     def cache_stats(self) -> Dict[str, int]:
         """Runner-cache counters; ``compiled`` counts every runner and NFE
@@ -159,7 +181,8 @@ class FlexiPipeline:
     def _static_runner(self, plan: SamplingPlan, schedule: FlexiSchedule,
                        ts: np.ndarray,
                        transform: Optional[EpsTransform],
-                       cache_split: Optional[int] = None) -> Callable:
+                       cache_split: Optional[int] = None,
+                       engine: Optional[SeqParallel] = None) -> Callable:
         """The runner of a static plan. With ``cache_split`` it carries the
         cross-step activation cache: the per-phase refresh masks are
         inputs (host numpy), so one runner serves every refresh policy at
@@ -182,6 +205,7 @@ class FlexiPipeline:
                       else None)
                 fn = make_eps_fn(p, cfg, cond, null_cond, g, text_mask,
                                  null_text_mask, guidance_params=gp,
+                                 parallel=engine,
                                  attn_backend=plan.attn_backend,
                                  cache_split=cache_split)
                 if transform is not None:
@@ -203,8 +227,8 @@ class FlexiPipeline:
 
         return run
 
-    def _flow_runner(self, plan: SamplingPlan,
-                     schedule: FlexiSchedule) -> Callable:
+    def _flow_runner(self, plan: SamplingPlan, schedule: FlexiSchedule,
+                     engine: Optional[SeqParallel] = None) -> Callable:
         """The runner of a flow plan: the τ ladder split across the
         schedule's phases, one velocity model per phase."""
         splits = flow.split_tau_ladder(flow.tau_ladder(plan.T),
@@ -217,6 +241,7 @@ class FlexiPipeline:
         def run(param_sets, x_T, cond):
             phases = [(flow.make_flow_v_fn(param_sets[set_idx.get(mode, 0)],
                                            cfg, cond, mode=mode,
+                                           parallel=engine,
                                            attn_backend=plan.attn_backend),
                        tsub) for mode, tsub in splits]
             return flow.sample_flow_phased(phases, x_T, solver=solver)
@@ -311,10 +336,30 @@ class FlexiPipeline:
         schedule = plan.resolve_schedule(self.cfg)
         param_sets = tuple(self._params_for_mode(m, variant)
                            for m in self._param_set_modes(plan, schedule))
+        engine = (SeqParallel.create(self.mesh, plan.parallel, self.cfg,
+                                     attn_backend=plan.attn_backend)
+                  if plan.parallel is not None else None)
+        rows = self._data_rows(n)
+        if rows is not None:
+            # every rank drew the whole batch's prior (and now its DDPM
+            # noise, step by step as the sampler would): keep this rank's
+            # rows of each
+            if noise is None and plan.solver == "ddpm":
+                noise = torch.stack([
+                    torch.randn(x_T.shape, generator=generator,
+                                device=self.device, dtype=x_T.dtype)
+                    for _ in range(len(ts))])
+            if noise is not None:
+                noise = noise[:, rows]
+            x_T, y, null, text_mask, null_text_mask = (
+                None if a is None else a[rows]
+                for a in (x_T, y, null, text_mask, null_text_mask))
+        # the mesh fingerprint joins the key: budget switches on a fixed
+        # mesh reuse runners, a new mesh builds fresh ones
         sig = (plan.solver, plan.clip_x0, plan.guidance_scale,
                plan.guidance_kind, plan.weak_mode, variant,
                schedule.phases, tuple(int(t) for t in ts), eps_transform,
-               plan.parallel, plan.attn_backend)
+               plan.parallel, mesh_fingerprint(self.mesh), plan.attn_backend)
         if plan.cache is not None:
             from repro_torch.cache import ledger as cache_ledger
             from repro_torch.cache import policy as cache_policy
@@ -326,8 +371,9 @@ class FlexiPipeline:
             runner = self._lookup(
                 ("cached",) + sig + (split,),
                 lambda: self._static_runner(plan, schedule, ts, None, split))
-            x0 = runner(param_sets, x_T, y, null, generator, text_mask,
-                        null_text_mask, noise, masks)
+            x0 = self._gather_rows(runner(param_sets, x_T, y, null, generator,
+                                          text_mask, null_text_mask, noise,
+                                          masks), rows)
             fl, n_refresh, n_steps = cache_ledger.schedule_cached_flops(
                 self.cfg, schedule, ts, plan.cache,
                 cfg_scale_active=plan.guidance_active,
@@ -340,18 +386,44 @@ class FlexiPipeline:
                        "cache_steps": n_steps})
         if plan.solver in FLOW_SOLVERS:
             runner = self._lookup(("flow",) + sig,
-                                  lambda: self._flow_runner(plan, schedule))
+                                  lambda: self._flow_runner(plan, schedule,
+                                                            engine))
             x0 = runner(param_sets, x_T, y)
         else:
             runner = self._lookup(("static",) + sig,
                                   lambda: self._static_runner(
-                                      plan, schedule, ts, eps_transform))
+                                      plan, schedule, ts, eps_transform,
+                                      engine=engine))
             x0 = runner(param_sets, x_T, y, null, generator, text_mask,
                         null_text_mask, noise)
+        x0 = self._gather_rows(x0, rows)
         return SampleResult(
             x0=x0, flops=plan.flops(self.cfg, batch=n),
             relative_compute=plan.relative_compute(self.cfg),
             trace={"schedule": schedule, "timesteps": ts})
+
+    def _data_rows(self, n: int) -> Optional[slice]:
+        """This rank's rows of an ``n``-sample batch when the batch splits
+        over the mesh's 'data' axis (``batch_spec``: only when it
+        divides), else None."""
+        if self.mesh is None:
+            return None
+        axes = batch_spec(n, self.mesh)[0] or ()
+        size = axis_sizes(self.mesh).get("data", 1)
+        if "data" not in axes or size == 1:
+            return None
+        per = n // size
+        lo = self.mesh.get_local_rank("data") * per
+        return slice(lo, lo + per)
+
+    def _gather_rows(self, x0: torch.Tensor,
+                     rows: Optional[slice]) -> torch.Tensor:
+        """The whole batch on every rank: the 'data' ranks' rows gathered
+        in order."""
+        if rows is None:
+            return x0
+        return dist_attn.all_gather(x0, self.mesh.get_group("data"), "x0",
+                                    dim=0)
 
     def _sample_adaptive(self, plan: SamplingPlan, x_T: torch.Tensor, y: Any,
                          null: Any, text_mask, null_text_mask,

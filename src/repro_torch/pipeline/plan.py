@@ -9,19 +9,21 @@ with the fewest weak steps that meets it. FLOPs delegate to
 
 :class:`AdaptiveBudget` plans decide their switch step per sample
 (``core/adaptive.py``); flow solvers integrate the rectified-flow ODE
-(``diffusion/flow.py``). Sequence-parallel execution (``parallel=``) comes
-with a later slice. ``cache=`` takes a ``CacheSpec`` (``cache/policy.py``):
+(``diffusion/flow.py``). ``parallel=`` takes a ``ParallelSpec``
+(``distributed/partition.py``): sequence-parallel sampling on the
+pipeline's mesh. ``cache=`` takes a ``CacheSpec`` (``cache/policy.py``):
 the cross-step activation cache.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Optional, Union
 
 from repro_torch.cache.policy import CacheSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import (FlexiSchedule, dit_nfe_flops,
                                         lora_nfe_overhead, schedule_flops)
+from repro_torch.distributed.partition import ParallelSpec
 from repro_torch.models.attention import ATTN_BACKENDS
 
 CACHED_SOLVERS = ("ddim", "ddpm")    # the packed-step solver family
@@ -61,7 +63,7 @@ class SamplingPlan:
     lora: str = "merged"                 # 'merged' | 'unmerged' (§3.2, Fig. 5)
     weak_last: bool = False              # App. B.4 ablation (fraction budgets)
     clip_x0: float = 0.0                 # DDPM-only x0 clipping
-    parallel: Optional[Any] = None       # sequence parallelism: later slice
+    parallel: Optional[ParallelSpec] = None   # sequence parallelism
     # cross-step activation cache: its split joins the runner key; its
     # policy only shapes the refresh mask (data)
     cache: Optional[CacheSpec] = None
@@ -99,8 +101,13 @@ class SamplingPlan:
         if self.solver in FLOW_SOLVERS and self.guidance_scale != 0.0:
             raise ValueError("flow solvers are unguided; set guidance_scale=0")
         if self.parallel is not None:
-            raise NotImplementedError("sequence-parallel plans come with the "
-                                      "distributed slice of the port")
+            if not isinstance(self.parallel, ParallelSpec):
+                raise ValueError(f"parallel must be a ParallelSpec, got "
+                                 f"{type(self.parallel).__name__}")
+            if self.is_adaptive:
+                raise ValueError("sequence-parallel adaptive plans are not "
+                                 "supported yet (the probe loop runs on the "
+                                 "host); use a static or fraction budget")
         if self.cache is not None:
             if not isinstance(self.cache, CacheSpec):
                 raise ValueError(f"cache must be a CacheSpec, got "
@@ -116,6 +123,9 @@ class SamplingPlan:
                 raise ValueError("the activation cache supports vanilla "
                                  "CFG only (weak_cond mixes patch modes "
                                  "inside one step)")
+            if self.parallel is not None:
+                raise ValueError("the activation cache does not compose "
+                                 "with sequence-parallel plans yet")
 
     @property
     def is_adaptive(self) -> bool:

@@ -1,7 +1,7 @@
 """Elastic scaling arithmetic, the port's copy of ``plan_mesh_shape`` from
-``repro.runtime.elastic``. The mesh and the elastic restore onto it come
-with the distributed slice of the port (``Checkpointer.restore`` refuses
-``shardings=`` until then)."""
+``repro.runtime.elastic``. The elastic mesh and the restore onto it come
+with the distributed slice of the port that shards training
+(``Checkpointer.restore`` refuses ``shardings=`` until then)."""
 from __future__ import annotations
 
 from typing import Tuple

@@ -15,7 +15,7 @@ estimates fed by ``observe_*`` hooks, so tests can inject them directly.
 ``observe_calibration`` (measured wall per analytic FLOP per step family)
 switches the solve to seconds-space; the profiling that feeds it in the
 engine comes with the telemetry slice. Sequence-parallel pricing
-(``sp > 1``) comes with the distributed slice.
+(``sp > 1``) adds the partition's padding FLOPs.
 """
 from __future__ import annotations
 
@@ -31,9 +31,9 @@ def request_cost_flops(cfg: ModelConfig, plan: SamplingPlan,
                        cache: Optional[CacheSpec] = None,
                        num_train_steps: int = 1000,
                        attn_backend: Optional[str] = None) -> float:
-    """Analytic FLOPs one request at ``plan`` costs the engine
-    (``sp > 1``, sequence-parallel padding, comes with the distributed
-    slice and raises). With ``cache``
+    """Analytic FLOPs one request at ``plan`` costs the engine (with
+    ``sp > 1``, plus the padding FLOPs of the sequence-parallel
+    partition, ``distributed.partition``). With ``cache``
     (the engine's cross-step activation cache) skip steps only pay the
     shallow blocks, so the sustainable-budget solve sees the cheaper
     cache-adjusted cost — caching raises the budget level a given
@@ -46,17 +46,20 @@ def request_cost_flops(cfg: ModelConfig, plan: SamplingPlan,
     tiles (a pack's cross-segment blocks are skipped, never charged),
     while the dense backend pays the N² convention. Override with
     ``attn_backend``."""
-    if sp > 1:
-        raise NotImplementedError("sequence-parallel pricing (sp > 1) comes "
-                                  "with the distributed slice of the port")
     backend = plan.attn_backend if attn_backend is None else attn_backend
     if cache is not None and plan.cache is None:
         import dataclasses
         plan = dataclasses.replace(plan, cache=cache)
-    return (plan.cached_flops(cfg, num_train_steps=num_train_steps,
-                              attn_backend=backend)
-            if plan.cache is not None
-            else plan.flops(cfg, attn_backend=backend))
+    fl = (plan.cached_flops(cfg, num_train_steps=num_train_steps,
+                            attn_backend=backend)
+          if plan.cache is not None
+          else plan.flops(cfg, attn_backend=backend))
+    if sp > 1:
+        from repro_torch.distributed.partition import plan_partition
+        part = plan_partition(cfg, plan.resolve_schedule(cfg), sp,
+                              plan.parallel)
+        fl += part.pad_flops(cfg, cfg_scale_active=plan.guidance_active)
+    return fl
 
 
 def plan_mode_flops(cfg: ModelConfig, plan: SamplingPlan,

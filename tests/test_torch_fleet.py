@@ -676,9 +676,14 @@ def test_fixed_slot_engine_and_fleet(pipes):
     eng.submit(cond=6, budget=1.0)
     eng.stop_admissions()
     assert [r.cond for r in eng.extract_queued()] == [5, 6]
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tfleet.FixedSlotEngine(pipe, {1.0: dataclasses.replace(
-            plans[1.0], parallel=object())})
+    # sequence-parallel plans are taken (served on a mesh in
+    # tests/test_torch_distributed.py); without a mesh sampling refuses them
+    from repro_torch.pipeline import ParallelSpec
+    par = tfleet.FixedSlotEngine(pipe, {1.0: dataclasses.replace(
+        plans[1.0], parallel=ParallelSpec())})
+    par.submit(cond=1, budget=1.0)
+    with pytest.raises(ValueError, match="mesh"):
+        par.step()
     f = tfleet.Fleet(pipe, plans, 2, router="rr", clock=FakeClock(),
                      engine_kind="fixed", seconds_per_token=1e-4)
     rids = [f.submit(cond=i, budget=[0.6, 1.0][i % 2]) for i in range(4)]

@@ -280,8 +280,11 @@ def test_unported_paths_raise(xl_small):
     jp, cfg, _ = xl_small
     pipe = FlexiPipeline(to_torch(jp), cfg, tschedule.linear_schedule(100),
                          device="cpu")
-    # adaptive and flow plans are ported (tests/test_torch_extensions.py)
-    with pytest.raises(NotImplementedError):
+    # adaptive and flow plans are ported (tests/test_torch_extensions.py),
+    # and sequence-parallel plans (tests/test_torch_distributed.py): a
+    # parallel field that is no ParallelSpec is refused, as the reference
+    # refuses it
+    with pytest.raises(ValueError, match="ParallelSpec"):
         SamplingPlan(T=4, parallel=object())
     # the blocked attention backend is ported: it samples what dense does
     x = {be: pipe.sample(SamplingPlan(T=4, attn_backend=be), 1,

@@ -164,8 +164,11 @@ def test_pricing_matches_reference(flexi, backend):
                 == j_cost(fcfg, jp[b], num_train_steps=n_train)
             assert plan_mode_flops(fcfg, tp[b], num_train_steps=n_train) \
                 == j_mode_flops(fcfg, jp[b], num_train_steps=n_train)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        request_cost_flops(fcfg, tp[1.0], sp=2)
+    # sequence-parallel pricing adds the partition's padding FLOPs
+    for sp in (2, 3, 8):
+        for b in tp:
+            assert request_cost_flops(fcfg, tp[b], sp=sp) \
+                == j_cost(fcfg, jp[b], sp=sp)
 
 
 def test_controller_solved_levels_match_reference(flexi):
@@ -477,7 +480,7 @@ def test_serve_cli_smoke_on_cpu(capsys, extra):
 
 @pytest.mark.parametrize("flags,owner", [
     (["--replicas", "2", "--mesh", "2x1"], "distributed"),
-    (["--mesh", "1x2"], "distributed"),
+    (["--mesh", "1x2", "--replicas", "3"], "distributed"),
     (["--arch", "mamba2-130m", "--replicas", "2"], "language-model")])
 def test_serve_cli_later_slices_raise(flags, owner):
     with pytest.raises(NotImplementedError, match=owner):
