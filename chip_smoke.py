@@ -202,6 +202,34 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    printed beside single-device's: ranks sharing one card, with Gloo
    staging every collective through the host, price the mechanism, not
    scaling.
+15. sharded training (``runtime/placement.py``, ``runtime/sharding``'s
+   placement half, ``optim/compression.py``, ``runtime/elastic.py``): this
+   process's single-device steps first (their gradients written to files,
+   the card's memory freed), then one group of 4 rank processes on this
+   card over Gloo, a ("data", "model") mesh of (2 x 2)
+   (``launch/mesh.make_debug_mesh``): DiT-XL/2 at full width (phase 3's
+   weights recipe, bf16, B=32, profile ``fsdp2d`` forced), 2 steps at mode
+   1 and 2 at mode 0, the loss and every gradient leaf at both modes held
+   against single-device as ||g - ref|| / ||ref|| over the whole leaf,
+   the resident parameter and moment bytes a rank equal to the spec
+   arithmetic; gemma2-9b at full width cut to one local and one global
+   layer (``fsdp2d_sp``: sequence parallel, remat "block") and
+   deepseek-moe-16b cut to 2 layers (``fsdp2d``), B=2 x S=2048, one step
+   each, loss, aux losses and gradients against single-device;
+   ``compressed_psum`` of 64 M float32 over the 4 ranks, equal bit for bit
+   to the reference formula on the host; the DiT checkpointed after step
+   1, restored by ``elastic_restore`` onto ``make_elastic_mesh(2, 2)``
+   (ranks 0-1) and stepped there against the uninterrupted step 2 (as an
+   update), and restored on one device and sampled through
+   ``FlexiPipeline.sample`` at budget 0.6 on the flash kernel (28
+   ``wgmma`` launches a forward), x0 equal bit for bit to the gathered
+   in-memory parameters'; four planted faults (``global_norm`` over local
+   chunks, a data-axis gradient unsummed, the sequence-parallel gather's
+   backward a sum, ``load_balance`` per rank) must read over their
+   limits. Walls and peak memory a rank are printed beside
+   single-device's, with the same caveat as phase 14.
+   ``python3 chip_smoke.py --only sharded`` runs phase 1 and this phase
+   alone.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -3785,6 +3813,552 @@ def phase_seq_parallel(smi: str) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: sharded training over a ("data", "model") mesh of rank processes
+
+
+# one rank group of ST_WORLD ranks on this card over Gloo, mesh (2 x 2)
+ST_WORLD, ST_MESH = 4, (2, 2)
+ST_SEED, ST_DRAW_SEED, ST_PSUM_SEED = SEED + 11, 5151, SEED + 12
+# DiT-XL/2 (phase 3's weights recipe, bf16) at phase 9's batch, profile
+# fsdp2d forced ('auto' resolves to dp below 3e9 parameters): 2 steps at
+# mode 1, then 2 at mode 0 (the elastic step 2 runs at mode 1 on 2 ranks,
+# each holding all 32 rows: at mode 0 two such ranks would need ~2 x 35
+# GB, phase 9's single-device peak), lr large enough that an update spans
+# several bf16 ulps of a weight
+ST_DIT_B, ST_DIT_LR, ST_MODES = TRAIN_BATCH, 1e-3, (1, 1, 0, 0)
+# gemma2-9b at full width cut to one local (window 4096) and one global
+# layer, sequence parallel; deepseek-moe-16b at full width cut to 2
+# layers; B x S tokens each, one step. The MoE batch's second row is one
+# token repeated: its rank routes unlike the first's, so a load balance
+# taken per rank reads as the fault it is (over ST_AUX_TOL)
+ST_LMS = [("gemma2-9b", 2, "fsdp2d_sp", dict(sequence_parallel=True,
+                                              remat="block")),
+          ("deepseek-moe-16b", 2, "fsdp2d", {})]
+ST_LM_B, ST_LM_S, ST_LM_LR = 2, 2048, 1e-4
+ST_PSUM_N = 64 * 2**20
+# limits, fixed before the first card run (PERF.md §6, PR 25). Both sides
+# are bf16 here (phase 13's LMT_GRAD_TOL, 0.1, holds bf16 against
+# float32): each data rank rounds its half of a gradient sum to bf16
+# before the float32 sum over ranks, and GEMMs of half the rows may take
+# other cuBLAS algorithms, so a leaf moves by a few bf16 roundings (2^-9)
+ST_GRAD_TOL = 3e-2
+# the MoE aux losses: a few top-1 choices near a tie may flip
+ST_AUX_TOL = 1e-2
+# step 2 on the (1 x 2) sub-mesh against the uninterrupted (2 x 2) step 2,
+# as ||dp - dp_ref|| / ||dp_ref||: an update of ~lr per element is ~8 bf16
+# ulps of a 0.03 weight, and an update that differs in its last bits
+# rounds to another ulp now and then
+ST_UPDATE_TOL = 0.1
+ST_TIMEOUT_S = 900.0
+
+
+def st_flat(tree, prefix: str = "") -> dict:
+    """{'a__b': leaf} in the reference's key order (the checkpoint's names)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(st_flat(tree[k], f"{prefix}__{k}" if prefix else k))
+    return out
+
+
+def st_dit_setup(device):
+    """DiT-XL/2's weights, batch and the 4 steps' draws of the whole
+    batch, the same in every process (seeds on this card)."""
+    from repro_torch.launch.steps import draw_t_noise
+    params, cfg = trained_like_xl(torch.Generator(device=device).manual_seed(ST_SEED))
+    batch = train_batch(cfg, ST_DIT_B, SEED)
+    x0 = batch["x0"].to(torch.bfloat16)
+    draws = []
+    for i in range(4):
+        t, noise = draw_t_noise(x0, 1000, torch.Generator(device=device)
+                                .manual_seed(ST_DRAW_SEED + i))
+        draws.append({"t": t, "noise": noise})
+    return params, cfg, batch, draws
+
+
+def st_dit_steps(cfg):
+    """The train steps at modes 0 and 1 (constant lr)."""
+    from repro_torch.configs.base import TrainConfig
+    tc = TrainConfig(learning_rate=ST_DIT_LR, warmup_steps=0, total_steps=1000,
+                     schedule="constant")
+    return {m: lm_steps.make_dit_train_step(cfg, tc, linear_schedule(1000),
+                                            mode=m) for m in (0, 1)}
+
+
+def st_lm_setup(name, keep, over, device):
+    """The cut config (with ``over``), its weights and batch."""
+    from repro_torch.configs.base import TrainConfig
+    _, cfg = lm_cut(name, keep)
+    cfg = dataclasses.replace(cfg, **over)
+    gen = torch.Generator(device=device).manual_seed(ST_SEED + keep + len(name))
+    params = lm_mod.init_params(cfg, gen)
+    batch = lm_train_batch(cfg, ST_LM_B, ST_LM_S, SEED, gen)
+    if cfg.moe is not None:
+        batch["tokens"][1] = batch["tokens"][1, 0]
+    tc = TrainConfig(learning_rate=ST_LM_LR, warmup_steps=0, schedule="constant")
+    return cfg, params, batch, lm_steps.make_train_step(cfg, tc)
+
+
+def st_references(tmp: Path) -> dict:
+    """This process's single-device steps: the first DiT step's and each LM
+    step's loss, metrics and gradients (the gradients to files the ranks
+    read their chunks of), and the walls of 4 single-device DiT steps."""
+    from repro_torch.optim import adamw
+    refs = {}
+    params, cfg, batch, draws = st_dit_setup(DEV)
+    steps = st_dit_steps(cfg)
+    (loss, _), g = steps[ST_MODES[0]].grads(params, batch, **draws[0])
+    torch.save({k: v.cpu() for k, v in st_flat(g).items()}, tmp / "dit.pt")
+    refs["dit"] = {"loss": float(loss), "grad_norm": float(adamw.global_norm(g))}
+    del g
+    p, o, walls = params, adamw.init_opt_state(params), []
+    for i, mode in enumerate(ST_MODES):
+        (p, o, _), wall = st_timed(lambda: steps[mode].with_draws(
+            p, o, batch, **draws[i]))
+        walls.append(wall)
+    refs["dit_walls"] = walls
+    refs["dit_peak"] = torch.cuda.max_memory_allocated()
+    del params, p, o
+    torch.cuda.empty_cache()
+    for name, keep, _, over in ST_LMS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, batch, step = st_lm_setup(name, keep, over, DEV)
+        ((loss, m), g), wall = st_timed(lambda: step.grads(params, batch))
+        torch.save({k: v.cpu() for k, v in st_flat(g).items()}, tmp / f"{name}.pt")
+        refs[name] = {"loss": float(loss), "wall": wall,
+                      "metrics": {k: float(v) for k, v in m.items()},
+                      "peak": torch.cuda.max_memory_allocated()}
+        del params, g
+        torch.cuda.empty_cache()
+    return refs
+
+
+@contextlib.contextmanager
+def st_planted(name: str):
+    """The planted faults of phase 15: ``norm_local`` (``global_norm`` over
+    each rank's chunks only), ``unsummed`` (a data-axis gradient left
+    unsummed), ``sp_sum`` (the sequence-parallel gather's backward a sum
+    over 'model'), ``lb_per_rank`` (``load_balance`` from each rank's own
+    means)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models import moe
+    from repro_torch.runtime import placement as plc
+    from repro_torch.runtime import sharding as shd
+
+    def sp_sum(g, dim, group, rank, n):
+        gt = g.movedim(dim, 0).contiguous()
+        out = torch.empty((gt.shape[0] // n,) + tuple(gt.shape[1:]),
+                          dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, gt, group=group)
+        return out.movedim(0, dim)
+
+    def unsummed(g, p, group, n):
+        if isinstance(p, Shard):
+            c = g.shape[p.dim] // n
+            return g.narrow(p.dim, dist.get_rank(group) * c, c)
+        return g
+
+    mod, attr, fn = {
+        "norm_local": (plc, "sum_over_shards", lambda values, leaves: values),
+        "unsummed": (plc, "_reduce_data", unsummed),
+        "sp_sum": (shd, "_gather_grad", sp_sum),
+        "lb_per_rank": (moe, "_load_balance",
+                        lambda me, ce, E: shd.data_mean(E * torch.sum(me * ce)))}[name]
+    sound = getattr(mod, attr)
+    setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, sound)
+
+
+def st_grad_rels(grads, ref_path: Path, device) -> dict:
+    """Each gradient leaf's ||g - ref|| / ||ref|| over the whole leaf: every
+    rank sums the squares of its chunk's error and of the reference's
+    chunk (read from the memory-mapped file), summed over the mesh dims
+    the leaf is sharded on."""
+    from repro_torch.runtime import placement as plc
+    ref = torch.load(ref_path, mmap=True)
+    flat = st_flat(grads)
+    d2, r2 = [], []
+    for k, g in flat.items():
+        want = ref[k][plc.chunk_slices(g.shape, g.device_mesh, g.placements)]
+        want = want.to(device).float()
+        d2.append((g.to_local().float() - want).square().sum())
+        r2.append(want.square().sum())
+    leaves = list(flat.values())
+    d2, r2 = plc.sum_over_shards(d2, leaves), plc.sum_over_shards(r2, leaves)
+    return {k: (a / b.clamp_min(1e-30)).sqrt().item()
+            for k, a, b in zip(flat, d2, r2)}
+
+
+def st_place(cfg, params, mesh, profile):
+    """``params`` placed on ``mesh`` by the profile's rules, and this
+    rank's spec arithmetic: (placed, parameter bytes, moment bytes)."""
+    from repro_torch.models.common import spec_tree
+    from repro_torch.runtime import placement as plc
+    from repro_torch.runtime import sharding as shd
+    schema = (dit_mod.dit_schema(cfg) if cfg.family == "dit"
+              else lm_mod.lm_schema(cfg))
+    sizes = shd.axis_sizes(mesh)
+    specs = spec_tree(schema, shd.rules_for(cfg, mesh, profile), sizes)
+    elems = sum(int(np.prod(plc.shard_shape(s.shape, sp, sizes)))
+                for s, sp in zip(tree_leaves(schema), tree_leaves(specs)))
+    placed = plc.place_tree(params, shd.shard_tree(mesh, specs))
+    size = tree_leaves(params)[0].element_size()
+    return placed, elems * size, elems * 2 * 4     # float32 m and v
+
+
+def st_timed(fn):
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t1
+
+
+def st_dit_rank(rank, mesh, tmp: Path, device) -> dict:
+    """DiT-XL/2 on (2 x 2): placement bytes; the first step's gradients
+    against single-device, then AdamW on them; two planted faults; steps
+    2-4; the checkpoint after step 1, written while the LM cases run.
+    Returns its readings and what ``st_elastic_rank`` needs."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import placement as plc
+    params, cfg, batch, draws = st_dit_setup(device)
+    steps = st_dit_steps(cfg)
+    p0, want_p, want_m = st_place(cfg, params, mesh, "fsdp2d")
+    del params
+    o0 = adamw.init_opt_state(p0)
+    out = {"bytes": (plc.resident_bytes(p0), plc.resident_bytes(
+        {"m": o0["m"], "v": o0["v"]}), want_p, want_m)}
+    torch.cuda.reset_peak_memory_stats()
+    first = steps[ST_MODES[0]]
+    ((loss, _), g), wall = st_timed(lambda: first.grads(p0, batch, **draws[0]))
+    out.update(loss=float(loss), grads_wall=wall,
+               rels=st_grad_rels(g, tmp / "dit.pt", device),
+               grad_norm=float(adamw.global_norm(g)))
+    with st_planted("norm_local"):
+        out["norm_local"] = float(adamw.global_norm(g))
+    (p, o, _), wall = st_timed(lambda: adamw.adamw_update(p0, g, o0, first.tc))
+    del g
+    torch.cuda.empty_cache()     # the ranks share the card: hand back the cache
+    walls, p1, o1 = [out["grads_wall"] + wall], p, o
+    with st_planted("unsummed"):
+        _, g = first.grads(p0, batch, **draws[0])
+    out["unsummed"] = max(st_grad_rels(g, tmp / "dit.pt", device).values())
+    del g, p0, o0
+    torch.cuda.empty_cache()
+    ck = Checkpointer(tmp / "ckpt", device=device)     # written while steps run
+    (_, out["save_s"]) = st_timed(lambda: ck.save(1, {"params": p1, "opt": o1}))
+    full = tree_map(plc.gather_full, p1)               # every rank gathers
+    mem = tree_map(lambda x: x.cpu(), full) if rank == 0 else None
+    del full
+    losses = [float(loss)]
+    for i in range(1, 4):
+        (p, o, m), wall = st_timed(lambda: steps[ST_MODES[i]].with_draws(
+            p, o, batch, **draws[i]))
+        walls.append(wall)
+        losses.append(float(m["loss"]))
+        if i == 1:       # the uninterrupted update of step 2, on rank 0's host
+            d_ref = []
+            for a, b in zip(tree_leaves(p), tree_leaves(p1)):
+                d = plc.gather_full(a).float() - plc.gather_full(b).float()
+                if rank == 0:
+                    d_ref.append(d.cpu())
+            del p1, o1, d
+    out.update(walls=walls, losses=losses, peak=torch.cuda.max_memory_allocated(),
+               finite=all(bool(torch.isfinite(plc.local(x)).all())
+                          for x in tree_leaves(p)))
+    del p, o
+    torch.cuda.empty_cache()
+    # the elastic restore runs last (st_elastic_rank): rank 0 writes the
+    # checkpoint meanwhile
+    later = dict(ck=ck, cfg=cfg, step=steps[ST_MODES[1]], batch=batch,
+                 draws=draws[1], d_ref=d_ref)
+    return out, later, mem
+
+
+def st_elastic_rank(rank, device, ck, cfg, step, batch, draws, d_ref) -> dict:
+    """The checkpoint after step 1, restored by ``elastic_restore`` onto
+    ``make_elastic_mesh(2, 2)`` (ranks 0-1), step 2 taken there and
+    compared with the uninterrupted step 2 as an update (rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime import placement as plc
+    (_, wait_s) = st_timed(ck.wait)
+    sub = elastic.make_elastic_mesh(2, model_parallel=2, device=device.type)
+    out = {"wait_s": wait_s}
+    if sub.get_coordinate() is not None:
+        (state, _), restore_s = st_timed(lambda: elastic.elastic_restore(
+            ck, cfg, sub, profile="fsdp2d", device=device))
+        (p2, _, _), wall = st_timed(lambda: step.with_draws(
+            state["params"], state["opt"], batch, **draws))
+        num = den = 0.0
+        for i, (a, b) in enumerate(zip(tree_leaves(p2),
+                                       tree_leaves(state["params"]))):
+            d = plc.gather_full(a).float() - plc.gather_full(b).float()
+            if rank == 0:
+                ref = d_ref[i].to(device)
+                num += float((d - ref).square().sum())
+                den += float(ref.square().sum())
+        out.update(update_rel=(num / max(den, 1e-30)) ** 0.5, wall=wall,
+                   restore_s=restore_s, sub=tuple(sub.mesh.shape))
+    dist.barrier()       # ranks 2-3 wait for 0-1's sub-mesh
+    return out
+
+
+def st_lm_rank(rank, mesh, tmp: Path, device, name, keep, profile, over) -> dict:
+    """One LM cut on (2 x 2): the step's gradients and metrics against
+    single-device, then AdamW on them; its planted fault."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import placement as plc
+    from repro_torch.runtime import sharding as shd
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, batch, step = st_lm_setup(name, keep, over, device)
+    p0, want_p, want_m = st_place(cfg, params, mesh, profile)
+    del params
+    torch.cuda.empty_cache()
+    o0 = adamw.init_opt_state(p0)
+    out = {"bytes": (plc.resident_bytes(p0), plc.resident_bytes(
+        {"m": o0["m"], "v": o0["v"]}), want_p, want_m)}
+    ((loss, m), g), wall = st_timed(lambda: step.grads(p0, batch))
+    out.update(loss=float(loss), grads_wall=wall,
+               metrics={k: float(v) for k, v in m.items()},
+               rels=st_grad_rels(g, tmp / f"{name}.pt", device))
+    (p1, _, m), wall = st_timed(lambda: adamw.adamw_update(p0, g, o0, step.tc))
+    out.update(adamw_wall=wall, finite=all(bool(torch.isfinite(plc.local(x)).all())
+                                           for x in tree_leaves(p1)))
+    del g, p1
+    torch.cuda.empty_cache()     # the ranks share the card: hand back the cache
+    if cfg.sequence_parallel:        # a gradient fault: forward and backward
+        with st_planted("sp_sum"):
+            _, g = step.grads(p0, batch)
+        out["sp_sum"] = max(st_grad_rels(g, tmp / f"{name}.pt", device).values())
+        del g
+    else:                            # a loss fault: the forward alone
+        with st_planted("lb_per_rank"), torch.no_grad(), shd.use_mesh(mesh):
+            view = plc.gathered(tree_map(plc.local, p0), p0, step.stacked)
+            _, fm = lm_mod.lm_loss(view, plc.take_rows(batch, ST_LM_B, mesh), cfg)
+        out["lb_per_rank"] = float(fm["load_balance"])
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def st_psum_rank(rank, mesh, device) -> dict:
+    """``compressed_psum`` of a ST_PSUM_N-element float32 gradient over the
+    4 ranks, against the reference formula on the host from the gathered
+    inputs (rank 0), bit for bit."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.optim.compression import compressed_psum
+    g = torch.randn(ST_PSUM_N, device=device, generator=torch.Generator(
+        device=device).manual_seed(ST_PSUM_SEED + rank))
+    got, wall = st_timed(lambda: compressed_psum(g, ("data", "model"), mesh))
+    inputs = [torch.empty_like(g) for _ in range(ST_WORLD)]
+    dist.all_gather(inputs, g)
+    out = {"wall": wall, "sha": hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()}
+    if rank == 0:
+        G = np.stack([x.cpu().numpy() for x in inputs])
+        scale = np.maximum(np.abs(G).max(), np.float32(1e-12)) / np.float32(127.0)
+        q = np.clip(np.round(G / scale), -127, 127).astype(np.int32)
+        want = (q.sum(0, dtype=np.int32).astype(np.float32) * scale).astype(np.float32)
+        out["equal"] = bool(np.array_equal(got.cpu().numpy(), want))
+    return out
+
+
+def st_rank(rank: int, device: torch.device, tmp: str) -> dict:
+    """One rank of phase 15 (spawned ranks import this file by path)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    mesh = make_debug_mesh(*ST_MESH, device=device, backend="gloo")
+    dit, later, mem = st_dit_rank(rank, mesh, tmp, device)
+    out = {"dit": dit}
+    torch.cuda.empty_cache()
+    for name, keep, profile, over in ST_LMS:
+        out[name] = st_lm_rank(rank, mesh, tmp, device, name, keep, profile, over)
+        torch.cuda.empty_cache()
+    out["psum"] = st_psum_rank(rank, mesh, device)
+    torch.cuda.empty_cache()
+    dit["elastic"] = st_elastic_rank(rank, device, **later)
+    if rank == 0:
+        dit["serve"] = st_serve_restored(later["ck"], mem, device)
+    return out
+
+
+def st_serve_restored(ck, mem, device) -> dict:
+    """Rank 0, after the group's work: the (2 x 2) checkpoint restored on
+    this one device and the gathered in-memory parameters ``mem``, each
+    sampled through FlexiPipeline.sample at budget 0.6 on the flash
+    kernel (built by the parent)."""
+    cfg = get_config("dit-xl-2")
+    tree, _ = ck.restore(device=device)
+    mem = tree_map(lambda x: x.to(device), mem)
+    out = {"same_leaves": all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(tree["params"]), tree_leaves(mem)))}
+    plan = SamplingPlan(T=T_STEPS, budget=0.6, guidance_scale=1.5,
+                        attn_backend="pallas")
+    labels = torch.tensor([1, 207, 360, 979], device=device) % cfg.dit.num_classes
+    x0 = {}
+    ops.reset_launches()
+    for name, p in (("restored", tree["params"]), ("in memory", mem)):
+        pipe = FlexiPipeline(p, cfg, linear_schedule(1000), device=device)
+        x0[name] = pipe.sample(plan, len(labels), torch.Generator(device=device)
+                               .manual_seed(7), cond=labels).x0
+        del pipe
+    torch.cuda.synchronize()
+    out.update(launches=ops.flash_attention.launches,
+               by_variant=dict(ops.flash_attention.launches_by_variant),
+               want=2 * cfg.num_layers * forward_calls(plan, cfg),
+               forwards=forward_calls(plan, cfg),
+               same=torch.equal(x0["restored"], x0["in memory"]),
+               finite=bool(torch.isfinite(x0["restored"]).all()))
+    return out
+
+
+def phase_sharded_train(smi: str) -> dict:
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    build.build_all()        # every kernel built before any rank starts
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        refs = st_references(tmp)
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[sharded] single-device references in "
+            f"{time.perf_counter() - t0:.1f}s; this process then holds "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card "
+            f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free ({smi})")
+        t1 = time.perf_counter()
+        res = run_ranks(st_rank, ST_WORLD, backend="gloo", device="cuda",
+                        timeout_s=ST_TIMEOUT_S, args=(str(tmp),))
+        group_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errors = []
+    st_report(res, refs, group_s, smi, errors)
+    if errors:
+        raise AssertionError("phase 15: " + "; ".join(errors))
+    log(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f}s ({smi})")
+    return {"launches": res[0]["dit"]["serve"]["launches"]}
+
+
+def st_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def st_report(res, refs, group_s, smi, errors) -> None:
+    """Print every reading beside its limit, then collect the misses."""
+    note = ("ranks share this card and Gloo stages every collective through "
+            "the host: the mechanism's price, not scaling")
+    for case in ["dit"] + [n for n, *_ in ST_LMS]:
+        got = [r[case]["bytes"] for r in res]
+        ok = all(p + m == wp + wm for p, m, wp, wm in got)
+        log(f"[sharded] {case}: resident parameter + moment bytes a rank "
+            f"{[p + m for p, m, _, _ in got]} == spec arithmetic "
+            f"{[wp + wm for _, _, wp, wm in got]}: {ok}")
+        if not ok:
+            errors.append(f"{case}: resident bytes {got}")
+    r0, want = res[0]["dit"], refs["dit"]
+    worst = max(r0["rels"].values())
+    lrel = st_rel(r0["loss"], want["loss"])
+    nrel = st_rel(r0["grad_norm"], want["grad_norm"])
+    log(f"[sharded] DiT-XL/2 first step (mode {ST_MODES[0]}) on (2 x 2) "
+        f"fsdp2d, B={ST_DIT_B}: loss {r0['loss']:.6f} vs single-device "
+        f"{want['loss']:.6f} (rel {lrel:.2e}); grad norm rel {nrel:.2e}; "
+        f"gradient leaves ||g - ref|| / ||ref|| worst {worst:.3e} over "
+        f"{len(r0['rels'])} leaves (limit {ST_GRAD_TOL}) ({smi})")
+    if not (worst <= ST_GRAD_TOL and lrel <= ST_GRAD_TOL and nrel <= ST_GRAD_TOL):
+        errors.append(f"DiT: loss {lrel}, norm {nrel}, worst leaf {worst}")
+    walls = [max(r["dit"]["walls"][i] for r in res) for i in range(4)]
+    log(f"[sharded] DiT-XL/2 steps (modes {ST_MODES}) on (2 x 2): walls "
+        f"{', '.join(f'{w:.2f}' for w in walls)} s vs single-device "
+        f"{', '.join(f'{w:.3f}' for w in refs['dit_walls'])} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in r0['losses'])}; peak memory a rank "
+        f"{[round(r['dit']['peak'] / 1e9, 2) for r in res]} GB vs single-device "
+        f"{refs['dit_peak'] / 1e9:.2f} GB; checkpoint after step 1: gathered "
+        f"(every rank) and copied to the host (rank 0) in {r0['save_s']:.1f} s, "
+        f"written by rank 0 beside steps 2-4 and the LM cases, then waited "
+        f"{r0['elastic']['wait_s']:.1f} s "
+        f"({note}; {smi})")
+    if not (all(np.isfinite(r0["losses"])) and all(r["dit"]["finite"] for r in res)):
+        errors.append("DiT steps not finite")
+    el = r0["elastic"]
+    log(f"[sharded] elastic restore onto make_elastic_mesh(2, 2) = {el['sub']} "
+        f"(ranks 0-1) in {el['restore_s']:.1f} s, step 2 there in "
+        f"{el['wall']:.2f} s: ||dp - dp_ref|| / ||dp_ref|| against the "
+        f"uninterrupted (2 x 2) step 2 {el['update_rel']:.3e} (limit "
+        f"{ST_UPDATE_TOL}; {smi})")
+    if not el["update_rel"] <= ST_UPDATE_TOL:
+        errors.append(f"elastic step 2: {el['update_rel']}")
+    sv = r0["serve"]
+    log(f"[sharded] the (2 x 2) checkpoint restored on one device (rank 0): "
+        f"leaves == the gathered in-memory parameters: {sv['same_leaves']}; "
+        f"each sampled at budget 0.6 (CFG 1.5, T={T_STEPS}) on the flash "
+        f"kernel: flash launches {sv['launches']} (2 x 28 x {sv['forwards']} "
+        f"forwards), by variant {sv['by_variant']}; x0 restored == in memory "
+        f"bit for bit: {sv['same']} ({smi})")
+    if not (sv["same"] and sv["same_leaves"] and sv["finite"]):
+        errors.append("the sharded checkpoint serves differently")
+    if not sv["launches"] == sv["by_variant"].get("wgmma", 0) == sv["want"]:
+        errors.append(f"sharded checkpoint served: flash {sv['by_variant']}, "
+                      f"expected {sv['want']}, all wgmma")
+    for name, keep, profile, over in ST_LMS:
+        got, want = res[0][name], refs[name]
+        worst = max(got["rels"].values())
+        lrel = st_rel(got["loss"], want["loss"])
+        aux = {k: st_rel(got["metrics"][k], v) for k, v in want["metrics"].items()
+               if k != "loss"}
+        log(f"[sharded] {name} cut to {keep} layers on (2 x 2) {profile}, "
+            f"B={ST_LM_B} x S={ST_LM_S}: loss {got['loss']:.6f} vs single-device "
+            f"{want['loss']:.6f} (rel {lrel:.2e}); aux rel {aux} (limit "
+            f"{ST_AUX_TOL}); gradient leaves worst {worst:.3e} over "
+            f"{len(got['rels'])} (limit {ST_GRAD_TOL}); a step "
+            f"{max(r[name]['grads_wall'] for r in res):.2f} s of gradients + "
+            f"{max(r[name]['adamw_wall'] for r in res):.2f} s of AdamW vs "
+            f"single-device gradients {want['wall']:.2f} s; peak memory a rank "
+            f"{[round(r[name]['peak'] / 1e9, 2) for r in res]} GB vs "
+            f"single-device {want['peak'] / 1e9:.2f} GB ({note}; {smi})")
+        if not (worst <= ST_GRAD_TOL and lrel <= ST_GRAD_TOL
+                and all(v <= ST_AUX_TOL for v in aux.values())):
+            errors.append(f"{name}: loss {lrel}, aux {aux}, worst leaf {worst}")
+        if not all(r[name]["finite"] for r in res):
+            errors.append(f"{name}: step not finite")
+    plants = {
+        "global_norm over local chunks": (st_rel(
+            r0["norm_local"], refs["dit"]["grad_norm"]), ST_GRAD_TOL),
+        "a data-axis gradient unsummed": (r0["unsummed"], ST_GRAD_TOL),
+        "the SP gather's backward a sum": (res[0]["gemma2-9b"]["sp_sum"],
+                                           ST_GRAD_TOL),
+        "load_balance per rank": (st_rel(
+            res[0]["deepseek-moe-16b"]["lb_per_rank"],
+            refs["deepseek-moe-16b"]["metrics"]["load_balance"]), ST_AUX_TOL)}
+    for what, (read, limit) in plants.items():
+        log(f"[sharded] planted fault, {what}: {read:.3e} (must exceed {limit})")
+        if not read > limit:
+            errors.append(f"planted fault {what} read {read}")
+    ps = [r["psum"] for r in res]
+    log(f"[sharded] compressed_psum of {ST_PSUM_N} float32 over {ST_WORLD} "
+        f"ranks: == the reference formula on the host, bit for bit: "
+        f"{ps[0]['equal']}; every rank's result the same: "
+        f"{len({p['sha'] for p in ps}) == 1}; wall {max(p['wall'] for p in ps):.2f}"
+        f" s ({note}; {smi})")
+    if not (ps[0]["equal"] and len({p["sha"] for p in ps}) == 1):
+        errors.append("compressed_psum differs from the reference formula")
+    log(f"[sharded] the rank group ran in {group_s:.1f} s ({smi})")
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3793,6 +4367,12 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    if sys.argv[1:] == ["--only", "sharded"]:     # phase 15 alone, for work on it
+        phase_build()
+        got = phase_sharded_train(smi)
+        print(smi)
+        print(json.dumps({"only": "sharded", "ok": True, **got}), flush=True)
+        return
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     gen_new = torch.Generator(device=DEV).manual_seed(SEED + 1)
     gen_t2i = torch.Generator(device=DEV).manual_seed(SEED + 2)
@@ -3832,13 +4412,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     seq_parallel = phase_seq_parallel(smi)
     times["shapes"].update(seq_parallel["shapes"])
+    torch.cuda.empty_cache()
+    sharded = phase_sharded_train(smi)
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
              "train_then_serve": training["launches"], **fleet["launches"],
              "lm_serving": lm["launches"], "lm_families": families["launches"],
              "lm_train_then_serve": lm_train["launches"],
-             "seq_parallel": seq_parallel["launches"]}
+             "seq_parallel": seq_parallel["launches"],
+             "sharded_train_then_serve": sharded["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -12,9 +12,16 @@ of 2-byte void elements (descr ``'<V2'``, the raw bfloat16 bits) with
 ``"bfloat16"`` in the manifest. ``restore`` reads each leaf by its
 manifest dtype, so those bits come back as ``torch.bfloat16``; the
 reference's own restore hands them back as raw ``|V2`` arrays. Restored
-tensors land on CUDA unless the caller asks for ``device="cpu"``. Elastic
-restore onto a mesh (``shardings=``) comes with the distributed slice
-that shards training.
+tensors land on CUDA unless the caller asks for ``device="cpu"``.
+
+Placed leaves (``runtime/placement``: DTensors of a sharded train step)
+are gathered on every rank inside :meth:`save`, before the writer thread
+sees them (a collective on that thread would deadlock the ranks); the
+mesh's first rank copies them to the host and writes: the files are the
+single-device ones, byte for byte. In a rank group :meth:`wait` is also
+a barrier, so every rank can read what was written.
+``restore(shardings=)`` places each leaf named there on its mesh: this
+rank reads its chunk of the file.
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import TORCH_DTYPES
 from repro_torch.device import resolve_device
+from repro_torch.runtime import placement as plc
 
 SEP = "__"
 BF16_DESCR = "<V2"
@@ -82,12 +91,24 @@ def _save_leaf(path: Path, arr: np.ndarray, dtype: str) -> None:
         f.write(arr.tobytes())
 
 
-def _load_leaf(path: Path, dtype: str, device: torch.device) -> torch.Tensor:
-    arr = np.require(np.load(path), requirements=["C", "W"])
+def _load_leaf(path: Path, dtype: str, device: torch.device,
+               sharding: Any = None) -> torch.Tensor:
+    """A leaf in its manifest dtype on ``device``; with a ``sharding``
+    (a ``runtime/sharding.NamedSharding``) this rank's chunk, read from
+    the memory-mapped file, placed on its mesh."""
+    if sharding is None:
+        arr = np.require(np.load(path), requirements=["C", "W"])
+    else:
+        mm = np.load(path, mmap_mode="r")
+        arr = np.array(mm[plc.chunk_slices(mm.shape, sharding.mesh,
+                                           sharding.placements)])
     if dtype == "bfloat16":
-        bits = torch.from_numpy(arr.view(np.int16))
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(arr).to(device=device, dtype=TORCH_DTYPES[dtype])
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    else:
+        t = torch.from_numpy(arr).to(device=device, dtype=TORCH_DTYPES[dtype])
+    if sharding is None:
+        return t
+    return plc.from_chunk(t, sharding, mm.shape)
 
 
 class Checkpointer:
@@ -103,22 +124,42 @@ class Checkpointer:
         self.async_save = async_save
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[concurrent.futures.Future] = None
+        self._mesh: Any = None        # the mesh of the last placed save
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
         """Copy ``tree`` (tensors or arrays) to the host now, write it on
-        the background thread (or inline without ``async_save``)."""
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        the background thread (or inline without ``async_save``). A tree
+        of placed leaves is gathered on every rank of its mesh (each must
+        call this) and written by the mesh's first rank."""
+        self.wait()
+        flat = _flatten(tree)
+        mesh = self._mesh = plc.placed_mesh(flat)
+        writer = mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
+        host = {}
+        for k, v in flat.items():
+            v = plc.gather_full(v)          # a collective: every rank joins
+            if writer:
+                host[k] = _to_host(v)
+        if not writer:
+            return
         if self.async_save:
-            self.wait()
             self._pending = self._pool.submit(self._write, step, host, extra)
         else:
             self._write(step, host, extra)
 
     def wait(self):
+        """Wait for the pending write; after a placed save, also for every
+        rank of its mesh (a barrier), so each can read the files."""
         if self._pending is not None:
             self._pending.result()
             self._pending = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            dev = "cpu" if mesh.device_type == "cpu" else torch.cuda.current_device()
+            token = torch.zeros(1, device=dev)
+            for i in range(mesh.ndim):
+                dist.all_reduce(token, group=mesh.get_group(i))
 
     def _write(self, step: int, host: Dict[str, Tuple[np.ndarray, str]],
                extra: Optional[Dict]):
@@ -159,17 +200,19 @@ class Checkpointer:
     def restore(self, step: Optional[int] = None, shardings: Any = None,
                 device: Any = None) -> Tuple[Any, Dict]:
         """Load a checkpoint as a tree of tensors on ``device`` (the
-        checkpointer's unless given), each leaf in its manifest dtype."""
-        if shardings is not None:
-            raise NotImplementedError("elastic restore onto a mesh comes with "
-                                      "the distributed slice of the port "
-                                      "that shards training")
+        checkpointer's unless given), each leaf in its manifest dtype.
+        ``shardings``: a tree of ``NamedSharding`` (``runtime/sharding``,
+        a sub-tree of the checkpoint's) — elastic restore: each leaf named
+        there is placed on its (possibly different) mesh, this rank
+        reading only its chunk."""
+        flat_s = _flatten(shardings) if shardings is not None else {}
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints in {self.root}")
         device = resolve_device(self.device if device is None else device)
         d = self.root / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
-        flat = {k: _load_leaf(d / f"{k}.npy", meta["dtype"], device)
+        flat = {k: _load_leaf(d / f"{k}.npy", meta["dtype"], device,
+                              flat_s.get(k))
                 for k, meta in manifest["leaves"].items()}
         return _unflatten(flat), manifest["extra"]

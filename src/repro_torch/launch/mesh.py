@@ -1,9 +1,10 @@
-"""Inference meshes and the rank launcher of the sequence-parallel path —
-the port of ``repro.launch.mesh``'s serving half.
+"""Meshes and the rank launcher — the port of ``repro.launch.mesh``'s
+serving and training halves.
 
 JAX runs a whole mesh from one controller; here every rank is a process
-running the same program (SPMD). :func:`run_ranks` starts the ranks,
-:func:`make_inference_mesh` builds the ``("data", "seq")`` device mesh
+running the same program (SPMD). :func:`run_ranks` starts the ranks;
+:func:`make_inference_mesh` builds the ``("data", "seq")`` serving mesh
+and :func:`make_debug_mesh` the ``("data", "model")`` training mesh
 inside each of them.
 
 The backend follows a rule, never a fallback:
@@ -80,6 +81,24 @@ def rank_device(rank: int, world: int, backend: str,
     return torch.device("cuda", rank % cards)
 
 
+def _world_mesh(shape: Tuple[int, int], names: Tuple[str, str], device: Any,
+                backend: Optional[str], what: str):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what} runs inside a rank: start the ranks with "
+                           f"run_ranks (or init the process group first)")
+    world = dist.get_world_size()
+    if shape[0] * shape[1] != world:
+        raise ValueError(f"mesh {shape[0]}x{shape[1]} needs "
+                         f"{shape[0] * shape[1]} ranks, the group has {world}")
+    if backend is not None and dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                         f"not the {backend!r} asked for")
+    dev_type = torch.device("cuda" if device is None else device).type
+    return init_device_mesh(dev_type, shape, mesh_dim_names=names)
+
+
 def make_inference_mesh(data: int = 1, seq: int = 1, *,
                         device: Any = None, backend: Optional[str] = None):
     """The serving mesh of the sequence-parallel DiT engine, dims
@@ -87,22 +106,18 @@ def make_inference_mesh(data: int = 1, seq: int = 1, *,
     mesh entry, rank r at ``(r // seq, r % seq)``): requests batch over
     'data', long sequences scatter over 'seq'. ``backend``, when given,
     must be the group's own."""
-    from torch.distributed.device_mesh import init_device_mesh
+    return _world_mesh((data, seq), ("data", "seq"), device, backend,
+                       "make_inference_mesh")
 
-    if not dist.is_initialized():
-        raise RuntimeError("make_inference_mesh runs inside a rank: start "
-                           "the ranks with run_ranks (or init the process "
-                           "group first)")
-    world = dist.get_world_size()
-    if data * seq != world:
-        raise ValueError(f"mesh {data}x{seq} needs {data * seq} ranks, the "
-                         f"group has {world}")
-    if backend is not None and dist.get_backend() != backend:
-        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
-                         f"not the {backend!r} asked for")
-    dev_type = torch.device("cuda" if device is None else device).type
-    return init_device_mesh(dev_type, (data, seq),
-                            mesh_dim_names=("data", "seq"))
+
+def make_debug_mesh(data: int = 1, model: int = 1, *, device: Any = None,
+                    backend: Optional[str] = None):
+    """The training mesh, dims ``("data", "model")`` over this process's
+    default group (rank r at ``(r // model, r % model)``): weights and
+    batches shard by ``runtime/sharding``'s rules. ``backend`` as in
+    :func:`make_inference_mesh`."""
+    return _world_mesh((data, model), ("data", "model"), device, backend,
+                       "make_debug_mesh")
 
 
 def _rank_main(rank: int, world: int, backend: str, device_type: str,

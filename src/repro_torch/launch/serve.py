@@ -161,9 +161,9 @@ def serve_lm(cfg, args) -> Dict[str, float]:
     from repro_torch.runtime.padding import pad_kv_cache
 
     if getattr(args, "mesh", None):
-        raise NotImplementedError("--mesh: sequence-parallel language "
-                                  "models come with the distributed-training "
-                                  "slice of the port")
+        raise NotImplementedError("--mesh: sharded language-model serving "
+                                  "comes with a later distributed slice of "
+                                  "the port (ROADMAP queue 1)")
     if getattr(args, "replicas", 1) > 1:
         raise NotImplementedError("--replicas: the fleet serves DiT requests; "
                                   "a language-model fleet is not part of the "

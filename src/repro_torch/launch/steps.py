@@ -10,6 +10,12 @@ arguments (``t``, ``noise``); the step
 gradients and applies AdamW. Training runs the dense attention path, as
 the reference does at 256 unsegmented tokens (no Pallas kernel of the
 JAX package has a backward rule).
+
+Handed placed parameters (``runtime/placement``), every step here is the
+sharded step over their mesh: each rank takes its rows of the global
+batch and of the global draws, gathers each layer's weights on use, and
+the losses reduce over the data axes (``runtime/sharding.data_mean``), so
+the loss and the gradients are the single-device step's.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from repro_torch.models import dit as dit_mod
 from repro_torch.models import lm
 from repro_torch.models.common import dtype_of, tree_map
 from repro_torch.optim.adamw import TrainStep, value_and_grad
+from repro_torch.runtime import placement as plc
+from repro_torch.runtime.sharding import data_mean
 
 Params = Any
 
@@ -34,24 +42,27 @@ class _MicrobatchedStep(TrainStep):
     back to its parameter's dtype before AdamW."""
 
     def __init__(self, loss_fn, tc: TrainConfig, n: int,
-                 trainable: Optional[Params] = None):
-        super().__init__(loss_fn, _no_draws, tc, trainable)
+                 trainable: Optional[Params] = None, stacked: Any = None):
+        super().__init__(loss_fn, _no_draws, tc, trainable, stacked)
         self.n = n
 
     def loss_and_grads(self, params: Params, batch: Dict
                        ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
         n = self.n
-        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        g_acc = tree_map(lambda p: plc.map_local(
+            lambda l: torch.zeros(l.shape, dtype=torch.float32,
+                                  device=l.device), p), params)
         l_acc = torch.zeros((), dtype=torch.float32,
                             device=batch["tokens"].device)
         for i in range(n):
             mb = {k: v.chunk(n)[i] for k, v in batch.items()}
-            (loss, metrics), g = value_and_grad(self.loss_fn, params, mb)
-            g_acc = tree_map(lambda a, b: a + b.float() / n, g_acc, g)
+            (loss, metrics), g = value_and_grad(self.loss_fn, params, mb,
+                                                stacked=self.stacked)
+            g_acc = tree_map(lambda a, b: plc.map_local(
+                lambda x, y: x + y.float() / n, a, b), g_acc, g)
             l_acc = l_acc + loss / n
-        return (l_acc, metrics), tree_map(lambda g, p: g.to(p.dtype), g_acc,
-                                          params)
+        return (l_acc, metrics), tree_map(lambda g, p: plc.map_local(
+            lambda x: x.to(plc.local(p).dtype), g), g_acc, params)
 
 
 def _no_draws(batch: Dict, generator: Optional[torch.Generator]) -> Dict:
@@ -68,13 +79,17 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     ``batch``: ``tokens`` / ``targets`` [B,S] int, optional ``loss_mask``
     and ``segment_ids``, and ``vision`` / ``frames`` for those families.
     ``n_microbatches > 1`` splits B into that many slices taken one after
-    another (bounds activation memory; see DESIGN.md §5)."""
+    another (bounds activation memory; see DESIGN.md §5). Placed
+    parameters (``runtime/placement``) make it a sharded step: see
+    :class:`~repro_torch.optim.adamw.TrainStep`."""
     def loss_fn(params, batch):
         return lm.lm_loss(params, batch, cfg, backend=backend)
 
+    stacked = plc.stacked_leaves(lm.lm_schema(cfg))
     if n_microbatches > 1:
-        return _MicrobatchedStep(loss_fn, tc, n_microbatches, trainable)
-    return TrainStep(loss_fn, _no_draws, tc, trainable)
+        return _MicrobatchedStep(loss_fn, tc, n_microbatches, trainable,
+                                 stacked)
+    return TrainStep(loss_fn, _no_draws, tc, trainable, stacked)
 
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "xla") -> Callable:
@@ -128,7 +143,7 @@ def dit_loss(params: Params, batch: Dict[str, torch.Tensor], t: torch.Tensor,
     out = dit_mod.dit_forward(params, x_t, t, batch.get("cond"), cfg,
                               mode=mode)
     eps = dit_mod.eps_prediction(out, cfg)
-    loss = torch.mean(torch.square(eps.float() - noise.float()))
+    loss = data_mean(torch.mean(torch.square(eps.float() - noise.float())))
     return loss, {"loss": loss}
 
 
@@ -150,7 +165,8 @@ def make_dit_train_step(cfg: ModelConfig, tc: TrainConfig,
     def loss_fn(params, batch, t, noise):
         return dit_loss(params, batch, t, noise, cfg, sched, mode)
 
-    return TrainStep(loss_fn, draw, tc, trainable)
+    return TrainStep(loss_fn, draw, tc, trainable,
+                     plc.stacked_leaves(dit_mod.dit_schema(cfg)))
 
 
 def make_dit_serve_step(cfg: ModelConfig, mode_cond: int = 0,

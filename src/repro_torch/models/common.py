@@ -48,6 +48,53 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def abstract_tree(schema: Any, dtype: torch.dtype) -> Any:
+    """A tree of ``meta`` tensors of the schema's shapes: placement
+    arithmetic without allocation (``jax.ShapeDtypeStruct``'s use)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+                    schema)
+
+
+def spec_tree(schema: Any, rules: Dict[str, Optional[Any]],
+              axis_sizes: Optional[Dict[str, int]] = None) -> Any:
+    """Partition-spec tree (plain tuples, one entry per dim) from
+    logical→mesh axis rules, the reference's arithmetic.
+
+    ``rules`` maps logical axis name → mesh axis name (str or tuple) or
+    None. Unknown logical axes are unsharded. A mesh axis may appear at
+    most once in a spec; later duplicate uses are dropped (replicated).
+    ``axis_sizes`` (mesh axis → size) keeps, per dim, the greedy prefix of
+    its mesh axes whose product divides the dim."""
+    def one(spec: ParamSpec) -> Tuple[Any, ...]:
+        used: set = set()
+        parts = []
+        for dim, ax in zip(spec.shape, spec.axes):
+            mesh_ax = rules.get(ax) if ax is not None else None
+            if mesh_ax is None:
+                parts.append(None)
+                continue
+            flat = (mesh_ax,) if isinstance(mesh_ax, str) else tuple(mesh_ax)
+            keep = tuple(a for a in flat if a not in used)
+            if axis_sizes is not None:
+                ok = []
+                prod = 1
+                for a in keep:
+                    prod *= axis_sizes.get(a, 1)
+                    if dim % prod == 0:
+                        ok.append(a)
+                    else:
+                        prod //= axis_sizes.get(a, 1)
+                keep = tuple(ok)
+            if not keep:
+                parts.append(None)
+                continue
+            used.update(keep)
+            parts.append(keep[0] if len(keep) == 1 else keep)
+        return tuple(parts)
+
+    return tree_map(one, schema)
+
+
 def stack_schema(schema: Any, n: int, axis_name: Optional[str] = "layers") -> Any:
     """Prepend a stacking dimension (stacked per-layer parameters)."""
     return tree_map(lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes,

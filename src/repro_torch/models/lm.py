@@ -22,6 +22,13 @@ mode: the same layer loop with ``mode="train"`` (dense attention on the
 reference's ``"xla"`` backend; no Pallas kernel has a backward rule), the
 MoE aux losses summed over layers, and ``cfg.remat == "block"`` as
 activation checkpointing of each layer (each vision group).
+``cfg.sequence_parallel`` puts the reference's constraint on each layer's
+output, ``(("pod", "data"), "model", None)``: under a mesh with a 'model'
+axis each rank keeps its sequence chunk of the residual between layers
+(what remat saves) and gathers it at the next layer's entry; without a
+mesh both are the identity. The losses are global under a mesh: the
+cross-entropy's masked sums and the MoE router's means reduce over the
+data axes (``runtime/sharding.data_sum`` / ``data_mean``).
 """
 from __future__ import annotations
 
@@ -46,10 +53,16 @@ from repro_torch.models.common import (ParamSpec, apply_norm, dtype_of,
                                        init_tree, matmul_f32, norm_schema,
                                        softcap, stack_schema)
 from repro_torch.models.mlp import mlp_apply, mlp_schema
+from repro_torch.runtime.sharding import (constrain, data_mean, data_sum,
+                                          gather_layout)
 
 Params = Dict[str, Any]
 
 VLM_GROUP = 5     # llama-3.2-vision: 1 cross-attn layer per 5 layers
+
+# the layout of each layer's output under cfg.sequence_parallel:
+# batch over the data axes, sequence over 'model'
+SP_SPEC = (("pod", "data"), "model", None)
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +194,17 @@ def _train_block(p: Params, x: torch.Tensor, window: int,
     return x, aux
 
 
+def _sp_train_block(p: Params, x: torch.Tensor, window: int,
+                    segment_ids: Optional[torch.Tensor], cfg: ModelConfig,
+                    backend: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`_train_block` on the sequence-parallel layout: the chunk
+    gathered at entry, the output's chunk kept (both collectives run
+    again when remat recomputes the layer)."""
+    x, aux = _train_block(p, gather_layout(x, SP_SPEC), window, segment_ids,
+                          cfg, backend)
+    return constrain(x, SP_SPEC), aux
+
+
 def _vlm_train_group(p_self: Params, p_cross: Params, x: torch.Tensor,
                      vis: torch.Tensor, cfg: ModelConfig,
                      backend: str) -> torch.Tensor:
@@ -220,16 +244,17 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = x + params["pos_embed"][:S].to(x.dtype)[None]
         x, _ = _audio_decoder(params["dec_blocks"], x, enc, cfg, mode="train")
     else:
+        block = _train_block
         if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel (the reference's sharding constraint on "
-                "each layer's output) comes with the distributed slice of "
-                "the port that shards training")
+            block = _sp_train_block
+            x = constrain(x, SP_SPEC)
         windows = layer_windows(cfg)
         for i in range(cfg.num_layers):
-            x, a = _remat(cfg, _train_block, _layer(params["blocks"], i), x,
+            x, a = _remat(cfg, block, _layer(params["blocks"], i), x,
                           int(windows[i]), segment_ids, cfg, backend)
             aux = _aux_add(aux, a)
+        if cfg.sequence_parallel:
+            x = gather_layout(x, SP_SPEC)
     return unembed(params, x, cfg), aux
 
 
@@ -243,7 +268,9 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Next-token cross-entropy of ``batch["targets"]`` (masked mean over
     ``loss_mask`` when given), plus every aux loss: (total, metrics with
     ``loss`` the cross-entropy alone). The reference's sum includes
-    ``dropped_fraction``, which carries no gradient."""
+    ``dropped_fraction``, which carries no gradient. Under a mesh the
+    masked mean's numerator and denominator are each summed over the data
+    axes (a mean of per-rank means would be another number)."""
     logits, aux = forward_train(params, batch["tokens"], cfg, extra=batch,
                                 backend=backend,
                                 segment_ids=batch.get("segment_ids"))
@@ -252,9 +279,10 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     nll = -logp.gather(-1, batch["targets"][..., None].long())[..., 0]
     mask = batch.get("loss_mask")
     if mask is not None:
-        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        loss = (data_sum(torch.sum(nll * mask))
+                / torch.clamp(data_sum(torch.sum(mask)), min=1.0))
     else:
-        loss = torch.mean(nll)
+        loss = data_mean(torch.mean(nll))
     total = loss + sum(aux.values()) if aux else loss
     return total, {"loss": loss, **aux}
 

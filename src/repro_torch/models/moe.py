@@ -13,7 +13,14 @@
 Shared experts (deepseek-moe) are a dense MLP applied to every token. The
 expert products stay ``torch.bmm`` in x's dtype, as the reference's
 einsums sit outside any Pallas kernel. The reference's sharding
-constraints on the expert buffers have no counterpart on one card.
+constraints on the expert buffers remain layout hints here: a sharded
+step computes each expert on its own rows (``runtime/placement``).
+
+The aux losses are means over all tokens of the global batch. Under a
+mesh each rank routes its own rows, so the router's means are reduced
+over the data axes (``runtime/sharding.data_mean``) before they are
+combined: ``load_balance = E · Σ me·ce`` is a product of two global means,
+and a mean of per-rank products would be another number.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import ParamSpec, matmul_f32, mlp_act
 from repro_torch.models.mlp import mlp_apply, mlp_schema
+from repro_torch.runtime.sharding import data_mean
 
 Params = Dict[str, Any]
 
@@ -68,11 +76,17 @@ def _router(params: Params, x2d: torch.Tensor, cfg: MoEConfig
     me = probs.mean(0)                                            # [E]
     ce = torch.zeros(E, dtype=torch.float32, device=x2d.device).index_add_(
         0, idx[:, 0], torch.ones_like(idx[:, 0], dtype=torch.float32)) / idx.shape[0]
-    lb = E * torch.sum(me * ce)
-    z = torch.logsumexp(logits, dim=-1).square().mean()
+    lb = _load_balance(me, ce, E)
+    z = data_mean(torch.logsumexp(logits, dim=-1).square().mean())
     aux = {"load_balance": lb * cfg.load_balance_loss,
            "router_z": z * cfg.router_z_loss}
     return gates.float(), idx, probs, aux
+
+
+def _load_balance(me: torch.Tensor, ce: torch.Tensor, E: int) -> torch.Tensor:
+    """``E · Σ me·ce`` of the global means (each reduced over the data
+    axes first)."""
+    return E * torch.sum(data_mean(me) * data_mean(ce))
 
 
 def _bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -160,7 +174,7 @@ def moe_apply_sorted(params: Params, x: torch.Tensor, cfg: MoEConfig,
     out = (y_slots * w_tok).reshape(B, S, k, d).sum(dim=2)
     if "shared" in params:
         out = out + mlp_apply(params["shared"], x, activation)
-    aux["dropped_fraction"] = 1.0 - keep.float().mean()
+    aux["dropped_fraction"] = data_mean(1.0 - keep.float().mean())
     return out, aux
 
 

@@ -10,9 +10,19 @@ corrections from the incremented step, and
 leaf (``trainable`` False) keeps p, m and v unchanged, bit for bit.
 ``step`` and the learning rate stay tensors on the parameters' device,
 so a step never waits on the host.
+
+Placed leaves (``runtime/placement``: DTensors on a ``("data", "model")``
+mesh) are updated chunk by chunk, their moments placed like them (the
+reference's ZeRO state "inherits the same specs"). :func:`global_norm`
+sums each leaf's squares over the mesh dims it is sharded on and over no
+other, then over leaves in the reference's order. A step given placed
+parameters takes this rank's rows of the global batch (and of the draws),
+gathers each weight on use and hands AdamW each chunk's gradient summed
+over the data axes (``runtime/placement.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -20,6 +30,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.common import dtype_of, tree_leaves, tree_map
+from repro_torch.runtime import placement as plc
+from repro_torch.runtime.sharding import use_mesh
 
 Params = Any
 
@@ -27,8 +39,9 @@ Params = Any
 def init_opt_state(params: Params,
                    opt_dtype: Union[str, torch.dtype] = torch.float32) -> Dict:
     dt = dtype_of(opt_dtype) if isinstance(opt_dtype, str) else opt_dtype
-    dev = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    dev = plc.local(tree_leaves(params)[0]).device
+    zeros = lambda p: plc.map_local(
+        lambda l: torch.zeros(l.shape, dtype=dt, device=l.device), p)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -48,9 +61,12 @@ def lr_at(tc: TrainConfig, step: Any) -> torch.Tensor:
 
 
 def global_norm(tree: Params) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    sq = plc.sum_over_shards([torch.sum(torch.square(plc.local(x).float()))
+                              for x in leaves], leaves)
     total = 0
-    for x in tree_leaves(tree):     # summed in leaf order, as the reference
-        total = total + torch.sum(torch.square(x.float()))
+    for s in sq:                    # summed in leaf order, as the reference
+        total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -58,7 +74,8 @@ def clip_by_global_norm(grads: Params, max_norm: float
                         ) -> Tuple[Params, torch.Tensor]:
     g = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
-    return tree_map(lambda x: (x.float() * scale).to(x.dtype), grads), g
+    return tree_map(lambda x: plc.map_local(
+        lambda l: (l.float() * scale).to(l.dtype), x), grads), g
 
 
 def adamw_update(params: Params, grads: Params, opt_state: Dict,
@@ -79,6 +96,9 @@ def adamw_update(params: Params, grads: Params, opt_state: Dict,
     def upd(p, g, m, v, t=True):
         if t is False:                          # a frozen leaf: untouched
             return p, m, v
+        if plc.is_placed(p):                    # chunk by chunk
+            out = upd(p.to_local(), *(plc.local(x) for x in (g, m, v, t)))
+            return tuple(plc.wrap(o, p) for o in out)
         gf = g.float()
         m_new = b1 * m.float() + (1 - b1) * gf
         v_new = b2 * v.float() + (1 - b2) * gf * gf
@@ -103,28 +123,43 @@ def adamw_update(params: Params, grads: Params, opt_state: Dict,
 
 
 def value_and_grad(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
-                   params: Params, *args: Any, **kw: Any
+                   params: Params, *args: Any, stacked: Any = None, **kw: Any
                    ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
     """``jax.value_and_grad(loss_fn, has_aux=True)(params, ...)`` on the
     port's tree: ``((loss, aux), grads)``, every floating leaf
     differentiated (a leaf the loss does not reach gets zeros), all
-    returned detached."""
+    returned detached.
+
+    Placed leaves: the loss runs under their mesh (``use_mesh``) on a view
+    that gathers each leaf on use (``placement.gathered``; ``stacked``, a
+    tree of bools, marks the ``[L, ...]`` leaves gathered one layer at a
+    time), and each gradient comes back placed like its leaf."""
     leaves: List[torch.Tensor] = []
 
     def track(p):
+        p = plc.local(p)
         if not p.is_floating_point():
             return p
         leaf = p.detach().requires_grad_(True)
         leaves.append(leaf)
         return leaf
 
-    with torch.enable_grad():
+    mesh = plc.placed_mesh(params)
+    with torch.enable_grad(), \
+            (use_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
         tracked = tree_map(track, params)
-        loss, aux = loss_fn(tracked, *args, **kw)
+        view = (tracked if mesh is None
+                else plc.gathered(tracked, params, stacked))
+        loss, aux = loss_fn(view, *args, **kw)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
     by_id = {id(l): g if g is not None else torch.zeros_like(l)
              for l, g in zip(leaves, got)}
-    grads = tree_map(lambda p: by_id.get(id(p), torch.zeros_like(p)), tracked)
+
+    def grad_of(t, p):
+        g = by_id.get(id(t), torch.zeros_like(t))
+        return plc.wrap(g, p) if plc.is_placed(p) else g
+
+    grads = tree_map(grad_of, tracked, params)
     aux = {k: v.detach() if torch.is_tensor(v) else v for k, v in aux.items()}
     return (loss.detach(), aux), grads
 
@@ -137,23 +172,44 @@ class TrainStep:
     The draws are the loss's arguments, so a caller may hand in its own
     (``with_draws``), for example another package's draws. A step that
     draws nothing (the language models') needs no generator.
+
+    With placed parameters the batch and the draws are the global ones,
+    the same on every rank (drawn from one seed for the whole batch): the
+    step takes this rank's rows of both. ``stacked`` (a tree of bools, set
+    by the step builders from the model's schema) marks the leaves
+    gathered one layer at a time.
     """
 
     def __init__(self, loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
                  draw: Callable[[Dict, torch.Generator], Dict],
-                 tc: TrainConfig, trainable: Optional[Params] = None):
+                 tc: TrainConfig, trainable: Optional[Params] = None,
+                 stacked: Any = None):
         self.loss_fn = loss_fn
         self.draw = draw
         self.tc = tc
         self.trainable = trainable
+        self.stacked = stacked
 
     def loss_and_grads(self, params: Params, batch: Dict, **draws: Any
                        ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
-        return value_and_grad(self.loss_fn, params, batch, **draws)
+        return value_and_grad(self.loss_fn, params, batch,
+                              stacked=self.stacked, **draws)
+
+    def grads(self, params: Params, batch: Dict, **draws: Any
+              ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
+        """``((loss, metrics), grads)`` of the global batch; with placed
+        parameters computed on this rank's rows (of the draws too)."""
+        mesh = plc.placed_mesh(params)
+        if mesh is not None:
+            rows = next(v.shape[0] for v in tree_leaves(batch)
+                        if torch.is_tensor(v) and v.dim() > 0)
+            batch = plc.take_rows(batch, rows, mesh)
+            draws = {k: plc.take_rows(v, rows, mesh) for k, v in draws.items()}
+        return self.loss_and_grads(params, batch, **draws)
 
     def with_draws(self, params: Params, opt_state: Dict, batch: Dict,
                    **draws: Any) -> Tuple[Params, Dict, Dict]:
-        (_loss, metrics), grads = self.loss_and_grads(params, batch, **draws)
+        (_loss, metrics), grads = self.grads(params, batch, **draws)
         params, opt_state, om = adamw_update(params, grads, opt_state,
                                              self.tc, self.trainable)
         return params, opt_state, {**metrics, **om}

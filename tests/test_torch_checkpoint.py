@@ -3,8 +3,9 @@ the on-disk layout is the reference's, so checkpoints cross packages in
 both directions (bfloat16 leaves as the reference writes them, 2-byte
 void ``.npy`` elements with ``"bfloat16"`` in the manifest), plus the
 port's counterparts of ``tests/test_checkpoint_ft.py`` (round trip,
-retention, uncommitted directories, heartbeats, recovery, stragglers;
-not the elastic ones, which come with the distributed slice).
+retention, uncommitted directories, heartbeats, recovery, stragglers,
+and restore with ``shardings=`` on a one-rank mesh; the elastic restore
+across ranks is in ``test_torch_sharded_train.py``).
 
 Every comparison here is exact: bit for bit, or byte for byte on disk.
 """
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
 from repro.runtime import fault_tolerance as jft
@@ -143,10 +145,39 @@ def test_restore_without_checkpoints_raises(tmp_path):
 
 
 def test_elastic_restore_raises_naming_the_slice(tmp_path):
-    ck = Checkpointer(tmp_path, async_save=False)
-    ck.save(1, _torch_tree(_np_tree()))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        ck.restore(shardings={"params": None}, device="cpu")
+    """Once a raise naming the distributed slice, now the behaviour
+    (``tests/test_checkpoint_ft.py::test_elastic_restore_reshards``):
+    restored with ``shardings=`` onto a (1 x 1) mesh of a one-rank group,
+    every leaf named there is placed (``R, R``), bit for bit, and the
+    leaves not named stay plain tensors."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.runtime import sharding as tshard
+
+    ck = Checkpointer(tmp_path / "ck", async_save=False)
+    want = _torch_tree(_np_tree())
+    ck.save(7, want)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        sh = {"params": {"w": tshard.named(mesh, (None, None)),
+                         "blocks": {"b": tshard.named(mesh, ("data", "model")),
+                                    "ids": tshard.named(mesh, (None,))}}}
+        got, _ = ck.restore(shardings=sh, device="cpu")
+        for leaf in (got["params"]["w"], got["params"]["blocks"]["b"]):
+            assert isinstance(leaf, DTensor) and leaf.device_mesh is mesh
+        assert [str(p) for p in got["params"]["w"].placements] == ["R", "R"]
+        assert [str(p) for p in got["params"]["blocks"]["b"].placements] \
+            == ["S(0)", "S(1)"]
+        assert not isinstance(got["opt"]["m"], DTensor)
+        local = {k: (v.to_local() if isinstance(v, DTensor) else v)
+                 for k, v in _flat(got).items()}
+        _assert_bitwise(local, _flat(want))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_restore_defaults_to_cuda(tmp_path):

@@ -28,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import repro.fleet as jfleet
 import repro.fleet.health as jhealth

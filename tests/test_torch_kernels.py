@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.kernels.attention import flash_attention as jax_fa
 from repro.kernels.attention import mask as jax_mask

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro import configs as jcfgs
 from repro.launch import steps as jsteps
@@ -156,16 +157,24 @@ def test_convert_refuses_a_tree_of_another_schema():
 
 
 def test_later_families_raise_naming_the_slice():
-    # every family serves and trains now; what still raises is the
-    # sequence-parallel constraint, which the distributed slice owns
+    """Every family serves and trains, and ``sequence_parallel`` (once a
+    raise naming the distributed slice) runs: with no mesh its forward
+    and train step equal the plain ones bit for bit. The seams still open
+    keep their raises, each naming its owner."""
+    import argparse
     jcfg, tcfg, jp, tp = setup("deepseek-7b")
     cfg = dataclasses.replace(tcfg, sequence_parallel=True)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tlm.forward_train(tp, toks, cfg)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tsteps.make_train_step(cfg, None)(tp, None, {"tokens": toks,
-                                                     "targets": toks})
+    toks = torch.from_numpy(np.arange(2 * S, dtype=np.int32).reshape(2, S)
+                            % tcfg.vocab_size)
+    assert torch.equal(tlm.forward_train(tp, toks, cfg)[0],
+                       tlm.forward_train(tp, toks, tcfg)[0])
+    with pytest.raises(NotImplementedError, match="later distributed slice"):
+        tserve.serve_lm(tcfg, argparse.Namespace(mesh="1x2", replicas=1))
+    with pytest.raises(NotImplementedError, match="not part of the port"):
+        tserve.serve_lm(tcfg, argparse.Namespace(mesh=None, replicas=2))
+    with pytest.raises(NotImplementedError, match="later distributed slice"):
+        tserve.serve_dit(tcfgs.get_config("dit-xl-2"),
+                         argparse.Namespace(mesh="1x2", replicas=2))
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro import configs as jcfgs
 from repro.configs.base import TrainConfig as JTrainConfig
@@ -130,18 +131,6 @@ class Setup:
             self._ref = jax.jit(both if grads else fwd)(self.jp,
                                                         jbatch(self.batch))
         return self._ref
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The reduced configs' ops are tiny: one intra-op thread runs them
-    fastest and keeps parallel test workers from oversubscribing the
-    cores (with 8 threads a worker on a loaded 8-core machine took 90 s
-    for the fault-tolerant example, 2 s with one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -373,10 +362,29 @@ def test_train_cli_refuses_vision_and_audio(arch):
 
 
 def test_sequence_parallel_raises_naming_the_distributed_slice(setups):
+    """Once a raise naming the distributed slice, now the behaviour: with
+    no mesh, ``sequence_parallel`` (remat "block" too) is the plain
+    forward bit for bit (its constraint is the identity, as the
+    reference's), and equals the JAX package's ``forward_train`` with
+    ``sequence_parallel=True``: the logits at 1e-5 of their norm, each
+    row within LOGIT_TOL, the loss at 1e-5. Under a mesh it is held in
+    ``test_torch_sharded_train.py``."""
     s = get(setups, "gemma2-9b")
-    cfg = dataclasses.replace(s.tcfg, sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tlm.forward_train(s.tp, torch.zeros((1, 4), dtype=torch.int32), cfg)
+    toks = torch.from_numpy(s.batch["tokens"])
+    plain, _ = tlm.forward_train(s.tp, toks, s.tcfg)
+    for remat in ("none", "block"):
+        cfg = dataclasses.replace(s.tcfg, sequence_parallel=True, remat=remat)
+        got, _ = tlm.forward_train(s.tp, toks, cfg)
+        assert torch.equal(got, plain)
+    jcfg = dataclasses.replace(s.jcfg, sequence_parallel=True)
+    want, _ = jax.jit(lambda p, t: jlm.forward_train(p, t, jcfg))(
+        s.jp, jnp.asarray(s.batch["tokens"]))
+    close(got, want, LOGIT_TOL)
+    want = np.asarray(want)
+    assert np.linalg.norm(got.numpy() - want) <= 1e-5 * np.linalg.norm(want)
+    (tl, _), _ = port_grads(s, s.batch, cfg)
+    (jl, _), _ = s.ref()[1]
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_TOL, atol=0)
 
 
 def test_fault_tolerant_training_example_runs(tmp_path, capsys):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.optim import adamw as jadamw

@@ -33,6 +33,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import repro.resilience.faults as jfaults
 import repro.resilience.journal as jjournal

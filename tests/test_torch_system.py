@@ -11,6 +11,7 @@ statistical ones, not comparisons with it.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.configs.base import AttnConfig, DiTConfig, ModelConfig, TrainConfig
 from repro_torch.core import FlexiSchedule, flexify, relative_compute

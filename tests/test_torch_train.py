@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.core import distill as jdistill
@@ -31,6 +32,7 @@ from repro_torch.data import pipeline as tdp
 from repro_torch.diffusion import schedule as tsch
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.models import common as tcommon
 from repro_torch.models import dit as tdit
 from repro_torch.optim import adamw as tadamw
 from torch_train_refs import (B, LOSS_TOL, TC, as_torch,  # noqa: F401
@@ -109,19 +111,27 @@ def test_dit_train_step_draws_reference_shapes(shared, batch):
 
 
 def test_lm_steps_raise_naming_the_slice():
-    # the LM steps are ported (tests/test_torch_lm.py,
-    # tests/test_torch_lm_train.py); a sequence-parallel config raises,
-    # naming the distributed slice, when the train step runs
+    """Once a raise naming the distributed slice, now the behaviour: a
+    sequence-parallel config's train step with no mesh equals the plain
+    config's step bit for bit (parameters, moments, metrics)."""
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config("deepseek-7b").reduced(),
-                              sequence_parallel=True)
-    step = tsteps.make_train_step(cfg, TrainConfig())
-    toks = torch.zeros((1, 4), dtype=torch.int32)
     from repro_torch.models import lm as tlm
-    params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        step(params, tadamw.init_opt_state(params),
-             {"tokens": toks, "targets": toks})
+    base = get_config("deepseek-7b").reduced()
+    params = tlm.init_params(base, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, base.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    out = []
+    for sp in (False, True):
+        cfg = dataclasses.replace(base, sequence_parallel=sp)
+        step = tsteps.make_train_step(cfg, TrainConfig(**TC))
+        out.append(step(params, tadamw.init_opt_state(params), batch))
+    (p0, o0, m0), (p1, o1, m1) = out
+    for a, b in zip(tcommon.tree_leaves({"p": p0, "m": o0["m"], "v": o0["v"]}),
+                    tcommon.tree_leaves({"p": p1, "m": o1["m"], "v": o1["v"]})):
+        assert torch.equal(a, b)
+    assert {k: float(v) for k, v in m0.items()} == \
+        {k: float(v) for k, v in m1.items()}
     for fn in (tsteps.make_prefill_step, tsteps.make_decode_step):
         assert callable(fn(None))
 
