@@ -230,6 +230,22 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    single-device's, with the same caveat as phase 14.
    ``python3 chip_smoke.py --only sharded`` runs phase 1 and this phase
    alone.
+16. the dry-run planner (``launch/{specs,roofline,dryrun}.py``), on this
+   card's host: DiT-XL/2 ``serve_powerful`` and phase 13's gemma2-9b cut
+   (4 layers, B=1 x S=8192, one train step) planned on one card; a
+   DiT-XL/2 forward at B=8, modes 0 and 1, bf16, on the flash kernel (28
+   ``wgmma`` launches a forward), the FLOPs of that flash path
+   (``FlopCounterMode``'s GEMMs plus the flash launches priced by
+   ``kernels/attention/costing`` at their full tile maps: a consistency
+   check of the flash path's count against the planner's ``meta`` count
+   on the dense path, not a count the card makes) within 0.1 %; the
+   forward timed (CUDA events,
+   median of PLAN_REPS) and its share of the planner's compute bound
+   printed beside the card's name and power limit; the planner's
+   resident bytes a rank on (2 x 2) against phase 15's measured
+   1,692,272,000 / 3,284,825,600 / 3,988,572,160 (and against phase 15's
+   own reading in a full run). ``python3 chip_smoke.py --only plan``
+   runs phase 1 and this phase alone.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -3852,6 +3868,14 @@ ST_AUX_TOL = 1e-2
 ST_UPDATE_TOL = 0.1
 ST_TIMEOUT_S = 900.0
 
+# phase 16: the planner. Phase 15 measured these resident parameter +
+# moment bytes a rank on (2 x 2) (PERF.md §6)
+PLAN_BYTES = {"dit": 1_692_272_000, "gemma2-9b": 3_284_825_600,
+              "deepseek-moe-16b": 3_988_572_160}
+PLAN_B, PLAN_REPS = 8, 20
+# the card's count (GEMMs + flash ledger) against the planner's meta count
+PLAN_FLOPS_TOL = 1e-3
+
 
 def st_flat(tree, prefix: str = "") -> dict:
     """{'a__b': leaf} in the reference's key order (the checkpoint's names)."""
@@ -4251,7 +4275,9 @@ def phase_sharded_train(smi: str) -> dict:
     if errors:
         raise AssertionError("phase 15: " + "; ".join(errors))
     log(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f}s ({smi})")
-    return {"launches": res[0]["dit"]["serve"]["launches"]}
+    return {"launches": res[0]["dit"]["serve"]["launches"],
+            "bytes": {case: sum(res[0][case]["bytes"][:2])
+                      for case in ["dit"] + [n for n, *_ in ST_LMS]}}
 
 
 def st_rel(a: float, b: float) -> float:
@@ -4359,6 +4385,130 @@ def st_report(res, refs, group_s, smi, errors) -> None:
     log(f"[sharded] the rank group ran in {group_s:.1f} s ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry-run planner against the card
+
+
+def plan_forward_on_card(params, cfg, mode: int, gen: torch.Generator) -> dict:
+    """One DiT-XL/2 forward at PLAN_B rows on the flash kernel: the FLOPs
+    of this path (``FlopCounterMode`` sees the GEMMs; each flash launch is
+    priced by the kernel's ledger at its full tile map, as a forward with
+    no segment ids uses), its launches, and its median time."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.attention import costing
+    F_, H, W, C = cfg.dit.latent_shape
+    x = randn(gen, (PLAN_B, F_, H, W, C), torch.bfloat16)
+    t = torch.randint(0, 1000, (PLAN_B,), generator=gen, device=DEV).float()
+    y = torch.randint(0, cfg.dit.num_classes, (PLAN_B,), generator=gen, device=DEV)
+
+    def fwd():
+        return dit_mod.dit_forward(params, x, t, y, cfg, mode=mode,
+                                   attn_backend="pallas")
+    with torch.inference_mode():
+        fwd()
+        torch.cuda.synchronize()
+        n0 = ops.flash_attention.launches
+        v0 = dict(ops.flash_attention.launches_by_variant)
+        with FlopCounterMode(display=False) as counter:
+            out = fwd()
+        torch.cuda.synchronize()
+        launches = ops.flash_attention.launches - n0
+        by_variant = {k: n - v0.get(k, 0) for k, n in
+                      ops.flash_attention.launches_by_variant.items()
+                      if n - v0.get(k, 0)}
+        S = dit_mod.tokens_for_mode(cfg, mode)
+        ledger = launches * PLAN_B * costing.block_sparse_attention_flops(
+            [S], S, cfg.d_model)
+        times = sorted(cuda_ms(fwd)[1] for _ in range(PLAN_REPS))
+    return {"gemm_flops": float(counter.get_total_flops()),
+            "ledger_flops": float(ledger), "launches": launches,
+            "by_variant": by_variant, "finite": bool(torch.isfinite(out).all()),
+            "ms": times[len(times) // 2], "ms_min": times[0]}
+
+
+def phase_plan(smi: str, measured_bytes: dict | None = None) -> dict:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.runtime.sharding import AxisLayout
+
+    t0 = time.perf_counter()
+    hw = rl.h100()
+    one = AxisLayout(("data", "model"), (1, 1))
+    errors = []
+    # the two cells on one card
+    rec = dryrun.run_cell("dit-xl-2", "serve_powerful", mesh=one)
+    log(f"[plan] {dryrun.summary_line(rec)}; fits {hw.hbm_bytes / 1e9:.1f} GB: "
+        f"{rec['fits_hbm']}")
+    name, keep, B, S = LMT_DENSE
+    _, cut = lm_cut(name, keep)
+    rec = dryrun.run_cell(name, "train_8k", mesh=one, cfg=cut,
+                          shape=ShapeConfig("train_8k", S, B, "train"))
+    log(f"[plan] {dryrun.summary_line(rec)} (phase 13's cut, {keep} layers, "
+        f"B={B} x S={S}); microbatches {rec['n_microbatches']}, temporaries "
+        f"{rec['memory_analysis']['temp_size_in_bytes'] / 1e9:.1f} GB")
+    if rec["status"] != "ok":
+        errors.append(f"gemma2 cut plan {rec['status']}")
+    # a DiT-XL/2 forward: the planner's meta count against the card's
+    params, cfg = trained_like_xl(torch.Generator(device=DEV).manual_seed(SEED + 16))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    forwards = {}
+    ops.reset_launches()
+    for mode in (0, 1):
+        plan = dryrun.plan_dit_forward(cfg, PLAN_B, mode)["flops"]
+        card = plan_forward_on_card(params, cfg, mode, gen)
+        got = card["gemm_flops"] + card["ledger_flops"]    # the flash path
+        rel = abs(got - plan) / plan
+        bound_ms = plan / hw.peak_flops * 1e3
+        share = bound_ms / card["ms"]
+        forwards[mode] = {"ms": card["ms"], "share": share, "rel": rel}
+        log(f"[plan] DiT-XL/2 forward B={PLAN_B} mode {mode}: planner (meta, "
+            f"dense) {plan / 1e9:.3f} GFLOP; flash path run on the card "
+            f"{got / 1e9:.3f} GFLOP (GEMMs {card['gemm_flops'] / 1e9:.3f} + "
+            f"flash ledger {card['ledger_flops'] / 1e9:.3f} over "
+            f"{card['launches']} launches {card['by_variant']}); "
+            f"|flash - dense| / dense "
+            f"{rel:.2e} (limit {PLAN_FLOPS_TOL:g}); {card['ms']:.3f} ms "
+            f"median of {PLAN_REPS} (min {card['ms_min']:.3f}) against a "
+            f"compute bound of {bound_ms:.3f} ms at {hw.peak_flops / 1e12:.0f} "
+            f"TFLOP/s: {100 * share:.1f} % of it ({smi})")
+        if rel > PLAN_FLOPS_TOL:
+            errors.append(f"mode {mode} FLOPs {got} vs planned {plan}")
+        if card["launches"] != cfg.num_layers or \
+                card["by_variant"] != {"wgmma": cfg.num_layers}:
+            errors.append(f"mode {mode} flash launches {card['by_variant']}")
+        if not card["finite"]:
+            errors.append(f"mode {mode} forward not finite")
+    launches = ops.flash_attention.launches       # warm-up, counted, timed
+    if launches != 2 * (2 + PLAN_REPS) * cfg.num_layers:
+        errors.append(f"{launches} flash launches for {2 * (2 + PLAN_REPS)} "
+                      f"forwards")
+    del params
+    torch.cuda.empty_cache()
+    # resident bytes a rank on (2 x 2): the planner against phase 15
+    mesh = AxisLayout(("data", "model"), ST_MESH)
+    cases = [("dit", get_config("dit-xl-2"), "fsdp2d")]
+    for lm_name, lm_keep, profile, over in ST_LMS:
+        cases.append((lm_name, dataclasses.replace(lm_cut(lm_name, lm_keep)[1],
+                                                   **over), profile))
+    for case, case_cfg, profile in cases:
+        b = dryrun.resident_bytes(case_cfg, mesh, profile)
+        got = b["param_bytes"] + b["opt_bytes"]
+        seen = (measured_bytes or {}).get(case)
+        log(f"[plan] {case} on (2 x 2) {profile}: planned parameter + moment "
+            f"bytes a rank {got:,} == phase 15's measured "
+            f"{PLAN_BYTES[case]:,}"
+            + (f" (this run's phase 15: {seen:,})" if seen is not None else ""))
+        if got != PLAN_BYTES[case] or (seen is not None and seen != got):
+            errors.append(f"{case} bytes {got} vs {PLAN_BYTES[case]} / {seen}")
+    secs = time.perf_counter() - t0
+    log(f"[plan] phase 16 in {secs:.1f}s ({smi})")
+    if errors:
+        raise AssertionError("phase 16: " + "; ".join(errors))
+    return {"launches": launches, "forwards": forwards, "seconds": secs}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4372,6 +4522,12 @@ def main() -> None:
         got = phase_sharded_train(smi)
         print(smi)
         print(json.dumps({"only": "sharded", "ok": True, **got}), flush=True)
+        return
+    if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
+        phase_build()
+        got = phase_plan(smi)
+        print(smi)
+        print(json.dumps({"only": "plan", "ok": True, **got}), flush=True)
         return
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     gen_new = torch.Generator(device=DEV).manual_seed(SEED + 1)
@@ -4414,6 +4570,8 @@ def main() -> None:
     times["shapes"].update(seq_parallel["shapes"])
     torch.cuda.empty_cache()
     sharded = phase_sharded_train(smi)
+    torch.cuda.empty_cache()
+    plan = phase_plan(smi, sharded["bytes"])
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
@@ -4421,7 +4579,8 @@ def main() -> None:
              "lm_serving": lm["launches"], "lm_families": families["launches"],
              "lm_train_then_serve": lm_train["launches"],
              "seq_parallel": seq_parallel["launches"],
-             "sharded_train_then_serve": sharded["launches"]}
+             "sharded_train_then_serve": sharded["launches"],
+             "plan": plan["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

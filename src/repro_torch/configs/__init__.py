@@ -3,8 +3,10 @@
 dense, MoE, hybrid, SSM, vision and audio)."""
 from typing import Dict, List
 
-from repro_torch.configs.base import (AttnConfig, DiTConfig, ModelConfig,  # noqa: F401
-                                      MoEConfig, SSMConfig, TrainConfig)
+from repro_torch.configs.base import (LM_SHAPES, AttnConfig,  # noqa: F401
+                                      DiTConfig, ModelConfig, MoEConfig,
+                                      ShapeConfig, SSMConfig, TrainConfig,
+                                      cell_is_skipped, get_shape)
 from repro_torch.configs.deepseek_7b import CONFIG as _ds7
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _dsmoe
 from repro_torch.configs.dit_xl_2 import CONFIG as _dit
@@ -23,6 +25,13 @@ DIT_ARCHS: List[str] = ["dit-xl-2", "t2i-transformer", "video-dit"]
 LM_ARCHS: List[str] = ["deepseek-7b", "qwen2.5-14b", "gemma2-9b", "gemma3-4b",
                        "hymba-1.5b", "mamba2-130m", "deepseek-moe-16b",
                        "grok-1-314b", "llama-3.2-vision-90b", "whisper-small"]
+
+# The language models the planner's sweep covers, in the reference's order.
+ASSIGNED_ARCHS: List[str] = [
+    "grok-1-314b", "deepseek-moe-16b", "deepseek-7b", "gemma3-4b",
+    "qwen2.5-14b", "gemma2-9b", "llama-3.2-vision-90b", "whisper-small",
+    "hymba-1.5b", "mamba2-130m",
+]
 
 REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in [
     _dit, _t2i, _vdit, _ds7, _qwen, _g2, _g3, _hy, _m2, _dsmoe, _grok, _lv,

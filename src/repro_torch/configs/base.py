@@ -3,7 +3,7 @@
 The same plain frozen dataclasses as ``repro.configs.base``, field for
 field, so a config means the same thing in both packages: the DiT
 configurations, every language model (dense, MoE, hybrid, SSM, vision,
-audio) and the training configuration.
+audio), the planner's input shapes and the training configuration.
 """
 from __future__ import annotations
 
@@ -141,6 +141,19 @@ class ModelConfig:
         total += L * per_layer
         return total
 
+    def active_params(self) -> int:
+        """Active parameters per token (for MoE rooflines), the
+        reference's formula."""
+        if self.moe is None:
+            return self.num_params()
+        d, L = self.d_model, self.num_layers
+        m = self.moe
+        mlp_mult = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        e_ff = m.expert_d_ff or self.d_ff
+        dense = self.num_params() - L * m.num_experts * mlp_mult * d * e_ff
+        active = L * m.num_experts_per_tok * mlp_mult * d * e_ff
+        return dense + active
+
     def reduced(self, **overrides: Any) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
         attn = None
@@ -178,6 +191,42 @@ class ModelConfig:
         )
         kw.update(overrides)
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the planner's cells: the global batch, the
+    sequence length and the step it feeds."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str    # 'train' | 'prefill' | 'decode'
+
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+# Archs for which long_500k is planned (sub-quadratic or windowed mixing).
+LONG_CONTEXT_OK = {"mamba2-130m", "hymba-1.5b", "gemma3-4b", "gemma2-9b"}
+
+
+def cell_is_skipped(arch: str, shape: str) -> Optional[str]:
+    """A skip reason when the (arch, shape) cell is not planned."""
+    if shape == "long_500k" and arch not in LONG_CONTEXT_OK and not arch.startswith("dit"):
+        return "pure full-attention arch: long_500k needs sub-quadratic mixing (DESIGN.md)"
+    return None
 
 
 @dataclass(frozen=True)

@@ -5,6 +5,10 @@ Train to minimize  E‖ε_θ(x_t; p_powerful) − ε_θ(x_t; p_weak)‖²  where
 teacher (powerful mode, no LoRAs) is frozen: its pass runs under
 ``torch.no_grad()`` on the same tensors (the reference's
 ``stop_gradient(params)``) and contributes no gradient.
+
+Handed placed parameters, the step is the sharded one
+(``optim/adamw.TrainStep``): the loss is the mean over the global batch
+(``data_mean``), as the reference's ``jnp.mean`` over its sharded batch.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from repro_torch.diffusion import schedule as sch
 from repro_torch.launch.steps import batch_x0, draw_t_noise
 from repro_torch.models import dit as dit_mod
 from repro_torch.optim.adamw import TrainStep
+from repro_torch.runtime import placement as plc
+from repro_torch.runtime.sharding import data_mean
 
 
 def distill_loss(params: Any, batch: Dict[str, torch.Tensor],
@@ -32,7 +38,7 @@ def distill_loss(params: Any, batch: Dict[str, torch.Tensor],
                                   mode=mode_weak)
     e_t = dit_mod.eps_prediction(teacher, cfg).float()
     e_s = dit_mod.eps_prediction(student, cfg).float()
-    loss = torch.mean(torch.square(e_t - e_s))
+    loss = data_mean(torch.mean(torch.square(e_t - e_s)))
     return loss, {"distill_loss": loss}
 
 
@@ -52,4 +58,5 @@ def make_distill_step(cfg: ModelConfig, tc: TrainConfig,
     def loss_fn(params, batch, t, noise):
         return distill_loss(params, batch, t, noise, cfg, sched, mode_weak)
 
-    return TrainStep(loss_fn, draw, tc, trainable)
+    return TrainStep(loss_fn, draw, tc, trainable,
+                     plc.stacked_leaves(dit_mod.dit_schema(cfg)))

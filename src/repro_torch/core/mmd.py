@@ -11,6 +11,13 @@ Timestep sampling is biased toward small t (where the measured MMD gap is
 largest — Fig. 11 left), as in the paper. The losses take their draws as
 arguments (``u``, the start and target noises, one noise per chain step);
 :func:`draw_mmd` draws them in the reference's shapes and dtypes.
+
+Handed placed parameters, the step is the sharded one
+(``optim/adamw.TrainStep``): each rank runs the chains of its rows, and
+the MMD is the reference's statistic of the global batch. Both samples
+are joined over the data axes (``data_gather``) before the kernel sums,
+the default targets are the global batch reversed, and the denoising
+term is the global mean (``data_mean``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from repro_torch.diffusion import schedule as sch
 from repro_torch.launch.steps import batch_x0, draw_t_noise
 from repro_torch.models import dit as dit_mod
 from repro_torch.optim.adamw import TrainStep
+from repro_torch.runtime import placement as plc
+from repro_torch.runtime.sharding import current_mesh, data_gather, data_mean
 
 
 def rbf_mmd2(x: torch.Tensor, y: torch.Tensor,
@@ -99,7 +108,13 @@ def bootstrap_mmd_loss(params: Any, batch: Dict[str, torch.Tensor],
     n_powerful powerful steps down to t_end, and MMD-match against q(x_{t_end}|x0)
     samples of independent reals."""
     x0 = batch_x0(batch, cfg)
-    x0_other = batch.get("x0_target", torch.flip(x0, [0])).to(x0.dtype)
+    if "x0_target" in batch:
+        x0_other = batch["x0_target"].to(x0.dtype)
+    else:           # this rank's rows of the global batch reversed
+        x0_other = torch.flip(data_gather(x0), [0])
+        mesh = current_mesh()
+        if mesh is not None:
+            x0_other = plc.take_rows(x0_other, x0_other.shape[0], mesh)
     B = x0.shape[0]
     n_chain = n_weak + n_powerful
 
@@ -116,7 +131,8 @@ def bootstrap_mmd_loss(params: Any, batch: Dict[str, torch.Tensor],
 
     x_target = sch.q_sample(sched, x0_other, t_end, noise2)
 
-    loss = rbf_mmd2(x_pred.reshape(B, -1), x_target.reshape(B, -1))
+    loss = rbf_mmd2(data_gather(x_pred.reshape(B, -1)),
+                    data_gather(x_target.reshape(B, -1)))
     return loss, {"mmd_loss": loss}
 
 
@@ -134,7 +150,7 @@ def mmd_finetune_loss(params: Any, batch: Dict[str, torch.Tensor],
     out = dit_mod.dit_forward(params, x_t, t, batch.get("cond"), cfg,
                               mode=train_mode)
     eps = dit_mod.eps_prediction(out, cfg).float()
-    den = torch.mean(torch.square(eps - noise.float()))
+    den = data_mean(torch.mean(torch.square(eps - noise.float())))
     mmd, _ = bootstrap_mmd_loss(params, batch, u, noise1, noise2, chain_noise,
                                 cfg, sched, weak_mode=weak_mode)
     loss = denoise_weight * den + mmd_weight * mmd
@@ -164,4 +180,5 @@ def make_mmd_finetune_step(cfg: ModelConfig, tc: TrainConfig,
                                  mmd_weight=mmd_weight, weak_mode=weak_mode,
                                  train_mode=train_mode, **draws)
 
-    return TrainStep(loss_fn, draw, tc)
+    return TrainStep(loss_fn, draw, tc,
+                     stacked=plc.stacked_leaves(dit_mod.dit_schema(cfg)))

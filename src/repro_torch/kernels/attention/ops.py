@@ -5,7 +5,9 @@ and counts the launch in ``flash_attention.launches`` and, under the
 variant the inputs select (``"wgmma"``, ``"mma"`` or ``"f32"``), in
 ``flash_attention.launches_by_variant``; on a CPU tensor it runs the plain
 PyTorch version (``ref.py``) and counts nothing. Any other
-device raises. There is no fallback from one to the other.
+device raises. There is no fallback from one to the other. The kernel has
+no backward: on a CUDA tensor that autograd would record through, the
+wrapper raises (``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.attention import mask as mask_mod
 from repro_torch.kernels.attention.flash_attention import (VARIANTS,
                                                           flash_attention_cuda,
@@ -72,6 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     out = flash_attention_cuda(q, k, v, **kw)
     with _count_lock:       # a warm-up thread may launch beside serving
         flash_attention.launches += 1

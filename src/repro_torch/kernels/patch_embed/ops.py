@@ -8,7 +8,9 @@ the weight before the kernel runs, so the kernel is patch-size-agnostic.
 On a CUDA tensor each launches its Hopper kernel (``patch_embed.py``) and
 counts the launch in ``.launches`` and under the variant the inputs select
 in ``.launches_by_variant``; on a CPU tensor it runs the plain version
-(``ref.py``) and counts nothing. Any other device raises.
+(``ref.py``) and counts nothing. Any other device raises, and so does a
+CUDA launch that autograd would record through (the kernels have no
+backward).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.core import patch as patch_mod
 from repro_torch.core import resize
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.patch_embed.patch_embed import (DEEMBED_VARIANTS,
                                                          EMBED_VARIANTS,
                                                          deembed_variant_of,
@@ -49,6 +52,7 @@ def embed_tokens_flex(w_flex: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
             b.to(x.dtype))
     if _device_kind(x, "embed_tokens_flex") == "cpu":
         return patch_embed_ref(*args).reshape(B, N, d)
+    refuse_autograd("embed_tokens_flex", *args)
     args = tuple(t.contiguous() for t in args)
     tok = patch_embed_cuda(*args)
     embed_tokens_flex.launches += 1
@@ -72,6 +76,7 @@ def deembed_tokens_flex(w_flex: torch.Tensor, b_flex: torch.Tensor,
     if _device_kind(tok, "deembed_tokens_flex") == "cpu":
         out = patch_deembed_ref(*args)
     else:
+        refuse_autograd("deembed_tokens_flex", *args)
         args = tuple(t.contiguous() for t in args)
         out = patch_deembed_cuda(*args)
         deembed_tokens_flex.launches += 1

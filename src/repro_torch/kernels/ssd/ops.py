@@ -5,9 +5,10 @@ On a CUDA tensor the intra-chunk part launches the Hopper kernel
 (``ssd_chunk.py``) and counts the launch in ``ssd.launches`` and under
 the variant the inputs select in ``ssd.launches_by_variant``; on a CPU
 tensor it runs the plain version (``ref.ssd_chunk_ref``) and counts
-nothing. Any other device raises. The inter-chunk recurrence and the
-carried-state term stay plain PyTorch, as they stay outside the kernel in
-the JAX package.
+nothing. Any other device raises, and so does a CUDA launch that
+autograd would record through (the kernel has no backward). The
+inter-chunk recurrence and the carried-state term stay plain PyTorch, as
+they stay outside the kernel in the JAX package.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 from repro_torch.kernels.ssd.ssd_chunk import (SSD_VARIANTS, ssd_chunk_cuda,
                                                ssd_variant_of)
@@ -32,6 +34,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if x.device.type == "cpu":
         y_intra, Sc, Ltot = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
     elif x.device.type == "cuda":
+        refuse_autograd("ssd", x, dt, A, Bm, Cm)
         args = (x.contiguous(),
                 *(t.float().contiguous() for t in (dt, A, Bm, Cm)))
         y_intra, Sc, Ltot = ssd_chunk_cuda(*args, chunk)

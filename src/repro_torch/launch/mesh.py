@@ -1,11 +1,14 @@
-"""Meshes and the rank launcher — the port of ``repro.launch.mesh``'s
-serving and training halves.
+"""Meshes and the rank launcher — the port of ``repro.launch.mesh``.
 
 JAX runs a whole mesh from one controller; here every rank is a process
 running the same program (SPMD). :func:`run_ranks` starts the ranks;
 :func:`make_inference_mesh` builds the ``("data", "seq")`` serving mesh
 and :func:`make_debug_mesh` the ``("data", "model")`` training mesh
-inside each of them.
+inside each of them. :func:`make_production_mesh` is a mesh's shape
+alone (axis names and sizes) for the planner (``launch/dryrun.py``),
+which places nothing and needs no process group. The reference's
+``ensure_host_devices`` has no counterpart: it forces fake XLA host
+devices for the reference's planner, and this planner runs on no device.
 
 The backend follows a rule, never a fallback:
 
@@ -79,6 +82,18 @@ def rank_device(rank: int, world: int, backend: str,
         raise ValueError(f"{world} ranks on {cards} card(s) share a card, "
                          f"which NCCL refuses: pass backend='gloo'")
     return torch.device("cuda", rank % cards)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 cards, ``("data", "model")``; with ``multi_pod`` two
+    such pods, ``("pod", "data", "model")`` = (2, 16, 16). A shape, not a
+    process group: the sharding rules (``rules_for``, ``spec_tree``,
+    ``placement.shard_shape``) read only its names and sizes."""
+    from repro_torch.runtime.sharding import AxisLayout
+
+    if multi_pod:
+        return AxisLayout(("pod", "data", "model"), (2, 16, 16))
+    return AxisLayout(("data", "model"), (16, 16))
 
 
 def _world_mesh(shape: Tuple[int, int], names: Tuple[str, str], device: Any,

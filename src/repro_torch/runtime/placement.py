@@ -293,10 +293,11 @@ def sum_over_shards(values: List[torch.Tensor], leaves: List[Any]
 
 
 def take_rows(tree: Any, batch: int, mesh: Any) -> Any:
-    """This rank's rows of every tensor whose leading dim is the global
-    batch ``batch`` (``batch_spec``: rows over the data axes). Raises when
-    the rows do not divide over every data axis: a data axis over which
-    the batch is replicated would sum equal gradients."""
+    """This rank's rows of every tensor (of a dict, a list or alone) whose
+    leading dim is the global batch ``batch`` (``batch_spec``: rows over
+    the data axes). Raises when the rows do not divide over every data
+    axis: a data axis over which the batch is replicated would sum equal
+    gradients."""
     axes = shd.batch_spec(batch, mesh)[0] or ()
     dp = shd.dp_axes(mesh)
     if tuple(axes) != tuple(dp):
@@ -317,6 +318,8 @@ def take_rows(tree: Any, batch: int, mesh: Any) -> Any:
         return x
     if isinstance(tree, dict):
         return tree_map(one, tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(one(x) for x in tree)
     return one(tree)
 
 

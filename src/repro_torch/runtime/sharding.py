@@ -369,6 +369,23 @@ def data_sum(x: torch.Tensor) -> torch.Tensor:
     return _DataSum.apply(x, groups) if groups else x
 
 
+def data_gather(x: torch.Tensor) -> torch.Tensor:
+    """The rows of ``x`` that every rank holds, joined over the ambient
+    mesh's data axes (the identity without a mesh): the global batch on
+    every rank, in the order ``placement.take_rows`` splits it. Its
+    backward takes this rank's rows: the ranks compute the same function
+    of the joined rows, so their gradients are equal copies."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    sizes = axis_sizes(mesh)
+    for a in reversed(dp_axes(mesh)):
+        if sizes[a] > 1:
+            x = _GatherChunks.apply(x, 0, mesh.get_group(a),
+                                    mesh.get_local_rank(a), sizes[a])
+    return x
+
+
 def data_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the data axes of a value each rank computed over an
     equal share of the global batch: the global value, on every rank."""

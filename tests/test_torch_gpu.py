@@ -173,6 +173,48 @@ def test_flash_counts_launches_by_variant_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_kernels_refuse_autograd_on_card(cuda):
+    """No kernel has a backward: each wrapper raises, and launches
+    nothing, where autograd would record through it (a DiT forward on the
+    flash backend with weights that require grad among them), and runs
+    the same call under ``torch.no_grad()``."""
+    from repro_torch.models import dit as dit_mod
+    q = torch.randn((1, 64, 2, 72), device=cuda).bfloat16().requires_grad_()
+    x = torch.randn((2, 1, 16, 16, 4), device=cuda).requires_grad_()
+    w_flex = torch.randn((16, 4, 64), device=cuda)
+    b = torch.randn((64,), device=cuda)
+    ssd_in = [t.requires_grad_() for t in
+              _ssd_inputs(cuda, 1, 128, 4, 64, 128, "float32", 128)]
+    cfg = _serving_cfg("float32")
+    params = dit_mod.init_dit(cfg, torch.Generator(device=cuda).manual_seed(0))
+    params["blocks"]["attn"]["wq"].requires_grad_()
+    xt = torch.randn((2,) + cfg.dit.latent_shape, device=cuda)
+    t = torch.tensor([3.0, 50.0], device=cuda)
+    y = torch.tensor([1, 2], device=cuda)
+    calls = [
+        ("flash_attention", lambda: ops.flash_attention(q, q, q, causal=False)),
+        ("embed_tokens_flex", lambda: pe_ops.embed_tokens_flex(
+            w_flex, b, x, (1, 2, 2), (1, 4, 4))),
+        ("ssd", lambda: ssd_ops.ssd(*ssd_in, 128)),
+        ("flash_attention", lambda: dit_mod.dit_forward(
+            params, xt, t, y, cfg, attn_backend="pallas")),
+    ]
+    for name, call in calls:
+        ops.reset_launches()
+        pe_ops.reset_launches()
+        ssd_ops.reset_launches()
+        with pytest.raises(RuntimeError,
+                           match=f"{name}: the CUDA kernel has no backward"):
+            call()
+        assert (ops.flash_attention.launches, pe_ops.embed_tokens_flex.launches,
+                ssd_ops.ssd.launches) == (0, 0, 0)
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == cfg.num_layers
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("blocks", [(64, 64), (48, 80), (128, 128)])
 def test_kernel_segments_block_map_on_card(cuda, blocks, dtype):

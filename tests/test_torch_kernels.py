@@ -16,6 +16,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.kernels.attention import flash_attention as jax_fa
 from repro.kernels.attention import mask as jax_mask
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.attention import flash_attention as tfa
 from repro_torch.kernels.attention import mask as mask_mod
 from repro_torch.kernels.attention import ops
@@ -126,6 +127,22 @@ def test_wrapper_counts_only_kernel_launches():
     before = ops.flash_attention.launches
     ops.flash_attention(q, q, q)
     assert ops.flash_attention.launches == before
+
+
+def test_refuse_autograd_only_where_autograd_records():
+    """The guard before each CUDA launch raises where autograd would record
+    through the kernel (grad enabled and an input that requires grad) and
+    nowhere else; the CPU's plain version stays differentiable."""
+    q = torch.zeros(1, 8, 2, 16)
+    w = q.clone().requires_grad_()
+    refuse_autograd("flash_attention", q, q, q)
+    with torch.no_grad():
+        refuse_autograd("flash_attention", w, q, q)
+    with pytest.raises(RuntimeError,
+                       match="flash_attention: the CUDA kernel has no backward"):
+        refuse_autograd("flash_attention", q, w, q)
+    ops.flash_attention(w, w, w).sum().backward()
+    assert w.grad is not None
 
 
 # the DiT-XL/2 main-path shapes (B = 2 x 4 rows under CFG, 256 tokens at

@@ -23,6 +23,16 @@ the references:
 * four planted faults, each over its limit: ``global_norm`` over local
   chunks, the sequence-parallel gather's backward as a sum, a per-rank
   ``load_balance``, a data-axis gradient left unsummed;
+* the LoRA distillation step (``tiny_dit_cfg`` flexified with rank-4
+  LoRAs) and the MMD fine-tune step (the bootstrap's statistic over the
+  global batch, its targets the global batch reversed), fed the port's
+  own draws of the global batch: the loss (1e-5 relative) and every
+  gathered gradient leaf (1e-5 of its norm) against the port's
+  single-device step on the global batch, and a planted per-rank mean
+  (per-rank MMD statistic and targets) over 1e-3;
+* the collectives of the DiT step at mode 0 counted on every rank, by
+  kind and operand bytes, against the planner's ledger
+  (``launch/dryrun.plan_step`` on the (2 x 2) mesh shape);
 * ``compressed_psum`` against the reference's under ``jax.vmap`` with an
   axis name (equal exactly), the elastic save on (2 x 2) and restore on
   the (1 x 2) sub-mesh of ranks 0-1 (every chunk equal exactly, a step
@@ -59,7 +69,10 @@ from repro_torch import configs as tcfgs
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import distill as tdistill
+from repro_torch.core import mmd as tmmd
 from repro_torch.diffusion import schedule as tsch
+from repro_torch.launch import dryrun as tdryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import common as tcommon
@@ -231,6 +244,42 @@ def _dit_case(shared, batch, mode):
                 faults=("norm_local", "unsummed") if mode == 0 else ())
 
 
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    return tree.numpy()
+
+
+def _recipe_case(kind, model, batch, seed):
+    """The distillation or MMD fine-tune step on the (2 x 2) mesh, fed the
+    port's draws of the global batch: gradients only (no whole steps)."""
+    jp, jcfg = model
+    cfg = port_cfg(jcfg)
+    make = {"distill": tdistill.make_distill_step,
+            "mmd": tmmd.make_mmd_finetune_step}[kind]
+    step = make(cfg, TrainConfig(**TC), tsch.linear_schedule(1000))
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    draws = _numpy(step.draw(tb, torch.Generator().manual_seed(seed)))
+    return dict(name=kind, kind=kind, cfg=cfg, jcfg=jcfg,
+                params=jax.tree.map(np.asarray, jp), batch=batch,
+                draws=[draws], tc=TC, profile="fsdp2d", faults=("per_rank",),
+                steps=0)
+
+
+def _recipe_reference(case):
+    """The port's single-device ((loss, metrics), grads) on the global
+    batch (the single-device recipes equal the JAX package's:
+    ``tests/test_torch_train.py``, ``tests/test_torch_mmd.py``)."""
+    import torch_train_worker as w
+    params = convert.params_from_numpy(case["params"], device="cpu")
+    (loss, m), g = w._step(case).grads(params, w._torch(case["batch"]),
+                                       **w._draws(case["draws"][0]))
+    return (float(loss), {k: float(v) for k, v in m.items()},
+            flat(convert.tree_to_numpy(g)))
+
+
 def _lm_case(arch, profile, faults, **over):
     jcfg = dataclasses.replace(jcfgs.get_config(arch).reduced(), **over)
     tcfg = dataclasses.replace(tcfgs.get_config(arch).reduced(), **over)
@@ -300,10 +349,14 @@ def run(tiny_dit_cfg, tmp_path_factory):
                                  tiny_dit_cfg.dit.num_classes, B)
     batch = {k: np.asarray(v) for k, v in
              make(0, 0, 1, np.random.default_rng(0)).items()}
-    cases = [_dit_case(shared, batch, 0), _dit_case(shared, batch, 1),
+    cases = [dict(_dit_case(shared, batch, 0), count_collectives=True),
+             _dit_case(shared, batch, 1),
              _lm_case("gemma2-9b", "fsdp2d_sp", ("sp_sum",),
                       sequence_parallel=True, remat="block"),
-             _lm_case("deepseek-moe-16b", "fsdp2d", ("lb_per_rank",))]
+             _lm_case("deepseek-moe-16b", "fsdp2d", ("lb_per_rank",)),
+             _recipe_case("distill", trained_like(tiny_dit_cfg, 1, lora_rank=4),
+                          batch, 21),
+             _recipe_case("mmd", shared, batch, 22)]
     rng = np.random.default_rng(11)
     psum = {"float32": rng.standard_normal((4, 1000)).astype(np.float32),
             "bfloat16": rng.standard_normal((4, 1000)).astype(np.float32)}
@@ -329,8 +382,10 @@ def run(tiny_dit_cfg, tmp_path_factory):
     th = threading.Thread(target=ranks)
     th.start()
     try:
-        refs = {c["name"]: _reference(c) for c in cases}
-        single = {c["name"]: _single_device(c) for c in cases}
+        refs = {c["name"]: (_recipe_reference(c) if c.get("kind")
+                            else _reference(c)) for c in cases}
+        single = {c["name"]: _single_device(c) for c in cases
+                  if c.get("steps", 2)}
     finally:
         th.join()
     if "err" in box:
@@ -386,9 +441,39 @@ def test_sharded_steps_equal_single_device(run, name):
         assert rel(got_m[k], w) <= TOL, (name, k, rel(got_m[k], w))
 
 
+@pytest.mark.parametrize("name", ["distill", "mmd"])
+def test_sharded_recipe_matches_single_device(run, name):
+    """Distillation and the MMD fine-tune on placed parameters: the loss
+    and its parts (1e-5 relative) and every gathered gradient leaf (1e-5
+    of its norm) equal the single-device step on the global batch."""
+    r0 = run["res"][0][name]
+    want_l, want_m, want_g = run["refs"][name]
+    np.testing.assert_allclose(r0["loss"], want_l, rtol=TOL, atol=0)
+    assert sorted(r0["metrics"]) == sorted(want_m)
+    for k, v in want_m.items():
+        np.testing.assert_allclose(r0["metrics"][k], v, rtol=TOL, atol=0)
+    _check_grads(flat(r0["grads"]), want_g)
+
+
+def test_collective_bytes_equal_planner(run):
+    """The DiT step at mode 0 (gradients and AdamW) on (2 x 2): every rank
+    calls the collectives the planner's ledger records on the mesh shape,
+    kind by kind, with the same operand bytes."""
+    case = run["cases"]["dit0"]
+    layout = tshard.AxisLayout(("data", "model"), (2, 2))
+    plan = tdryrun.plan_step(case["cfg"], "train_base", layout, "fsdp2d",
+                             batch=B)
+    want = {k: {"count": v["count"], "operand_bytes": v["operand_bytes"]}
+            for k, v in plan["collectives"].items() if v["count"]}
+    assert set(want) == {"all-gather", "reduce-scatter", "all-reduce"}
+    for r in run["res"]:
+        assert r["dit0"]["collectives"] == want
+
+
 @pytest.mark.parametrize("fault,name", [
     ("norm_local", "dit0"), ("unsummed", "dit0"), ("sp_sum", "gemma2-9b"),
-    ("lb_per_rank", "deepseek-moe-16b")])
+    ("lb_per_rank", "deepseek-moe-16b"), ("per_rank", "distill"),
+    ("per_rank", "mmd")])
 def test_planted_faults_read_over_the_limit(run, fault, name):
     got = run["res"][0][name][fault]
     jl, jm, jg = run["refs"][name]

@@ -19,8 +19,11 @@ def _np(tree):
 
 
 def _torch(tree):
-    return {k: _torch(v) for k, v in tree.items()} if isinstance(tree, dict) \
-        else torch.from_numpy(np.array(tree))
+    if isinstance(tree, dict):
+        return {k: _torch(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_torch(v) for v in tree]
+    return torch.from_numpy(np.array(tree))
 
 
 def _full(tree):
@@ -45,12 +48,18 @@ def _chunks(tree):
 
 
 def _step(case):
-    """The case's train step (DiT at its mode, or the LM's)."""
+    """The case's train step (DiT at its mode, the LoRA distillation, the
+    MMD fine-tune, or the LM's)."""
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import distill, mmd
     from repro_torch.diffusion import schedule as sch
     from repro_torch.launch import steps
 
     cfg, tc = case["cfg"], TrainConfig(**case["tc"])
+    if case.get("kind") == "distill":
+        return distill.make_distill_step(cfg, tc, sch.linear_schedule(1000))
+    if case.get("kind") == "mmd":
+        return mmd.make_mmd_finetune_step(cfg, tc, sch.linear_schedule(1000))
     if cfg.family == "dit":
         return steps.make_dit_train_step(cfg, tc, sch.linear_schedule(1000),
                                          mode=case["mode"])
@@ -79,12 +88,15 @@ def _placed(case, mesh):
 
 
 def _draws(d):
-    return {k: torch.from_numpy(np.array(v)) for k, v in (d or {}).items()}
+    return _torch(d or {})
 
 
 def run_case(rank, case, mesh) -> Dict[str, Any]:
-    """Gradients of step 1 (gathered), two whole steps (the gathered
-    parameters after each), the resident bytes, each planted fault."""
+    """Gradients of step 1 (gathered), the whole steps (two unless the case
+    says ``steps``; the gathered parameters after each, the collectives of
+    the first counted when the case asks), the resident bytes, each
+    planted fault."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.optim import adamw
     from repro_torch.runtime import placement as plc
 
@@ -100,12 +112,20 @@ def run_case(rank, case, mesh) -> Dict[str, Any]:
     out["loss"], out["metrics"] = float(loss), _metrics(metrics)
     p, o = params, opt
     out["steps"] = []
-    for i in range(2):
-        p, o, m = step.with_draws(p, o, batch, **draws[i])
+    for i in range(case.get("steps", 2)):
+        ledger = rl.CollectiveLedger()
+        counted = i == 0 and case.get("count_collectives")
+        with ledger.record(send=True) if counted else contextlib.nullcontext():
+            p, o, m = step.with_draws(p, o, batch, **draws[i])
+        if counted:
+            out["collectives"] = {
+                k: {"count": v["count"], "operand_bytes": v["operand_bytes"]}
+                for k, v in ledger.kinds.items() if v["count"]}
         out["steps"].append({"params": _full(p), "metrics": _metrics(m)})
         if i == 0:
             out["after1"] = (p, o)
-    out["moments"] = _full({"m": o["m"], "v": o["v"]})
+    if out["steps"]:
+        out["moments"] = _full({"m": o["m"], "v": o["v"]})
     for name in case.get("faults", ()):
         with planted(name):
             if name == "norm_local":
@@ -115,7 +135,8 @@ def run_case(rank, case, mesh) -> Dict[str, Any]:
                 (_, fm), fg = step.grads(params, batch, **draws[0])
                 out[name] = {"metrics": _metrics(fm), "grads": _full(fg)}
     if rank != 0:
-        out = {"bytes": out["bytes"], "after1": out["after1"]}
+        out = {"bytes": out["bytes"], "after1": out.get("after1"),
+               "collectives": out.get("collectives")}
     else:
         out["grads"] = full
     return out
@@ -130,10 +151,14 @@ def planted(name: str):
       'model' (Megatron's rule, wrong for ranks holding equal copies);
     * ``lb_per_rank``: ``load_balance`` from each rank's own means, then
       averaged over the data axes;
-    * ``unsummed``: each data rank's gradient left unsummed."""
+    * ``unsummed``: each data rank's gradient left unsummed;
+    * ``per_rank``: the distillation and MMD fine-tune losses over each
+      rank's rows alone (a per-rank mean, a per-rank MMD statistic whose
+      targets are the rank's rows reversed)."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
 
+    from repro_torch.core import distill, mmd
     from repro_torch.models import moe
     from repro_torch.runtime import placement as plc
     from repro_torch.runtime import sharding as shd
@@ -155,17 +180,23 @@ def planted(name: str):
             return g.narrow(p.dim, r * c, c)
         return g
 
-    mod, attr, fn = {
-        "norm_local": (plc, "sum_over_shards", lambda values, leaves: values),
-        "sp_sum": (shd, "_gather_grad", sp_sum),
-        "lb_per_rank": (moe, "_load_balance", lb_per_rank),
-        "unsummed": (plc, "_reduce_data", unsummed)}[name]
-    sound = getattr(mod, attr)
-    setattr(mod, attr, fn)
+    same = lambda x: x
+    swaps = {
+        "norm_local": [(plc, "sum_over_shards", lambda values, leaves: values)],
+        "sp_sum": [(shd, "_gather_grad", sp_sum)],
+        "lb_per_rank": [(moe, "_load_balance", lb_per_rank)],
+        "unsummed": [(plc, "_reduce_data", unsummed)],
+        "per_rank": [(distill, "data_mean", same), (mmd, "data_mean", same),
+                     (mmd, "data_gather", same), (mmd, "current_mesh",
+                                                  lambda: None)]}[name]
+    sound = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, fn in swaps:
+        setattr(mod, attr, fn)
     try:
         yield
     finally:
-        setattr(mod, attr, sound)
+        for mod, attr, fn in sound:
+            setattr(mod, attr, fn)
 
 
 def train_group(rank: int, device: torch.device, job: Dict[str, Any]) -> dict:
