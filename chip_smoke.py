@@ -261,6 +261,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -316,6 +317,7 @@ from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.common import (init_tree, tree_leaves,  # noqa: E402
                                        tree_map)
+from repro_torch.runtime import graphs  # noqa: E402
 from repro_torch.runtime.padding import pad_kv_cache  # noqa: E402
 from repro_torch.pipeline import (AdaptiveBudget, FlexiPipeline,  # noqa: E402
                                   SamplingPlan)
@@ -1533,13 +1535,24 @@ def phase_t2i_flow(gen: torch.Generator, smi: str) -> dict:
                 raise AssertionError(f"t2i {solver} {b}: x0 not finite or "
                                      f"not {shape}")
             launches += n
+            # the first call ran eagerly and captured the runner: a replay
+            # must give the same x0 bit for bit (phase 17)
+            t1 = time.perf_counter()
+            again = pipe.sample(plan, T2I_BATCH, None, cond=text, x_T=x_T).x0
+            torch.cuda.synchronize()
+            dt_replay = time.perf_counter() - t1
+            if not torch.equal(again, x0):
+                raise AssertionError(f"t2i {solver} {b}: the replayed runner's "
+                                     f"x0 differs from its first (eager) call")
             dense = pipe.sample(dataclasses.replace(plan, attn_backend="dense"),
                                 T2I_BATCH, None, cond=text, x_T=x_T).x0
             sound_fn = ops.kernel_kwargs
             ops.kernel_kwargs = _stop_tile_walk_halfway(sound_fn)
             try:
-                faulty = pipe.sample(plan, T2I_BATCH, None, cond=text,
-                                     x_T=x_T).x0
+                # eagerly: the runner's graph holds the sound tile map
+                with graphs.disabled():
+                    faulty = pipe.sample(plan, T2I_BATCH, None, cond=text,
+                                         x_T=x_T).x0
             finally:
                 ops.kernel_kwargs = sound_fn
             err, fault = rel_err(x0, dense), rel_err(faulty, dense)
@@ -1547,7 +1560,8 @@ def phase_t2i_flow(gen: torch.Generator, smi: str) -> dict:
             log(f"[t2i] {solver} budget {b} (schedule {phases}, relative "
                 f"compute {plan.relative_compute(cfg):.4f}): {nfe} NFEs in "
                 f"{dt:.2f}s ({T2I_BATCH / dt:.3f} img/s, first call of the "
-                f"plan included), flash launches {n} = {cfg.num_layers} x "
+                f"plan included; replayed in {dt_replay:.2f}s, x0 bit for "
+                f"bit), flash launches {n} = {cfg.num_layers} x "
                 f"{nfe}, by variant {by_variant}; ||x0 - dense|| / ||dense|| "
                 f"{err:.3e}, planted fault (tile walk stops halfway) {fault:.3e} "
                 f"(tol {T2I_X0_TOL}); max|x0| {x0.float().abs().max().item():.3f}"
@@ -1609,9 +1623,10 @@ def phase_adaptive(pipe: FlexiPipeline, smi: str) -> dict:
     return {"launches": n}
 
 
-def count_syncs(fn):
+def count_syncs(fn, messages: list | None = None):
     """Run ``fn`` with ``torch.cuda.set_sync_debug_mode("warn")`` and count
-    the synchronising calls it makes."""
+    the synchronising calls it makes (where each was called from goes to
+    ``messages``)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1620,7 +1635,11 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    if messages is not None:
+        messages.extend(syncs)
+    return out, len(syncs)
 
 
 def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
@@ -4509,6 +4528,300 @@ def phase_plan(smi: str, measured_bytes: dict | None = None) -> dict:
     return {"launches": launches, "forwards": forwards, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: runners captured once as CUDA graphs (runtime.graphs)
+
+
+def x0_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(torch.equal(a[i], b[i]) for i in a)
+
+
+def graphs_engine_pair(pipe, plans, wave, cache=None, label="",
+                       rotate=False) -> dict:
+    """A frozen engine (``allow_cold=False``) on a fresh runner cache whose
+    runners are captured at warm-up, beside the same engine run eagerly
+    (``graphs.disabled()``): x0 of each request bit for bit, flash launches
+    equal, captures after warm-up, synchronising calls, walls and graph
+    pool bytes over one wave (and, with ``rotate``, a budget switch: the
+    wave again with every budget rotated). With ``cache`` a list of two
+    CacheSpecs, the second engine (a cache-policy switch) reuses the
+    first's graphs."""
+    cfg = pipe.cfg
+    specs = cache if cache is not None else [None]
+    sides = {}
+    for side in ("captured", "eager"):
+        ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+        gp = FlexiPipeline(pipe.params, cfg, pipe.sched, device=DEV)
+        runs = []
+        with ctx:
+            for spec in specs:
+                eng = ServingEngine(gp, plans, steps_per_dispatch=SERVE_K,
+                                    allow_cold=False, cache=spec)
+                t0 = time.perf_counter()
+                n_pre = eng.precapture_warm_set(max_per_mode=1)
+                warm_s = time.perf_counter() - t0
+                after_warm = gp.cache_stats()
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                f0 = eng.packed_forwards
+                t0 = time.perf_counter()
+                msgs: list = []
+                res, syncs = count_syncs(lambda: serve_wave(eng, wave), msgs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                # a budget switch: the same labels, every budget rotated
+                rot = [(c, BUDGETS[(BUDGETS.index(b) + 1) % len(BUDGETS)])
+                       for c, b in wave]
+                res_rot = serve_wave(eng, rot) if rotate else []
+                torch.cuda.synchronize()
+                runs.append(dict(
+                    layouts=len({k.layout for k in gp._runners}),
+                    n_pre=n_pre, warm_s=warm_s, after_warm=after_warm,
+                    end=gp.cache_stats(), syncs=syncs, wall=wall,
+                    sync_kinds=collections.Counter(msgs),
+                    forwards=eng.packed_forwards - f0,
+                    launches=ops.flash_attention.launches,
+                    by_variant=dict(ops.flash_attention.launches_by_variant),
+                    x0={r.request.id: r.x0 for r in res},
+                    x0_rot={r.request.id: r.x0 for r in res_rot},
+                    cached=spec is not None))
+        sides[side] = runs
+    errors = []
+    for i, spec in enumerate(specs):
+        cap, eag = sides["captured"][i], sides["eager"][i]
+        name = f"{label}{'' if spec is None else f' interval {spec.interval}'}"
+        # one captured micro-step a layout (every depth k), a graph a branch
+        branches = 2 if spec is not None else 1
+        want_cap = cap["layouts"] * branches
+        first = i == 0
+        if first and cap["after_warm"]["captured"] != want_cap:
+            errors.append(f"{name}: {cap['after_warm']['captured']} graphs "
+                          f"after warm-up, expected {want_cap}")
+        if not first and (cap["n_pre"] or cap["after_warm"]["captured"]
+                          != sides["captured"][0]["end"]["captured"]):
+            errors.append(f"{name}: the cache-policy switch built "
+                          f"{cap['n_pre']} runners / captured "
+                          f"{cap['after_warm']['captured']}")
+        if cap["end"]["captured"] != cap["after_warm"]["captured"] or \
+                cap["end"]["compiled"] != cap["after_warm"]["compiled"]:
+            errors.append(f"{name}: captures after warm-up "
+                          f"{cap['after_warm']} -> {cap['end']}")
+        if eag["end"]["captured"]:
+            errors.append(f"{name}: the eager side captured")
+        if not (x0_equal(cap["x0"], eag["x0"])
+                and x0_equal(cap["x0_rot"], eag["x0_rot"])):
+            errors.append(f"{name}: captured x0 != eager x0")
+        if cap["launches"] != eag["launches"] or \
+                cap["by_variant"].get("wgmma") != cap["launches"] or \
+                cap["forwards"] != eag["forwards"]:
+            errors.append(f"{name}: flash launches {cap['by_variant']} vs "
+                          f"eager {eag['by_variant']}")
+        if cap["syncs"] != eag["syncs"]:
+            errors.append(f"{name}: {cap['syncs']} synchronising calls "
+                          f"captured vs {eag['syncs']} eager: "
+                          f"{dict(cap['sync_kinds'])} vs "
+                          f"{dict(eag['sync_kinds'])}")
+        log(f"[graphs] engine {name}: warm set {cap['n_pre']} runners, "
+            f"{cap['after_warm']['captured']} graphs captured in "
+            f"{cap['warm_s']:.2f}s (eager warm-up {eag['warm_s']:.2f}s); "
+            f"after the wave{' and a budget switch' if rotate else ''} "
+            f"{cap['end']['captured']} graphs, {cap['end']['replays']} "
+            f"replays, graph pools "
+            f"{cap['end']['graph_pool_bytes'] / 2**20:.1f} MiB; steady wave "
+            f"({len(cap['x0'])} requests, {cap['forwards']} packed forwards)"
+            f": wall captured {cap['wall'] * 1e3:.1f} ms vs eager "
+            f"{eag['wall'] * 1e3:.1f} ms; flash launches {cap['launches']} "
+            f"== eager {eag['launches']} {cap['by_variant']}; synchronising "
+            f"calls {cap['syncs']} == eager {eag['syncs']}; x0 bit for bit: "
+            f"{x0_equal(cap['x0'], eag['x0'])}")
+    return {"errors": errors, "sides": sides}
+
+
+def sample_pair(pipe, plan, n, gen_seed, label, **kw) -> dict:
+    """``FlexiPipeline.sample`` on a fresh captured pipeline, twice (the
+    first call captures, the second replays), against a fresh pipeline
+    under ``graphs.disabled()``: x0 bit for bit, launches equal."""
+    out = {}
+    for side in ("captured", "eager"):
+        gp = FlexiPipeline(pipe.params, pipe.cfg, pipe.sched, device=DEV)
+        ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+        xs, launches = [], []
+        with ctx:
+            for _ in range(2 if side == "captured" else 1):
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res = gp.sample(plan, n, torch.Generator(device=DEV)
+                                .manual_seed(gen_seed), **kw)
+                torch.cuda.synchronize()
+                xs.append((res.x0, time.perf_counter() - t0))
+                launches.append(dict(ops.flash_attention.launches_by_variant))
+        out[side] = dict(x0=xs, launches=launches, stats=gp.cache_stats(),
+                         pipe=gp)
+    cap, eag = out["captured"], out["eager"]
+    ref = eag["x0"][0][0]
+    ok = all(torch.equal(x, ref) for x, _ in cap["x0"])
+    same_launches = all(l == eag["launches"][0] for l in cap["launches"])
+    log(f"[graphs] sample {label}: x0 captured (first call, replay) == eager "
+        f"bit for bit: {ok}; flash launches {cap['launches'][1]} == eager "
+        f"{eag['launches'][0]}: {same_launches}; wall first call "
+        f"{cap['x0'][0][1] * 1e3:.1f} ms, replay {cap['x0'][1][1] * 1e3:.1f} "
+        f"ms, eager {eag['x0'][0][1] * 1e3:.1f} ms; {cap['stats']['captured']}"
+        f" graphs, pools {cap['stats']['graph_pool_bytes'] / 2**20:.1f} MiB")
+    out["errors"] = ([] if ok else [f"sample {label}: captured x0 != eager"]) \
+        + ([] if same_launches else [f"sample {label}: launches differ"])
+    return out
+
+
+def forward_replay(params, cfg, gen: torch.Generator, smi: str) -> dict:
+    """Phase 16's B=8 forward captured and replayed: its wall (host clock
+    to a synchronise) against the eager forward's and against the
+    planner's compute bound, per mode."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    F_, H, W, C = cfg.dit.latent_shape
+    out = {}
+    for mode in (0, 1):
+        bound = dryrun.plan_dit_forward(cfg, PLAN_B, mode)["flops"] \
+            / rl.h100().peak_flops * 1e3
+        x = randn(gen, (PLAN_B, F_, H, W, C), torch.bfloat16)
+        t = torch.randint(0, 1000, (PLAN_B,), generator=gen, device=DEV).float()
+        y = torch.randint(0, cfg.dit.num_classes, (PLAN_B,), generator=gen,
+                          device=DEV)
+        fwd = graphs.capture(lambda p, x, t, y: dit_mod.dit_forward(
+            p, x, t, y, cfg, mode=mode, attn_backend="pallas"))
+        walls = {}
+        with torch.inference_mode():
+            eager = fwd.eager(params, x, t, y)
+            fwd(params, x, t, y)                          # captures
+            got = fwd(params, x, t, y)
+            for name, call in (("eager", lambda: fwd.eager(params, x, t, y)),
+                               ("replay", lambda: fwd(params, x, t, y))):
+                times = []
+                for _ in range(PLAN_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                times.sort()
+                walls[name] = times[len(times) // 2]
+        out[mode] = dict(walls, bound=bound,
+                         equal=bool(torch.equal(got, eager)))
+        log(f"[graphs] DiT-XL/2 forward B={PLAN_B} mode {mode}: wall median of "
+            f"{PLAN_REPS} eager {walls['eager']:.3f} ms, replayed "
+            f"{walls['replay']:.3f} ms; compute bound {bound:.3f} ms: "
+            f"{100 * bound / walls['eager']:.1f} % of it eager, "
+            f"{100 * bound / walls['replay']:.1f} % replayed; replay == eager "
+            f"bit for bit: {out[mode]['equal']} ({smi})")
+    return out
+
+
+def phase_graphs(smi: str) -> dict:
+    """Phase 17: every DiT runner captured once, against the same run
+    eager; see the module docstring."""
+    from repro_torch.fleet import BackgroundCompiler
+    t0 = time.perf_counter()
+    params, cfg = trained_like_xl(torch.Generator(device=DEV).manual_seed(SEED))
+    pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+    plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
+             for b in BUDGETS}
+    rng = np.random.default_rng(SEED + 7)
+    wave = [(int(rng.integers(0, cfg.dit.num_classes)), BUDGETS[i % 3])
+            for i in range(SERVE_WAVE + SERVE_JOIN)]
+    errors = []
+    # (a) engines: DDIM, DDPM, cached (interval 2, then 3 on its graphs)
+    ddim = graphs_engine_pair(pipe, plans, wave, label="DDIM", rotate=True)
+    errors += ddim["errors"]
+    ddpm_plans = {b: dataclasses.replace(p, solver="ddpm")
+                  for b, p in plans.items()}
+    errors += graphs_engine_pair(pipe, ddpm_plans, wave, label="DDPM")["errors"]
+    errors += graphs_engine_pair(
+        pipe, plans, wave, label="cached",
+        cache=[CacheSpec(policy="interval", interval=2),
+               CacheSpec(policy="interval", interval=3)])["errors"]
+    # (b) FlexiPipeline.sample, B=4
+    labels = torch.tensor(np.random.default_rng(SEED + 17).integers(
+        0, cfg.dit.num_classes, BATCH).tolist(), device=DEV)
+    x_T = randn(torch.Generator(device=DEV).manual_seed(SEED + 18),
+                (BATCH,) + tuple(cfg.dit.latent_shape))
+    kw = dict(cond=labels, x_T=x_T)
+    for label, plan in (
+            ("static DDIM 0.6", plans[0.6]),
+            ("static DDPM 0.8", dataclasses.replace(plans[0.8], solver="ddpm")),
+            ("adaptive DDIM", SamplingPlan(T=T_STEPS, budget=AdaptiveBudget(),
+                                           attn_backend="pallas"))):
+        errors += sample_pair(pipe, plan, BATCH, 8, label, **kw)["errors"]
+    c2 = sample_pair(pipe, dataclasses.replace(
+        plans[1.0], cache=CacheSpec(policy="interval", interval=2)), BATCH, 8,
+        "cached DDIM 1.0 interval 2", **kw)
+    errors += c2["errors"]
+    # the cache-policy switch on the captured pipeline: no runner, no graph
+    gp = c2["captured"]["pipe"]
+    before = gp.cache_stats()
+    c3 = dataclasses.replace(plans[1.0], cache=CacheSpec(policy="interval",
+                                                         interval=3))
+    with torch.inference_mode():
+        got = gp.sample(c3, BATCH, None, **kw).x0
+        with graphs.disabled():
+            want = c2["eager"]["pipe"].sample(c3, BATCH, None, **kw).x0
+    after = gp.cache_stats()
+    log(f"[graphs] sample cached interval 3 on interval 2's runner: runners "
+        f"{before['compiled']} -> {after['compiled']}, graphs "
+        f"{before['captured']} -> {after['captured']}; x0 == eager bit for "
+        f"bit: {torch.equal(got, want)}")
+    if after["compiled"] != before["compiled"] or \
+            after["captured"] != before["captured"] or not torch.equal(got, want):
+        errors.append("sample: the cache-policy switch captured or differs")
+    # (c) phase 16's forward, replayed
+    fw = forward_replay(pipe.params, cfg,
+                        torch.Generator(device=DEV).manual_seed(SEED + 17), smi)
+    errors += [f"forward mode {m} replay != eager" for m, r in fw.items()
+               if not r["equal"]]
+    # (d) a warm-up thread capturing (another engine's ladder, on its own
+    # pipeline) while this thread serves the DDIM wave on captured runners
+    spipe = FlexiPipeline(pipe.params, cfg, pipe.sched, device=DEV)
+    eng = ServingEngine(spipe, plans, steps_per_dispatch=SERVE_K,
+                        allow_cold=False)
+    eng.precapture_warm_set(max_per_mode=1)
+    other = ServingEngine(FlexiPipeline(pipe.params, cfg, pipe.sched,
+                                        device=DEV), plans,
+                          steps_per_dispatch=SERVE_K)
+    warm = BackgroundCompiler(other, max_per_mode=1).start()
+    res = serve_wave(eng, wave)
+    # this stream only: a device-wide synchronise while the other thread
+    # captures is refused (cudaErrorStreamCaptureUnsupported)
+    torch.cuda.current_stream().synchronize()
+    done = warm.wait(timeout=600)
+    torch.cuda.synchronize()
+    rungs = warm.assert_warm() if done else 0
+    same = x0_equal({r.request.id: r.x0 for r in res},
+                    ddim["sides"]["captured"][0]["x0"])
+    log(f"[graphs] warm-up thread: {warm.captured} rungs captured on its own "
+        f"stream while the serving thread replayed a wave; joined {done}, "
+        f"{rungs} layouts proven warm, {other.cache_stats()['captured']} "
+        f"graphs; served x0 == the sequential captured wave bit for bit: "
+        f"{same}")
+    if not (done and same):
+        errors.append("warm-up thread: did not finish, or x0 differs")
+    secs = time.perf_counter() - t0
+    log(f"[graphs] phase 17 in {secs:.1f}s ({smi})")
+    del pipe, spipe, eng, other
+    torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError("phase 17: " + "; ".join(errors))
+    return {"seconds": secs,
+            "forward_ms": {m: {k: r[k] for k in ("eager", "replay", "bound")}
+                           for m, r in fw.items()}}
+
+
+def free_card() -> None:
+    """Release what the last phase held on the card: its runners' CUDA
+    graph pools go with their pipelines (a cycle among a phase's objects
+    waits for the cyclic collector)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4522,6 +4835,14 @@ def main() -> None:
         got = phase_sharded_train(smi)
         print(smi)
         print(json.dumps({"only": "sharded", "ok": True, **got}), flush=True)
+        return
+    if sys.argv[1:] == ["--only", "graphs"]:      # phases 8 and 17 alone
+        phase_build()
+        phase_t2i_flow(torch.Generator(device=DEV).manual_seed(SEED + 2), smi)
+        free_card()
+        got = phase_graphs(smi)
+        print(smi)
+        print(json.dumps({"only": "graphs", "ok": True, **got}), flush=True)
         return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()
@@ -4547,31 +4868,33 @@ def main() -> None:
     times = phase_timing(gen)
     times["shapes"].update(phase_hd256_timing(gen_hd256))
     times["shapes"].update(phase_family_timing(gen_fam))
-    torch.cuda.empty_cache()
+    free_card()
     new_times = phase_new_timing(gen)
     serving = phase_serving(pipe, smi)
     adaptive = phase_adaptive(pipe, smi)
     telemetry = phase_telemetry(pipe, smi)
     fleet = phase_fleet(pipe, smi)
     del pipe
-    torch.cuda.empty_cache()
+    free_card()
     t2i = phase_t2i_flow(gen_t2i, smi)
-    torch.cuda.empty_cache()
+    free_card()
     training = phase_training(torch.Generator(device=DEV).manual_seed(SEED + 3),
                               smi)
-    torch.cuda.empty_cache()
+    free_card()
     lm = phase_lm(torch.Generator(device=DEV).manual_seed(SEED + 5), smi)
-    torch.cuda.empty_cache()
+    free_card()
     families = phase_lm_families(torch.Generator(device=DEV).manual_seed(SEED + 7), smi)
-    torch.cuda.empty_cache()
+    free_card()
     lm_train = phase_lm_train(torch.Generator(device=DEV).manual_seed(SEED + 8), smi)
-    torch.cuda.empty_cache()
+    free_card()
     seq_parallel = phase_seq_parallel(smi)
     times["shapes"].update(seq_parallel["shapes"])
-    torch.cuda.empty_cache()
+    free_card()
     sharded = phase_sharded_train(smi)
-    torch.cuda.empty_cache()
+    free_card()
     plan = phase_plan(smi, sharded["bytes"])
+    free_card()
+    phase_graphs(smi)
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],

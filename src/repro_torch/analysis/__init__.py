@@ -10,7 +10,16 @@ that keep the port's invariants statically true.
 * host purity: the fleet's control modules, the fault injector and the
   journal, and telemetry's attribution import neither torch nor numpy
   and sync no device value; tap tensors reach the host only in the
-  aggregate sink; every fault-injection seam call is armed-guarded.
+  aggregate sink; every fault-injection seam call is armed-guarded;
+* capture safety (``rules_trace``, the reference's trace-safety rule):
+  no host read, host copy or Python branch on a device value inside a
+  region that a CUDA graph captures, and no device read inside a host
+  loop elsewhere (``hot-host-sync``);
+* the graph audit (``graph_audit``, the reference's jaxpr audit): the
+  real step functions traced by ``make_fx`` keep one graph across
+  budget, cache-policy and pack-content switches, taps are pure extra
+  outputs, no graph reads the host, and every runner the pipeline caches
+  goes through ``runtime.graphs``.
 
 Findings can be suppressed inline (``# repro: ignore[rule]``) or
 grandfathered in ``src/repro_torch/analysis/baseline.json`` with a

@@ -1,9 +1,11 @@
 """CLI: ``python -m repro_torch.analysis [--strict] [paths...]``.
 
-Runs every rule over the given paths (default ``src/repro_torch``),
-splits the findings against the committed baseline, prints a report,
-and — under ``--strict`` — exits non-zero iff any NEW error-severity
-finding survives (grandfathered findings and warnings never fail).
+Runs every source rule over the given paths (default ``src/repro_torch``)
+plus the graph audit of the real step functions (``graph_audit``; skip it
+with ``--no-graphs``), splits the findings against the committed
+baseline, prints a report, and — under ``--strict`` — exits non-zero iff
+any NEW error-severity finding survives (grandfathered findings and
+warnings never fail).
 
 ``--write-baseline`` regenerates ``analysis/baseline.json`` from the
 current findings (justifications must then be filled in by hand before
@@ -22,11 +24,15 @@ from repro_torch.analysis import engine
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="Source analysis of the port (DESIGN.md §analysis)")
+        description="Source analysis and graph audit of the port "
+                    "(DESIGN.md §analysis)")
     ap.add_argument("paths", nargs="*", default=None,
                     help="files/dirs to lint (default: src/repro_torch)")
     ap.add_argument("--strict", action="store_true",
                     help="exit 1 on any non-baselined error finding")
+    ap.add_argument("--no-graphs", action="store_true",
+                    help="skip the graph audit (make_fx of the step "
+                         "functions)")
     ap.add_argument("--json", action="store_true", dest="as_json",
                     help="machine-readable report on stdout")
     ap.add_argument("--write-baseline", action="store_true",
@@ -36,7 +42,7 @@ def main(argv=None) -> int:
 
     paths = [Path(p) for p in (args.paths or
                                [engine.REPO_ROOT / "src" / "repro_torch"])]
-    report = engine.run_analysis(paths)
+    report = engine.run_analysis(paths, with_graphs=not args.no_graphs)
 
     if args.write_baseline:
         entries = engine.baseline_entries(report.new + report.baselined)
@@ -49,6 +55,7 @@ def main(argv=None) -> int:
         json.dump({
             "new": [vars(f) for f in report.new],
             "baselined": [vars(f) for f in report.baselined],
+            "fingerprints": report.fingerprints,
             "ok": report.ok(),
         }, sys.stdout, indent=2)
         print()
@@ -58,6 +65,8 @@ def main(argv=None) -> int:
         if report.baselined:
             print(f"[baseline] {len(report.baselined)} grandfathered "
                   f"finding(s) suppressed")
+        for unit, fp in sorted(report.fingerprints.items()):
+            print(f"[fingerprint] {unit}: {fp}")
         n_err = len(report.new_errors)
         print(f"{len(report.new)} new finding(s), {n_err} error(s)")
     if args.strict and not report.ok():

@@ -15,9 +15,12 @@ Vocabulary:
   the offending line suppresses findings there — for *justified*
   exceptions; the baseline is for *grandfathered* ones.
 
-The reference's trace-safety rules (``rules_trace``) and its jaxpr audit
-reason about traced regions (jit, scan, jaxprs); the port has none until
-its runners are captured as CUDA graphs, so neither is here yet.
+Two modules reason about the port's captured regions (its runners are
+captured once as CUDA graphs by ``runtime.graphs``): ``rules_trace``,
+the counterpart of the reference's trace-safety rule, is a source rule
+here; ``graph_audit``, the counterpart of its jaxpr audit, traces the
+real step functions with ``make_fx`` and runs under
+``run_analysis(with_graphs=True)``.
 """
 from __future__ import annotations
 
@@ -64,6 +67,34 @@ RULE_IDS: Dict[str, str] = {
                             "scheduling and journaling run inside the "
                             "fleet tick and must stay pure host "
                             "bookkeeping",
+    "trace-host-cast": "int()/float()/bool()/.item()/.cpu()/.tolist()/"
+                       ".numpy() of a device value inside a captured "
+                       "region (a sync: the capture fails)",
+    "trace-host-copy": "a host-to-device copy (torch.from_numpy(...).to, "
+                       "torch.as_tensor/torch.tensor with device=) inside "
+                       "a captured region",
+    "trace-python-branch": "Python if/while on a device value inside a "
+                           "captured region",
+    "trace-python-loop": "Python for-loop over a device value inside a "
+                         "captured region",
+    "trace-len": "len() of a device value inside a captured region",
+    "trace-fstring": "f-string of a device value inside a captured region",
+    "trace-host-np": "host numpy call on device values inside a captured "
+                     "region",
+    "hot-host-sync": "a device read inside a host loop (one blocking "
+                     "transfer per iteration)",
+    "graph-fingerprint-drift": "a captured step's make_fx graph differs "
+                               "across a data-only switch (it would "
+                               "capture again)",
+    "graph-trace-failure": "an audited step no longer traces",
+    "graph-host-sync": "a host read (aten._local_scalar_dense, .item) in "
+                       "an audited step's graph",
+    "graph-dtype-promotion": "a silent bf16->f32 / f32->f64 widening in "
+                             "an audited step's graph",
+    "graph-tap-structure": "dropping the tap outputs does not recover the "
+                           "untapped step's graph",
+    "graph-uncaptured-runner": "a runner FlexiPipeline._lookup built does "
+                               "not go through runtime.graphs",
     "resilience-armed-guard": "a fault-injection seam call "
                               "(self._faults/_injector/faults) outside "
                               "an `is not None` guard — seams are "
@@ -183,8 +214,10 @@ def iter_py_files(paths: Iterable[Path]) -> List[Path]:
 def _load_rules():
     # local import: rule modules import Finding from here
     from repro_torch.analysis import (rules_cachekey, rules_fleet, rules_mask,
-                                      rules_resilience, rules_telemetry)
-    source_rules = [rules_telemetry.TelemetryRule(),
+                                      rules_resilience, rules_telemetry,
+                                      rules_trace)
+    source_rules = [rules_trace.TraceSafetyRule(),
+                    rules_telemetry.TelemetryRule(),
                     rules_fleet.FleetHostPureRule(),
                     rules_resilience.ResilienceHostPureRule(),
                     rules_resilience.ResilienceArmedGuardRule()]
@@ -231,6 +264,7 @@ def lint_paths(paths: Sequence[Path],
 class AnalysisReport:
     new: List[Finding]
     baselined: List[Finding]
+    fingerprints: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     @property
     def new_errors(self) -> List[Finding]:
@@ -240,8 +274,16 @@ class AnalysisReport:
         return not self.new_errors
 
 
-def run_analysis(paths: Sequence[Path], *,
+def run_analysis(paths: Sequence[Path], *, with_graphs: bool = True,
                  baseline_path: Path = BASELINE_PATH) -> AnalysisReport:
-    """Every rule over ``paths``, split against the committed baseline."""
-    new, old = split_baselined(lint_paths(paths), load_baseline(baseline_path))
-    return AnalysisReport(new=new, baselined=old)
+    """Every source rule over ``paths`` plus (optionally) the graph audit
+    of the real step functions, split against the committed baseline."""
+    findings = lint_paths(paths)
+    fingerprints: Dict[str, str] = {}
+    if with_graphs:
+        from repro_torch.analysis import graph_audit
+        report = graph_audit.audit_step_functions()
+        findings.extend(report.findings)
+        fingerprints = report.fingerprints
+    new, old = split_baselined(findings, load_baseline(baseline_path))
+    return AnalysisReport(new=new, baselined=old, fingerprints=fingerprints)

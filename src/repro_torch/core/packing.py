@@ -25,8 +25,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import dit_block_flops, dit_nfe_flops
 from repro_torch.kernels.attention import costing
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import dit as dit_mod
 from repro_torch.models.common import dtype_of
+from repro_torch.runtime import graphs
 
 
 def pack_ratio(cfg: ModelConfig, mode: int) -> int:
@@ -147,7 +150,7 @@ def _host_flags(flags: Any) -> np.ndarray:
 # Packed forwards
 
 
-def packed_mixed_forward(params: Any, cfg: ModelConfig,
+def packed_mixed_forward(params: Any, cfg: ModelConfig,  # repro: traced
                          groups: Tuple[Tuple[int, int], ...],
                          xs: Sequence[torch.Tensor], ts: Sequence[torch.Tensor],
                          conds: Sequence[torch.Tensor], *,
@@ -155,6 +158,7 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,
                          cache_deltas: Optional[Sequence[torch.Tensor]] = None,
                          cache_refresh: Optional[Sequence[Any]] = None,
                          cache_split: Optional[int] = None,
+                         cache_deep: Optional[bool] = None,
                          attn_backend: str = "auto") -> Any:
     """Run NFEs for segments of (possibly) different patch modes packed
     token-wise into fixed-capacity rows.
@@ -171,13 +175,19 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,
     shared-parameter recipe); uniform packs work on any recipe.
 
     Activation cache: with ``cache_split`` set, ``cache_deltas[g]``
-    ([n_g, N_m, d]) and ``cache_refresh[g]`` ([n_g] bool, on the host)
-    thread each segment's own staleness clock through the pack. Shallow
-    blocks always run; the deep blocks run when ANY segment refreshes,
-    decided from the host flags (no device read), and each token picks
-    fresh vs replayed by its segment's flag. Returns ``(outs,
+    ([n_g, N_m, d]) and ``cache_refresh[g]`` ([n_g] bool) thread each
+    segment's own staleness clock through the pack. Shallow blocks always
+    run; the deep blocks run when ANY segment refreshes, decided on the
+    host (no device read), and each token picks fresh vs replayed by its
+    segment's flag. The flags are host data (numpy) unless ``cache_deep``
+    is given: then they are bool tensors on the latents' device and
+    ``cache_deep`` is the host's branch, so a captured step takes the
+    flags as an input and keys only on the branch. Returns ``(outs,
     new_deltas)``; a step where every segment refreshes equals the
     uncached forward bit for bit.
+
+    With the flash kernel the tile map is derived once from the layout's
+    segment ids and handed to every block.
     """
     modes_present = [m for m, n in groups if n > 0]
     if len(modes_present) > 1 and cfg.dit.lora_rank > 0:
@@ -193,6 +203,7 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,
     dev = next(x for x in xs if x is not None).device
     plan, gather, segment_ids, token_idx, *outs_idx = _device_plan(
         key, capacity, dev)
+    graphs.hold(gather, segment_ids, token_idx, *outs_idx)
     R, C = plan.rows, capacity
 
     # per-group token streams and conditioning vectors, segment-major
@@ -211,10 +222,16 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,
     seg_c = torch.cat(cvecs + [zero])
     packed = torch.cat(toks + [zero])[gather].reshape(R, C, d)
 
+    block_map = None
+    if attn_mod.resolve_backend(attn_backend, n_tokens=C,
+                                segmented=True) == "pallas":
+        block_map = attn_ops.segment_block_map(segment_ids, C, C)
+
     def run(h: torch.Tensor, blocks: Any, n: int) -> torch.Tensor:
         for i in range(n):
             h = _packed_block(dit_mod._layer(blocks, i), h, seg_c, token_idx,
-                              cfg, block_mode, segment_ids, attn_backend)
+                              cfg, block_mode, segment_ids, attn_backend,
+                              block_map)
         return h
 
     L = cfg.num_layers
@@ -228,14 +245,23 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,
         dparts = [cache_deltas[g].to(dtype).reshape(-1, d)
                   for g, (_m, n) in enumerate(groups) if n > 0]
         delta_rows = torch.cat(dparts + [zero])[gather].reshape(R, C, d)
-        refresh_flat = np.concatenate(
-            [_host_flags(cache_refresh[g]) for g, (_m, n) in enumerate(groups)
-             if n > 0] or [np.zeros(0, bool)])
+        if cache_deep is None:
+            refresh_flat = np.concatenate(
+                [_host_flags(cache_refresh[g])
+                 for g, (_m, n) in enumerate(groups) if n > 0]
+                or [np.zeros(0, bool)])
+            cache_deep = bool(refresh_flat.any())
+            seg_flags = [torch.from_numpy(refresh_flat).to(dev)]
+        else:
+            seg_flags = [cache_refresh[g].reshape(-1)
+                         for g, (_m, n) in enumerate(groups) if n > 0]
         shallow, deep = dit_mod.split_blocks(params["blocks"], cache_split)
         h_s = run(packed, shallow, cache_split)
-        if refresh_flat.any():
-            rf_pad = np.concatenate([refresh_flat, [False]])
-            rmask = torch.from_numpy(rf_pad[plan.token_idx][..., None]).to(dev)
+        if cache_deep:
+            # each token's segment flag, gathered on the device (padding
+            # takes the trailing False)
+            no = torch.zeros(1, dtype=torch.bool, device=dev)
+            rmask = torch.cat(seg_flags + [no])[token_idx][..., None]
             h_d = run(h_s, deep, L - cache_split)
             tok = torch.where(rmask, h_d, h_s + delta_rows)
             new_rows = torch.where(rmask, h_d - h_s, delta_rows)
@@ -296,7 +322,8 @@ def packed_weak_forward(params: Any, x_ts: torch.Tensor, t: torch.Tensor,
 def _packed_block(p: Any, x: torch.Tensor, seg_c: torch.Tensor,
                   token_idx: torch.Tensor, cfg: ModelConfig, mode: int,
                   segment_ids: torch.Tensor,
-                  attn_backend: str = "auto") -> torch.Tensor:
+                  attn_backend: str = "auto",
+                  block_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DiT block with per-segment adaLN conditioning (gathered to token
     level via ``token_idx``) and segment-masked attention."""
     H = cfg.attn.num_heads
@@ -308,7 +335,8 @@ def _packed_block(p: Any, x: torch.Tensor, seg_c: torch.Tensor,
     lora = p.get("lora", {})
     h = dit_mod._ln(x) * (1.0 + sc1) + sh1
     attn = dit_mod._mha(p["attn"], h, H, lora=lora.get("attn"), mode=mode,
-                        segment_ids=segment_ids, attn_backend=attn_backend)
+                        segment_ids=segment_ids, attn_backend=attn_backend,
+                        block_map=block_map)
     x = x + g1 * attn
     h2 = dit_mod._ln(x) * (1.0 + sc2) + sh2
     mlp_lora = lora.get("mlp", {})

@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.runtime import graphs
+
 
 def _interp_1d(a: int, p: int) -> np.ndarray:
     """[p, a] half-pixel linear interpolation from a samples to p."""
@@ -63,23 +65,43 @@ def _const(mat: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(mat, dtype=like.dtype, device=like.device)
 
 
+@functools.lru_cache(maxsize=256)
+def _projection(kind: str, a: Tuple[int, ...], p_prime: Tuple[int, ...],
+                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Q_embed / Q_deembed as a ``dtype`` tensor on ``device``, copied
+    there once: the forward's projections read it without a host copy
+    (a captured runner may hold no host copy)."""
+    mat = q_embed(a, p_prime) if kind == "embed" else q_deembed(a, p_prime)
+    # a normal tensor even when first built under inference mode (a
+    # sampler's): a later training step must be able to use it
+    with torch.inference_mode(False):
+        return torch.as_tensor(mat, dtype=dtype, device=device)
+
+
+def _q(kind: str, a, p_prime, like: torch.Tensor) -> torch.Tensor:
+    q = _projection(kind, tuple(int(x) for x in a),
+                    tuple(int(x) for x in p_prime), like.dtype, like.device)
+    graphs.hold(q)
+    return q
+
+
 # Embedding weights are stored as w_flex [prod(p'), c_in, d]; de-embedding
 # weights as w_de_flex [d, c_out, prod(p')] and b_de_flex [c_out, prod(p')].
 
 
 def project_embed(w_flex: torch.Tensor, a, p_prime) -> torch.Tensor:
     """[prod(p'), c, d] → [prod(a), c, d]"""
-    return torch.einsum("qp,pcd->qcd", _const(q_embed(a, p_prime), w_flex), w_flex)
+    return torch.einsum("qp,pcd->qcd", _q("embed", a, p_prime, w_flex), w_flex)
 
 
 def project_deembed(w_flex: torch.Tensor, a, p_prime) -> torch.Tensor:
     """[d, c, prod(p')] → [d, c, prod(a)]"""
-    return torch.einsum("dcp,pq->dcq", w_flex, _const(q_deembed(a, p_prime), w_flex))
+    return torch.einsum("dcp,pq->dcq", w_flex, _q("deembed", a, p_prime, w_flex))
 
 
 def project_deembed_bias(b_flex: torch.Tensor, a, p_prime) -> torch.Tensor:
     """[c, prod(p')] → [c, prod(a)]"""
-    return torch.einsum("cp,pq->cq", b_flex, _const(q_deembed(a, p_prime), b_flex))
+    return torch.einsum("cp,pq->cq", b_flex, _q("deembed", a, p_prime, b_flex))
 
 
 def lift_embed(w_pre: torch.Tensor, p_pre, p_prime) -> torch.Tensor:

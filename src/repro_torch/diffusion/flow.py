@@ -75,7 +75,7 @@ def heun_phase(v_fn: VFn, x: torch.Tensor, taus: np.ndarray) -> torch.Tensor:
     return x
 
 
-def sample_flow_phased(phases: Sequence[Tuple[VFn, np.ndarray]],
+def sample_flow_phased(phases: Sequence[Tuple[VFn, np.ndarray]],  # repro: traced
                        x_T: torch.Tensor, solver: str = "euler") -> torch.Tensor:
     """Chain phases like ``diffusion.sampler.sample_phased``: each phase is
     (v_fn, its τ SUB-LADDER incl. its end point)."""

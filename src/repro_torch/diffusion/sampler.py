@@ -93,7 +93,7 @@ def dpm2_phase(eps_fn: EpsFn, sched: sch.DiffusionSchedule, x: torch.Tensor,
     return x
 
 
-def sample_phased(phases: Sequence[Tuple],
+def sample_phased(phases: Sequence[Tuple],  # repro: traced
                   sched: sch.DiffusionSchedule, x_T: torch.Tensor,
                   solver: str = "ddpm", clip_x0: float = 0.0,
                   generator: Optional[torch.Generator] = None,

@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.runtime import graphs
+
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
@@ -56,6 +58,7 @@ class DiffusionSchedule:
             with torch.inference_mode(False):
                 self._tables[key] = torch.as_tensor(
                     np.asarray(self._derived[name], np.float32), device=device)
+        graphs.hold(self._tables[key])
         return self._tables[key]
 
 

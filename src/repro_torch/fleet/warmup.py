@@ -18,14 +18,19 @@ the serving thread needs a rung first, it builds it, the warm thread sees
 it warm and skips it, and the build counters stay exact (the warmer's
 builds count as warm-up). Once :meth:`wait` returns, :meth:`assert_warm`
 proves the ladder is fully built, and every later small-cohort dispatch
-builds nothing. Both threads launch on the device's one stream;
+builds nothing. On CUDA the thread launches on a stream of its own, and
+captures each rung's CUDA graphs there (``runtime.graphs`` captures in
+thread-local mode) while the serving thread launches on its stream;
 ``torch.cuda.set_sync_debug_mode`` is process-wide, so count
 synchronising calls only with no warmer alive.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional, Sequence
+
+import torch
 
 
 class BackgroundCompiler:
@@ -54,15 +59,18 @@ class BackgroundCompiler:
         return self
 
     def _run(self) -> None:
+        device = self.engine.device
         try:
-            for layout, k in self.engine.warm_set_ladder(
-                    self.max_per_mode, self.k_depths):
-                if self._stop.is_set():
-                    return
-                if self.engine._is_warm(layout, k):
-                    continue          # serving thread captured it first
-                self.engine._dummy_dispatch(layout, k, record=False)
-                self.captured += 1
+            with (torch.cuda.stream(torch.cuda.Stream(device))
+                  if device.type == "cuda" else contextlib.nullcontext()):
+                for layout, k in self.engine.warm_set_ladder(
+                        self.max_per_mode, self.k_depths):
+                    if self._stop.is_set():
+                        return
+                    if self.engine._is_warm(layout, k):
+                        continue      # serving thread captured it first
+                    self.engine._dummy_dispatch(layout, k, record=False)
+                    self.captured += 1
         except Exception as e:        # surfaced on wait(), never lost
             self._err = e
 

@@ -11,10 +11,13 @@ version and the dense DiT path, on torch tensors or numpy arrays.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.runtime import graphs
 
 _BIG = int(np.iinfo(np.int32).max)
 
@@ -84,6 +87,18 @@ def block_position_envelope(n_q: int, n_k: int, block_q: int, block_k: int, *,
     return env
 
 
+@functools.lru_cache(maxsize=256)
+def _device_envelope(n_q: int, n_k: int, block_q: int, block_k: int,
+                     causal: bool, window: int,
+                     device: torch.device) -> torch.Tensor:
+    """:func:`block_position_envelope` on ``device``, copied there once
+    (no host copy inside a captured runner)."""
+    env = block_position_envelope(n_q, n_k, block_q, block_k, causal=causal,
+                                  window=window)
+    with torch.inference_mode(False):
+        return torch.from_numpy(env).to(device)
+
+
 def attention_block_map(q_seg, k_seg, *, block_q: int, block_k: int,
                         causal: bool = False, window: int = 0):
     """[B, Sq] x [B, Sk] segment ids (block multiples) → [B, n_q, n_k]
@@ -96,7 +111,10 @@ def attention_block_map(q_seg, k_seg, *, block_q: int, block_k: int,
                                   block_q, block_k,
                                   causal=causal, window=window)
     if _is_torch(q_seg, k_seg):
-        env_t = torch.as_tensor(env, device=q_seg.device)
+        env_t = _device_envelope(q_lo.shape[1], k_lo.shape[1], block_q,
+                                 block_k, bool(causal), int(window),
+                                 q_seg.device)
+        graphs.hold(env_t)
         return (active & env_t[None]).to(torch.int32)
     return (active & env[None]).astype(np.int32)
 

@@ -3,8 +3,10 @@
 On a CUDA tensor it launches the Hopper kernel (``flash_attention.py``)
 and counts the launch in ``flash_attention.launches`` and, under the
 variant the inputs select (``"wgmma"``, ``"mma"`` or ``"f32"``), in
-``flash_attention.launches_by_variant``; on a CPU tensor it runs the plain
-PyTorch version (``ref.py``) and counts nothing. Any other
+``flash_attention.launches_by_variant``; a launch inside a captured
+runner counts at each replay of the capture (``runtime.graphs.count``).
+On a CPU tensor it runs the plain PyTorch version (``ref.py``) and counts
+nothing. Any other
 device raises. There is no fallback from one to the other. The kernel has
 no backward: on a CUDA tensor that autograd would record through, the
 wrapper raises (``kernels.refuse_autograd``).
@@ -22,6 +24,22 @@ from repro_torch.kernels.attention.flash_attention import (VARIANTS,
                                                           flash_attention_cuda,
                                                           variant_of)
 from repro_torch.kernels.attention.ref import flash_attention_ref
+from repro_torch.runtime import graphs
+
+
+def segment_block_map(segment_ids: torch.Tensor, S: int, Sk: int, *,
+                      causal: bool = False, window: int = 0,
+                      block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """The tile map the kernel takes for self-attention over [B, S]
+    segment ids (a superset of the mask: it only skips work). A packed
+    forward derives it once and hands it to every block."""
+    B = segment_ids.shape[0]
+    bq, bk = min(block_q, S), min(block_k, Sk)
+    q_seg, _ = mask_mod.pad_to_block_multiple(segment_ids, B, S, bq)
+    k_seg, _ = mask_mod.pad_to_block_multiple(segment_ids, B, Sk, bk)
+    return mask_mod.attention_block_map(q_seg, k_seg, block_q=bq,
+                                        block_k=bk, causal=causal,
+                                        window=window)
 
 
 def kernel_kwargs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
@@ -41,12 +59,9 @@ def kernel_kwargs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
         if S != Sk:
             raise ValueError("segment packing is self-attention only")
         if block_map is None:
-            bq, bk = min(block_q, S), min(block_k, Sk)
-            q_seg, _ = mask_mod.pad_to_block_multiple(segment_ids, B, S, bq)
-            k_seg, _ = mask_mod.pad_to_block_multiple(segment_ids, B, Sk, bk)
-            block_map = mask_mod.attention_block_map(
-                q_seg, k_seg, block_q=bq, block_k=bk, causal=causal,
-                window=window)
+            block_map = segment_block_map(segment_ids, S, Sk, causal=causal,
+                                          window=window, block_q=block_q,
+                                          block_k=block_k)
     return dict(causal=causal, softcap=softcap, window=window,
                 segment_ids=segment_ids, block_map=block_map,
                 block_q=block_q, block_k=block_k)
@@ -77,13 +92,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {q.device}")
     refuse_autograd("flash_attention", q, k, v)
     out = flash_attention_cuda(q, k, v, **kw)
-    with _count_lock:       # a warm-up thread may launch beside serving
-        flash_attention.launches += 1
-        flash_attention.launches_by_variant[variant_of(q, k, v)] += 1
+    graphs.count(_count, variant_of(q, k, v))
     return out
 
 
 _count_lock = threading.Lock()
+
+
+def _count(variant: str, n: int) -> None:
+    with _count_lock:       # a warm-up thread may launch beside serving
+        flash_attention.launches += n
+        flash_attention.launches_by_variant[variant] += n
 
 
 def reset_launches() -> None:

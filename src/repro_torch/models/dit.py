@@ -35,6 +35,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (ParamSpec, dtype_of, init_tree,
                                        layer_norm, matmul_f32, stack_schema,
                                        timestep_embedding, tree_map)
+from repro_torch.runtime import graphs
 
 Params = Dict[str, Any]
 Patch = Tuple[int, int, int]
@@ -205,7 +206,8 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
          lora: Optional[Params] = None, mode: int = 0,
          segment_ids: Optional[torch.Tensor] = None,
          parallel: Optional[Any] = None,
-         attn_backend: str = "auto") -> torch.Tensor:
+         attn_backend: str = "auto",
+         block_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, N, d = x.shape
     hd = d // num_heads
     la = lora or {}
@@ -223,7 +225,8 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
     if resolved == "pallas":
         # the segment-aware flash kernel (Hopper kernel on CUDA tensors)
         o = attn_ops.flash_attention(q, k, v, causal=False,
-                                     segment_ids=segment_ids)
+                                     segment_ids=segment_ids,
+                                     block_map=block_map)
     elif resolved == "xla-blocked":
         # long (possibly packed) sequences: query blocks with an arithmetic
         # mask; segment ids thread through, so no [B,H,N,N] score tensor
@@ -339,7 +342,9 @@ def embed_mode_tokens(params: Params, x_t: torch.Tensor, cfg: ModelConfig,
         tok = patch_mod.embed_tokens_flex(params["embed"]["w_flex"],
                                           params["embed"]["b"], x_t, p,
                                           dit.underlying_patch_size)
-    tok = tok + _pos_embed(ls, p, cfg.d_model, dtype, tok.device)[None]
+    pos = _pos_embed(ls, p, cfg.d_model, dtype, tok.device)
+    graphs.hold(pos)
+    tok = tok + pos[None]
     if mode > 0:
         tok = tok + params["ps_embed"][mode - 1].to(dtype)[None, None]
         tok = layer_norm(tok, 1.0 + params["ps_ln"]["scale"][mode - 1],
@@ -380,7 +385,7 @@ def split_blocks(blocks: Params, split: int) -> Tuple[Params, Params]:
             tree_map(lambda a: a[split:], blocks))
 
 
-def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,
+def dit_forward(params: Params, x_t: torch.Tensor, t: torch.Tensor, cond: Any,  # repro: traced
                 cfg: ModelConfig, *, mode: int = 0,
                 text_mask: Optional[torch.Tensor] = None,
                 latent_shape: Optional[Tuple[int, int, int, int]] = None,

@@ -126,6 +126,15 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
     deep blocks of a micro-step run only if some request refreshes there
     (decided on the host, never by reading the device).
 
+    The step is ``host`` then ``body`` (attributes of the returned
+    function, with ``micro``, for ``runtime.graphs.capture``): ``host``
+    checks the arguments and turns the flags into the branch pattern (one
+    deep/shallow bool per micro-step, host data) and one bool tensor on
+    the latents' device; ``body`` is a host loop over ``micro(deep,
+    params, xs, meta_j, noise_j, deltas, flags_j)``, one micro-step, which
+    does not depend on k: the pipeline captures it once per layout (and
+    branch, on the cached family) for every depth k and refresh policy.
+
     ``taps`` appends telemetry outputs as pure extra data: the step
     returns ``(xs'[, deltas'], tap)`` where ``tap = {"eps_norm": ([k, n_g],
     ...), "finite": ([k, n_g], ...), "attn_blocks": (active, total)}`` plus
@@ -158,10 +167,12 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
     # the kernel ledger's block counts are a layout constant: host ints
     blk_stats = layout.attention_block_stats(cfg) if taps else None
 
-    def one_step(params, xs, metas, noises, deltas=None, refreshes=None,
-                 tap=None):
+    seg_counts = [n for _m, n in seg_groups]
+
+    def one_step(params, xs, metas, noises, deltas=None, flags=None,  # repro: traced
+                 deep=False, tap=None):
         seg_xs, seg_ts, seg_conds = [], [], []
-        seg_deltas, seg_refresh = [], []
+        seg_deltas = []
         for g, (mode, n) in enumerate(groups):
             t_g, cond_g = metas[g][0], metas[g][2]
             if guided:
@@ -180,13 +191,12 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
                 d_g = deltas[g]
                 seg_deltas.append(torch.cat(
                     [d_g[:, b] for b in range(d_g.shape[1])], dim=0))
-                rf = refreshes[g]
-                seg_refresh.append(np.concatenate([rf, rf]) if guided else rf)
         if cached:
             outs, new_seg = packing.packed_mixed_forward(
                 params, cfg, seg_groups, seg_xs, seg_ts, seg_conds,
                 row_capacity=cap, cache_deltas=seg_deltas,
-                cache_refresh=seg_refresh, cache_split=cache_split,
+                cache_refresh=torch.split(flags, seg_counts),
+                cache_split=cache_split, cache_deep=deep,
                 attn_backend=attn_backend)
             new_deltas = tuple(
                 torch.stack(torch.chunk(new_seg[g], deltas[g].shape[1],
@@ -229,7 +239,7 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
             return tuple(x_prevs), new_deltas
         return tuple(x_prevs)
 
-    def step(params: Any, xs: Sequence[torch.Tensor],
+    def host(params: Any, xs: Sequence[torch.Tensor],
              metas: Sequence[torch.Tensor],
              noises: Optional[Sequence[Optional[torch.Tensor]]] = None,
              deltas: Optional[Sequence[torch.Tensor]] = None,
@@ -241,28 +251,60 @@ def make_packed_step_fn(cfg: ModelConfig, sched: sch.DiffusionSchedule,
         if cached and (deltas is None or refreshes is None):
             raise ValueError("cached packed steps need deltas and refresh "
                              "flags")
-        xs = tuple(xs)
+        noises = tuple(noises) if solver == "ddpm" else None
+        if not cached:
+            return (), (params, tuple(xs), tuple(metas), noises, None, None)
+        rf = [packing._host_flags(r).reshape(k_steps, -1) for r in refreshes]
+        # segment order: a group's cond segments, then its uncond ones
+        # (both branches share the request's clock)
+        seg = np.concatenate([np.concatenate([r, r], axis=1) if guided
+                              else r for r in rf], axis=1)
+        branches = tuple(bool(b) for b in seg.any(axis=1))
+        flags = torch.from_numpy(seg).to(xs[0].device)
+        return branches, (params, tuple(xs), tuple(metas), noises,
+                          tuple(deltas), flags)
+
+    names = ("eps_norm", "finite") + (("drift",) if cached else ())
+
+    def micro(deep, params, xs, m_j, z_j, deltas, flags_j):  # repro: traced
+        """One micro-step, at branch ``deep`` on the cached family:
+        ``(xs', deltas', taps)`` (deltas None uncached), ``taps`` one
+        tensor a group per tap, or None."""
+        tap = ({n: [[] for _ in groups] for n in names} if taps else None)
         if cached:
-            deltas = tuple(deltas)
-            flags = tuple(np.asarray(r, bool).reshape(k_steps, -1)
-                          for r in refreshes)
-        names = ("eps_norm", "finite") + (("drift",) if cached else ())
+            xs, deltas = one_step(params, xs, m_j, z_j, deltas, flags_j,
+                                  deep, tap)
+        else:
+            xs = one_step(params, xs, m_j, z_j, tap=tap)
+        if tap is not None:
+            tap = {n: tuple(v[0] for v in tap[n]) for n in names}
+        return xs, deltas, tap
+
+    def body(branches, params, xs, metas, noises, deltas, flags,
+             micro_fn=micro):
+        """The k micro-steps, a host loop over ``micro_fn``."""
         tap = ({n: [[] for _ in groups] for n in names} if taps else None)
         for j in range(k_steps):
             m_j = tuple(m[j] for m in metas)
             z_j = (tuple(z[j] for z in noises) if solver == "ddpm"
                    else None)
-            if cached:
-                xs, deltas = one_step(params, xs, m_j, z_j, deltas,
-                                      tuple(f[j] for f in flags), tap)
-            else:
-                xs = one_step(params, xs, m_j, z_j, tap=tap)
+            xs, deltas, tap_j = micro_fn(branches[j] if cached else False,
+                                         params, xs, m_j, z_j, deltas,
+                                         flags[j] if cached else None)
+            for n in names if taps else ():
+                for g in range(len(groups)):
+                    tap[n][g].append(tap_j[n][g])
         out = (xs, deltas) if cached else (xs,)
         if taps:
             # per group, one [k, n_g] tensor per tap (micro-steps stacked)
             tap = {n: tuple(torch.stack(v) for v in tap[n]) for n in names}
             tap["attn_blocks"] = blk_stats
             out += (tap,)
-        return out if len(out) > 1 else out[0]
+        return out if cached or taps else xs
 
+    def step(*args: Any, **kw: Any):
+        branches, body_args = host(*args, **kw)
+        return body(branches, *body_args)
+
+    step.host, step.body, step.micro = host, body, micro
     return step

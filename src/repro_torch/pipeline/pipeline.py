@@ -17,6 +17,22 @@ so a budget switch between calls builds nothing).
 :meth:`FlexiPipeline.packed_step` hands the serving engine its
 step-granular packed runners from the same cache.
 
+Every runner is compiled once, as the reference's are by ``jax.jit``: on
+CUDA it goes through ``runtime.graphs`` and is captured as a CUDA graph
+on its first call at each input signature, then replayed. Static and
+flow plans are captured whole (the timestep ladder is baked, as the
+reference's ``jax.jit(run)`` closes over it; the DDPM noise is drawn
+outside, before the runner); a cached plan's runner is a host loop over
+one captured NFE per phase, keyed by the step's deep/shallow branch, so
+one set of graphs serves every refresh policy; an adaptive plan replays
+one captured NFE per mode between its host probes; a packed step is a
+host loop over one captured micro-step, shared by every depth k of its
+layout and keyed by the deep/shallow branch on the cached family. ``cache_stats()`` adds
+``captured`` (graphs), ``replays`` and ``graph_pool_bytes`` to
+``compiled`` (runners built). Under ``runtime.graphs.disabled()`` every
+runner runs eagerly. Runners over a mesh stay eager: their Gloo
+collectives cannot be captured.
+
 With a mesh (``FlexiPipeline(..., mesh=...)``, a ``DeviceMesh`` with dims
 ``("data", "seq")`` from ``launch.mesh.make_inference_mesh``) every rank
 runs ``sample`` with the same arguments. Plans carrying a ``ParallelSpec``
@@ -51,6 +67,7 @@ from repro_torch.distributed.engine import SeqParallel, mesh_fingerprint
 from repro_torch.models.common import dtype_of, tree_map
 from repro_torch.pipeline.packed import PackLayout, make_packed_step_fn
 from repro_torch.pipeline.plan import FLOW_SOLVERS, SamplingPlan
+from repro_torch.runtime import graphs
 from repro_torch.runtime.sharding import axis_sizes, batch_spec
 
 Params = Dict[str, Any]
@@ -99,6 +116,8 @@ class FlexiPipeline:
         self.sched = sched
         self._runners: Dict[Tuple, Callable] = {}
         self._nfes: Dict[Tuple, Callable] = {}
+        # packed steps' captured micro-steps, by their key at k_steps=1
+        self._micro: Dict[PackedStepKey, graphs.Captured] = {}
         self._merged: Dict[int, Params] = {}
         self._hits = 0
         self._misses = 0
@@ -115,11 +134,15 @@ class FlexiPipeline:
 
     def cache_stats(self) -> Dict[str, int]:
         """Runner-cache counters; ``compiled`` counts every runner and NFE
-        function built."""
+        function built, ``captured`` the CUDA graphs captured from them,
+        ``replays`` their replays and ``graph_pool_bytes`` what their
+        private memory pools hold."""
         with self._cache_lock:
-            return {"runners": len(self._runners),
-                    "nfe_fns": len(self._nfes), "hits": self._hits,
-                    "misses": self._misses, "compiled": self._misses}
+            runners = list(self._runners.values()) + list(self._nfes.values())
+            out = {"runners": len(self._runners),
+                   "nfe_fns": len(self._nfes), "hits": self._hits,
+                   "misses": self._misses, "compiled": self._misses}
+        return {**out, **graphs.stats(runners)}
 
     def _lora_variant(self, plan: SamplingPlan) -> str:
         return "none" if self.cfg.dit.lora_rank <= 0 else plan.lora
@@ -133,13 +156,19 @@ class FlexiPipeline:
 
     def _lookup(self, key: Tuple, build: Callable,
                 cache: Optional[Dict[Tuple, Callable]] = None) -> Callable:
+        """The cached runner of ``key``, built by ``build`` on a miss and
+        wrapped for capture (``runtime.graphs``; eager over a mesh)."""
         cache = self._runners if cache is None else cache
         with self._cache_lock:
             if key in cache:
                 self._hits += 1
             else:
                 self._misses += 1
-                cache[key] = build()
+                runner = build()
+                if not graphs.pieces(runner):
+                    runner = graphs.capture(runner,
+                                            eager=self.mesh is not None)
+                cache[key] = runner
             return cache[key]
 
     def _default_cond(self, n: int, cond: Any) -> Tuple[Any, Any]:
@@ -156,7 +185,8 @@ class FlexiPipeline:
             return y, torch.zeros_like(y)
         return None, None
 
-    def _phase_guidance(self, plan: SamplingPlan, mode: int) -> GuidanceConfig:
+    @staticmethod
+    def _phase_guidance(plan: SamplingPlan, mode: int) -> GuidanceConfig:
         if plan.guidance_active and plan.guidance_kind == "weak_cond" \
                 and mode == 0:
             # §3.4: the weak model's *conditional* prediction guides the
@@ -183,49 +213,101 @@ class FlexiPipeline:
                        transform: Optional[EpsTransform],
                        cache_split: Optional[int] = None,
                        engine: Optional[SeqParallel] = None) -> Callable:
-        """The runner of a static plan. With ``cache_split`` it carries the
+        """The runner of a static plan: ``run(param_sets, x_T, cond,
+        null_cond, text_mask, null_text_mask, noise[, masks])``, the DDPM
+        noise drawn by the caller. With ``cache_split`` it carries the
         cross-step activation cache: the per-phase refresh masks are
         inputs (host numpy), so one runner serves every refresh policy at
-        this (schedule, split) signature."""
+        this (schedule, split) signature; it is a host loop over one
+        captured NFE per phase, keyed by each step's refresh branch."""
         splits = schedule.split_timesteps(ts)
         set_idx = {m: i for i, m in
                    enumerate(self._param_set_modes(plan, schedule))}
-        cfg = self.cfg
+        # the runner's closures hold no reference to the pipeline, which
+        # holds the runner: a cycle would keep its graph pools alive until
+        # the cyclic collector runs
+        cfg, sched, guidance = self.cfg, self.sched, self._phase_guidance
 
-        def run(param_sets, x_T, cond, null_cond, generator, text_mask,
-                null_text_mask, noise, masks=None):
+        def phase_params(param_sets, mode, g):
+            # the §3.4 guidance call runs at the weak mode: under merged
+            # LoRA it must see that mode's merged weights
+            gp = (param_sets[set_idx[g.mode_uncond]]
+                  if g.kind == "weak_cond" and g.mode_uncond in set_idx
+                  else None)
+            return param_sets[set_idx.get(mode, 0)], gp
+
+        if cache_split is not None:
+            return self._cached_runner(plan, splits, phase_params,
+                                       cache_split)
+
+        def run(param_sets, x_T, cond, null_cond,  # repro: traced
+                text_mask, null_text_mask, noise):
             phases = []
-            for i, (mode, tsub) in enumerate(splits):
-                p = param_sets[set_idx.get(mode, 0)]
-                g = self._phase_guidance(plan, mode)
-                # the §3.4 guidance call runs at the weak mode: under merged
-                # LoRA it must see that mode's merged weights
-                gp = (param_sets[set_idx[g.mode_uncond]]
-                      if g.kind == "weak_cond" and g.mode_uncond in set_idx
-                      else None)
+            for mode, tsub in splits:
+                g = guidance(plan, mode)
+                p, gp = phase_params(param_sets, mode, g)
                 fn = make_eps_fn(p, cfg, cond, null_cond, g, text_mask,
                                  null_text_mask, guidance_params=gp,
                                  parallel=engine,
-                                 attn_backend=plan.attn_backend,
-                                 cache_split=cache_split)
+                                 attn_backend=plan.attn_backend)
                 if transform is not None:
                     def fn(x, t, _f=fn):
                         eps, lv = _f(x, t)
                         return transform(eps, x, t), lv
-                if cache_split is None:
-                    phases.append((fn, tsub))
-                    continue
+                phases.append((fn, tsub))
+            return sampler.sample_phased(phases, sched, x_T,
+                                         solver=plan.solver,
+                                         clip_x0=plan.clip_x0, noise=noise)
+
+        return run
+
+    def _cached_runner(self, plan: SamplingPlan, splits, phase_params,
+                       cache_split: int) -> graphs.HostLoop:
+        """The cached static runner: the sampler's host loop over one
+        captured NFE per phase (``(refresh, (p, gp), x, t, delta, cond,
+        null_cond, text_mask, null_text_mask)``, the refresh branch host
+        data), the timestep an input."""
+        cfg, sched, guidance = self.cfg, self.sched, self._phase_guidance
+        eager = self.mesh is not None
+
+        def nfe_of(mode):
+            g = guidance(plan, mode)
+
+            def nfe(refresh, pp, x, t, delta, cond,  # repro: traced
+                    null_cond, text_mask, null_text_mask):
+                fn = make_eps_fn(pp[0], cfg, cond, null_cond, g, text_mask,
+                                 null_text_mask, guidance_params=pp[1],
+                                 attn_backend=plan.attn_backend,
+                                 cache_split=cache_split)
+                return fn(x, t, delta, refresh)
+
+            def host(pp, x, t, delta, refresh, *rest):
+                return bool(refresh), (pp, x, t, delta) + rest
+            return graphs.capture(nfe, host=host, name=f"cached_nfe_m{mode}",
+                                  eager=eager)
+
+        nfes = [nfe_of(mode) for mode, _ in splits]
+
+        def loop(param_sets, x_T, cond, null_cond, text_mask, null_text_mask,
+                 noise, masks):
+            phases = []
+            for i, (mode, tsub) in enumerate(splits):
+                g = guidance(plan, mode)
+                pp = phase_params(param_sets, mode, g)
+
+                def fn(x, t, delta, refresh, _n=nfes[i], _pp=pp):
+                    return _n(_pp, x, t, delta, refresh, cond, null_cond,
+                              text_mask, null_text_mask)
                 guided = g.scale != 0.0 and cond is not None
                 delta0 = torch.zeros(
                     cache_apply.delta_shape(cfg, mode, x_T.shape[0], guided),
                     dtype=dtype_of(cfg.compute_dtype), device=x_T.device)
                 phases.append((fn, tsub, masks[i], delta0))
-            return sampler.sample_phased(phases, self.sched, x_T,
+            return sampler.sample_phased(phases, sched, x_T,
                                          solver=plan.solver,
-                                         clip_x0=plan.clip_x0,
-                                         generator=generator, noise=noise)
+                                         clip_x0=plan.clip_x0, noise=noise)
 
-        return run
+        return graphs.HostLoop(loop, nfes)
 
     def _flow_runner(self, plan: SamplingPlan, schedule: FlexiSchedule,
                      engine: Optional[SeqParallel] = None) -> Callable:
@@ -238,7 +320,7 @@ class FlexiPipeline:
         solver = "euler" if plan.solver == "flow_euler" else "heun"
         cfg = self.cfg
 
-        def run(param_sets, x_T, cond):
+        def run(param_sets, x_T, cond):  # repro: traced
             phases = [(flow.make_flow_v_fn(param_sets[set_idx.get(mode, 0)],
                                            cfg, cond, mode=mode,
                                            parallel=engine,
@@ -254,7 +336,8 @@ class FlexiPipeline:
         cfg = self.cfg
         g = GuidanceConfig(scale=scale, mode_cond=mode, mode_uncond=mode)
 
-        def nfe(params, x, t, cond, null_cond, text_mask, null_text_mask):
+        def nfe(params, x, t, cond, null_cond, text_mask,  # repro: traced
+                null_text_mask):
             return make_eps_fn(params, cfg, cond, null_cond, g, text_mask,
                                null_text_mask,
                                attn_backend=attn_backend)(x, t)
@@ -275,8 +358,21 @@ class FlexiPipeline:
         bit for bit plus device tap outputs; its key differs only in
         ``taps``."""
         key = PackedStepKey(layout, **kw)
-        return self._lookup(key, lambda: make_packed_step_fn(
-            self.cfg, self.sched, **key._asdict()))
+
+        def build():
+            # one captured micro-step serves the layout at every depth k
+            step = make_packed_step_fn(self.cfg, self.sched, **key._asdict())
+            micro = self._micro.get(key._replace(k_steps=1))
+            if micro is None:
+                micro = self._micro[key._replace(k_steps=1)] = graphs.capture(
+                    step.micro, host=lambda deep, *a: (deep, a),
+                    name="packed_micro_step", eager=self.mesh is not None)
+
+            def run(*args: Any, **kw: Any):
+                branches, body_args = step.host(*args, **kw)
+                return step.body(branches, *body_args, micro_fn=micro)
+            return graphs.HostLoop(run, [micro])
+        return self._lookup(key, build)
 
     def packed_step_is_warm(self, layout: PackLayout, **kw: Any) -> bool:
         """Whether :meth:`packed_step` would be a cache hit (the serving
@@ -339,16 +435,18 @@ class FlexiPipeline:
         engine = (SeqParallel.create(self.mesh, plan.parallel, self.cfg,
                                      attn_backend=plan.attn_backend)
                   if plan.parallel is not None else None)
+        if noise is None and plan.solver == "ddpm":
+            # drawn here, step by step as the sampler would draw them, so a
+            # captured runner takes them as an input (and every rank of a
+            # mesh draws the whole batch's)
+            noise = torch.stack([
+                torch.randn(x_T.shape, generator=generator,
+                            device=self.device, dtype=x_T.dtype)
+                for _ in range(len(ts))])
         rows = self._data_rows(n)
         if rows is not None:
-            # every rank drew the whole batch's prior (and now its DDPM
-            # noise, step by step as the sampler would): keep this rank's
-            # rows of each
-            if noise is None and plan.solver == "ddpm":
-                noise = torch.stack([
-                    torch.randn(x_T.shape, generator=generator,
-                                device=self.device, dtype=x_T.dtype)
-                    for _ in range(len(ts))])
+            # every rank drew the whole batch's prior and DDPM noise: keep
+            # this rank's rows of each
             if noise is not None:
                 noise = noise[:, rows]
             x_T, y, null, text_mask, null_text_mask = (
@@ -371,7 +469,7 @@ class FlexiPipeline:
             runner = self._lookup(
                 ("cached",) + sig + (split,),
                 lambda: self._static_runner(plan, schedule, ts, None, split))
-            x0 = self._gather_rows(runner(param_sets, x_T, y, null, generator,
+            x0 = self._gather_rows(runner(param_sets, x_T, y, null,
                                           text_mask, null_text_mask, noise,
                                           masks), rows)
             fl, n_refresh, n_steps = cache_ledger.schedule_cached_flops(
@@ -394,8 +492,8 @@ class FlexiPipeline:
                                   lambda: self._static_runner(
                                       plan, schedule, ts, eps_transform,
                                       engine=engine))
-            x0 = runner(param_sets, x_T, y, null, generator, text_mask,
-                        null_text_mask, noise)
+            x0 = runner(param_sets, x_T, y, null, text_mask, null_text_mask,
+                        noise)
         x0 = self._gather_rows(x0, rows)
         return SampleResult(
             x0=x0, flops=plan.flops(self.cfg, batch=n),

@@ -11,8 +11,10 @@ budgets and advances a packed subset of them every iteration:
   tokens, packed into fixed-capacity rows with segment-id masking
   (``core.packing``), which the flash kernel turns into skipped tiles;
 * **build-once**: all runners come from ``FlexiPipeline.packed_step``'s
-  cache, keyed by the static layout only, so steady-state serving builds
-  nothing (``cache_stats()`` shows it);
+  cache, keyed by the static layout only, and on CUDA each is captured as
+  a CUDA graph at its first dispatch (a warm-up dispatch captures both
+  branches of a cached runner), so steady-state serving builds and
+  captures nothing and replays (``cache_stats()`` shows it);
 * **SLA awareness**: ``policy='edf'`` orders admission and steps by
   deadline; ``policy='degrade'`` lets the
   :class:`~repro_torch.serving.controller.BudgetController` demote queued
@@ -52,7 +54,8 @@ this layer.
 
 ``precapture_warm_set`` / ``_dummy_dispatch`` may run on a second thread
 (``fleet.warmup.BackgroundCompiler``) while this one serves: the runner
-cache and the launch counters take locks.
+cache, each runner's graphs and the launch counters take locks, and the
+warm-up thread captures on its own stream.
 """
 from __future__ import annotations
 
@@ -587,19 +590,24 @@ class ServingEngine:
     @torch.inference_mode()
     def _dummy_dispatch(self, layout: PackLayout, k: int,
                         record: bool = True) -> None:
-        """Run one throwaway dispatch at ``layout`` so the runner is built
-        and its kernels loaded before a real step meets it.
-        ``record=False`` skips the span (the background warm-up thread
-        must not interleave writes into the serving thread's recorder)."""
+        """Run throwaway dispatches at ``layout`` so the runner is built
+        and captured, and its kernels loaded, before a real step meets it:
+        one, or on the cached family two (every micro-step refreshing,
+        then none), so both deep/shallow graphs exist and no capture
+        happens after warm-up. ``record=False`` skips the span (the
+        background warm-up thread must not interleave writes into the
+        serving thread's recorder)."""
         record = record and self._rec is not None
         t0 = self.clock() if record else 0.0
         key = profile_packed_key(layout, k_steps=k, **self._runner_kw())
         runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
-        runner(self.pipe.params, *dummy_packed_args(self.cfg, key, self.device))
-        with self._count_lock:
-            self.block_passes += k * (self.cfg.num_layers if self.cache is None
-                                      else self.cache_split)
-            self.packed_forwards += k
+        L = self.cfg.num_layers
+        for deep in ((True, False) if self.cache is not None else (True,)):
+            runner(self.pipe.params, *dummy_packed_args(
+                self.cfg, key, self.device, refresh=deep))
+            with self._count_lock:
+                self.block_passes += k * (L if deep else self.cache_split)
+                self.packed_forwards += k
         self._wait()
         if record:
             self._rec.complete("compile", t0, self.clock(),

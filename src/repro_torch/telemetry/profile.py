@@ -45,6 +45,7 @@ from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models import dit as dit_mod
 from repro_torch.models.common import dtype_of
 from repro_torch.pipeline.pipeline import PackedStepKey
+from repro_torch.runtime import graphs
 
 #: reconciliation flag ids (the drift report's vocabulary)
 FLAG_COUNTED_DENSE = "counted-dense"
@@ -176,7 +177,9 @@ class CompiledCostRegistry:
     def harvest(self, pipe: Any) -> Dict[str, int]:
         """Count every packed runner in ``pipe``'s cache once, on dummy
         inputs under ``FlopCounterMode`` (off the dispatch path; builds
-        no runner). Other runners are skipped."""
+        no runner). The runner's body runs eagerly
+        (``runtime.graphs.disabled``): a graph replay dispatches no op
+        the counter could see. Other runners are skipped."""
         from torch.utils.flop_counter import FlopCounterMode
         harvested = skipped = 0
         for key, fn in list(pipe._runners.items()):
@@ -198,7 +201,7 @@ class CompiledCostRegistry:
                 analytic_dispatch=an["dispatch"])
             args = dummy_packed_args(pipe.cfg, key, pipe.device, refresh=True)
             n0 = attn_ops.flash_attention.launches
-            with torch.inference_mode(), \
+            with torch.inference_mode(), graphs.disabled(), \
                     FlopCounterMode(display=False) as counter:
                 fn(pipe.params, *args)
             launches = attn_ops.flash_attention.launches - n0

@@ -41,18 +41,18 @@ def _rest(x: torch.Tensor) -> Tuple[int, ...]:
     return tuple(range(1, x.ndim))
 
 
-def eps_norm_tap(eps: torch.Tensor) -> torch.Tensor:
+def eps_norm_tap(eps: torch.Tensor) -> torch.Tensor:  # repro: traced
     """Per-request RMS of an eps batch [n, F, H, W, C] → [n] (float32)."""
     return torch.sqrt(torch.mean(torch.square(eps.float()), dim=_rest(eps)))
 
 
-def finite_tap(x: torch.Tensor) -> torch.Tensor:
+def finite_tap(x: torch.Tensor) -> torch.Tensor:  # repro: traced
     """Per-request all-finite flag of a latent batch [n, ...] → [n] bool
     (False: the row carries a NaN/Inf)."""
     return torch.isfinite(x).flatten(1).all(dim=1)
 
 
-def drift_tap(new_delta: torch.Tensor,
+def drift_tap(new_delta: torch.Tensor,  # repro: traced
               old_delta: torch.Tensor) -> torch.Tensor:
     """Per-request RMS replay drift ``‖h_fresh − h_replay‖`` from the
     deep-block residuals [n, mult, N, d] → [n] (0 at skip steps)."""

@@ -332,8 +332,12 @@ def test_committed_baseline_entries_are_justified_and_live():
 def test_catalog_lists_the_ported_rules():
     live = engine.lint_paths([PORT_SRC], collect_suppressed=True)
     assert {f.rule for f in live} <= set(engine.RULE_IDS)
-    assert not any(r.startswith(("trace-", "jaxpr-", "hot-host"))
-                   for r in engine.RULE_IDS)
+    # the trace-safety rules are ported; the jaxpr audit's ids are the
+    # graph audit's ``graph-`` ids
+    assert {"trace-host-cast", "trace-host-copy", "hot-host-sync",
+            "graph-fingerprint-drift", "graph-uncaptured-runner"} \
+        <= set(engine.RULE_IDS)
+    assert not any(r.startswith("jaxpr-") for r in engine.RULE_IDS)
     assert engine.REPO_ROOT == Path(__file__).resolve().parents[1]
     assert engine.BASELINE_PATH == PORT_SRC / "analysis" / "baseline.json"
 
@@ -344,10 +348,11 @@ def test_strict_cli_clean_on_the_port(tmp_path, capsys):
     bad = tmp_path / "fleet" / "router.py"
     bad.parent.mkdir()
     bad.write_text("import torch\n")
-    assert main(["--strict", str(bad)]) == 1
-    assert main([str(bad)]) == 0
+    # the graph audit ran above; the bad file is a source-rule case
+    assert main(["--strict", "--no-graphs", str(bad)]) == 1
+    assert main(["--no-graphs", str(bad)]) == 0
     capsys.readouterr()
-    assert main(["--json", str(bad)]) == 0
+    assert main(["--json", "--no-graphs", str(bad)]) == 0
     rep = json.loads(capsys.readouterr().out)
     assert rep["ok"] is False
     assert [f["rule"] for f in rep["new"]] == ["fleet-host-pure"]

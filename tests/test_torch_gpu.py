@@ -1095,3 +1095,96 @@ def test_lm_train_card_matches_cpu(cuda, arch):
     assert abs(float(lg - lc)) <= 1e-5 * abs(float(lc))
     for a, want in zip(gg, gc):
         assert (a - want).abs().max() <= 1e-5 * want.norm(), arch
+
+
+# ---------------------------------------------------------------------------
+# Runners captured once as CUDA graphs (runtime.graphs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver,cached", [("ddim", False), ("ddpm", False),
+                                           ("ddim", True)])
+def test_captured_engine_equals_eager_on_card(cuda, solver, cached):
+    """A frozen engine whose runners are captured at warm-up, against the
+    same engine under ``graphs.disabled()``: x0 bit for bit across a
+    budget switch, flash launches (counted through replays) equal to the
+    eager run's and to the block passes, and no capture after warm-up."""
+    import contextlib
+
+    from repro_torch.pipeline import FlexiPipeline
+    from repro_torch.runtime import graphs
+    from repro_torch.serving import CacheSpec, ServingEngine
+    pipe = _serving_pipe("float32", cuda)
+    spec = CacheSpec(policy="interval", interval=2, split=1) if cached else None
+    out = {}
+    for side in ("captured", "eager"):
+        ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+        with ctx:
+            gp = FlexiPipeline(pipe.params, pipe.cfg, pipe.sched, device=cuda)
+            eng = ServingEngine(gp, _plans(solver), steps_per_dispatch=4,
+                                allow_cold=False, cache=spec)
+            n_warm = eng.precapture_warm_set(max_per_mode=1)
+            warm = gp.cache_stats()
+            ops.reset_launches()
+            passes = eng.block_passes
+            x0 = {}
+            for budgets in ((0.6, 1.0), (1.0, 0.6)):     # a budget switch
+                for i in range(6):
+                    eng.submit(cond=i, budget=budgets[i % 2])
+                x0.update({r.request.id: r.x0 for r in eng.run()})
+            torch.cuda.synchronize()
+            out[side] = dict(x0=x0, warm=warm, end=gp.cache_stats(),
+                             layouts=len({k.layout for k in gp._runners}),
+                             launches=ops.flash_attention.launches,
+                             f32=ops.flash_attention.launches_by_variant["f32"],
+                             passes=eng.block_passes - passes, n_warm=n_warm)
+    cap, eag = out["captured"], out["eager"]
+    assert sorted(cap["x0"]) == sorted(eag["x0"])
+    assert all(torch.equal(cap["x0"][i], eag["x0"][i]) for i in cap["x0"])
+    assert cap["launches"] == eag["launches"] == cap["f32"] == cap["passes"]
+    # one captured micro-step a layout (every depth k), a graph a branch
+    assert cap["warm"]["captured"] == cap["layouts"] * (2 if cached else 1)
+    assert cap["end"]["captured"] == cap["warm"]["captured"]
+    assert cap["end"]["compiled"] == cap["warm"]["compiled"]
+    assert cap["end"]["replays"] > cap["warm"]["replays"]
+    assert eag["end"]["captured"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ddim", "ddpm", "cached", "adaptive"])
+def test_captured_sample_equals_eager_on_card(cuda, kind):
+    """``FlexiPipeline.sample`` twice on a captured pipeline (the first
+    call captures, the second replays) against a pipeline under
+    ``graphs.disabled()``: x0 bit for bit, launches equal, and one
+    runner."""
+    from repro_torch.pipeline import AdaptiveBudget, FlexiPipeline, SamplingPlan
+    from repro_torch.runtime import graphs
+    from repro_torch.serving import CacheSpec
+    pipe = _serving_pipe("float32", cuda)
+    plan = {"ddim": SamplingPlan(T=6, budget=0.6, attn_backend="pallas"),
+            "ddpm": SamplingPlan(T=6, budget=0.6, solver="ddpm",
+                                 attn_backend="pallas"),
+            "cached": SamplingPlan(T=6, cache=CacheSpec(
+                policy="interval", interval=2, split=1), attn_backend="pallas"),
+            "adaptive": SamplingPlan(T=6, budget=AdaptiveBudget(),
+                                     attn_backend="pallas")}[kind]
+    cond = torch.tensor([1, 2], device=cuda)
+    xs, launches = [], []
+    for side in ("captured", "captured", "eager"):
+        gp = (FlexiPipeline(pipe.params, pipe.cfg, pipe.sched, device=cuda)
+              if not xs or side == "eager" else gp)
+        ops.reset_launches()
+        if side == "eager":
+            with graphs.disabled():
+                x = gp.sample(plan, 2, torch.Generator(cuda).manual_seed(4),
+                              cond=cond).x0
+        else:
+            x = gp.sample(plan, 2, torch.Generator(cuda).manual_seed(4),
+                          cond=cond).x0
+            stats = gp.cache_stats()
+        torch.cuda.synchronize()
+        xs.append(x)
+        launches.append(ops.flash_attention.launches)
+    assert torch.equal(xs[0], xs[2]) and torch.equal(xs[1], xs[2])
+    assert launches[0] == launches[1] == launches[2] > 0
+    assert stats["captured"] >= 1 and stats["replays"] >= 1

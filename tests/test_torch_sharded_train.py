@@ -12,7 +12,9 @@ the references:
 * the DiT step at modes 0 and 1 (``tiny_dit_cfg`` flexified, profile
   ``fsdp2d`` forced), gemma2 with ``sequence_parallel`` (profile
   ``fsdp2d_sp``, remat "block") and deepseek-moe with its aux losses
-  (``fsdp2d``), all reduced and float32, fed the JAX package's draws: the
+  (``fsdp2d``), and gemma2 again through the microbatched step
+  (``n_microbatches=2``, each data rank's 2 rows in 2 slices), all
+  reduced and float32, fed the JAX package's draws: the
   loss (1e-5 relative), the aux losses (1e-5) and every gathered gradient
   leaf (1e-5 of its norm) against ``jax.value_and_grad`` of the
   reference's single-device loss; two whole steps against the port's
@@ -280,17 +282,19 @@ def _recipe_reference(case):
             flat(convert.tree_to_numpy(g)))
 
 
-def _lm_case(arch, profile, faults, **over):
+def _lm_case(arch, profile, faults, name=None, B=LM_B, n_microbatches=1,
+             **over):
     jcfg = dataclasses.replace(jcfgs.get_config(arch).reduced(), **over)
     tcfg = dataclasses.replace(tcfgs.get_config(arch).reduced(), **over)
     rng = np.random.default_rng(len(arch))
     params = fill_zero_leaves(jax.tree.map(
         np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(3))), rng)
     rng = np.random.default_rng(5)
-    batch = {k: rng.integers(0, jcfg.vocab_size, (LM_B, LM_S), dtype=np.int32)
+    batch = {k: rng.integers(0, jcfg.vocab_size, (B, LM_S), dtype=np.int32)
              for k in ("tokens", "targets")}
-    return dict(name=arch, cfg=tcfg, jcfg=jcfg, params=params, batch=batch,
-                draws=[None, None], tc=TC, profile=profile, faults=faults)
+    return dict(name=name or arch, cfg=tcfg, jcfg=jcfg, params=params,
+                batch=batch, draws=[None, None], tc=TC, profile=profile,
+                faults=faults, n_microbatches=n_microbatches)
 
 
 def _reference(case):
@@ -326,7 +330,8 @@ def _single_device(case):
                                           mode=case["mode"])
     else:
         params = convert.lm_params_from_numpy(case["params"], cfg, device="cpu")
-        step = tsteps.make_train_step(cfg, tc)
+        step = tsteps.make_train_step(
+            cfg, tc, n_microbatches=case.get("n_microbatches", 1))
     opt = tadamw.init_opt_state(params)
     batch = {k: torch.from_numpy(np.array(v)) for k, v in case["batch"].items()}
     out = []
@@ -354,6 +359,10 @@ def run(tiny_dit_cfg, tmp_path_factory):
              _lm_case("gemma2-9b", "fsdp2d_sp", ("sp_sum",),
                       sequence_parallel=True, remat="block"),
              _lm_case("deepseek-moe-16b", "fsdp2d", ("lb_per_rank",)),
+             # the microbatched LM step (launch/steps._MicrobatchedStep):
+             # 2 slices of each data rank's 2 rows
+             _lm_case("gemma2-9b", "fsdp2d", (), name="gemma2-9b-mb2", B=4,
+                      n_microbatches=2),
              _recipe_case("distill", trained_like(tiny_dit_cfg, 1, lora_rank=4),
                           batch, 21),
              _recipe_case("mmd", shared, batch, 22)]
@@ -406,19 +415,24 @@ def _check_grads(got, want):
 
 
 @pytest.mark.parametrize("name", ["dit0", "dit1", "gemma2-9b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "gemma2-9b-mb2"])
 def test_sharded_loss_and_grads_match_reference(run, name):
     r0 = run["res"][0][name]
     jl, jm, jg = run["refs"][name]
     np.testing.assert_allclose(r0["loss"], jl, rtol=TOL, atol=0)
     assert sorted(r0["metrics"]) == sorted(jm)
-    for k, v in jm.items():          # the MoE aux losses among them
-        np.testing.assert_allclose(r0["metrics"][k], v, rtol=TOL, atol=TOL)
+    # a microbatched step reports its last slice's metrics (as the
+    # reference's does), and a data rank's slice holds other rows than a
+    # single device's: only the accumulated loss and gradients compare
+    if run["cases"][name].get("n_microbatches", 1) == 1:
+        for k, v in jm.items():          # the MoE aux losses among them
+            np.testing.assert_allclose(r0["metrics"][k], v, rtol=TOL,
+                                       atol=TOL)
     _check_grads(flat(r0["grads"]), jg)
 
 
 @pytest.mark.parametrize("name", ["dit0", "dit1", "gemma2-9b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "gemma2-9b-mb2"])
 def test_sharded_steps_equal_single_device(run, name):
     """Two whole steps against the port's single-device steps: the AdamW
     moments after them (each leaf within 1e-5 of its norm), the

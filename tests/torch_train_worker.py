@@ -63,7 +63,8 @@ def _step(case):
     if cfg.family == "dit":
         return steps.make_dit_train_step(cfg, tc, sch.linear_schedule(1000),
                                          mode=case["mode"])
-    return steps.make_train_step(cfg, tc)
+    return steps.make_train_step(cfg, tc,
+                                 n_microbatches=case.get("n_microbatches", 1))
 
 
 def _placed(case, mesh):
