@@ -110,27 +110,40 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    over the tapped one; ``launch/serve.py --replicas 3`` in-process at
    full width;
 11. language-model serving (``repro_torch.models.lm`` through
-   ``launch/steps.make_prefill_step`` / ``make_decode_step``): gemma2-9b
-   whole (42 layers, d=3584, 16 heads over 8 x 256, window 4096 on
-   alternate layers, softcaps 50 / 30, vocab 256000, bf16, ~9.24 B random
-   weights drawn on the card from a seed), prefill B=2 x S=8192 on the
-   flash kernel (42 launches a prefill, all on the variant
-   ``select_variant`` names for bf16 hd 256), its last-position logits
-   held against the dense backend (and the local layers' window planted
-   to 0 must read over the limit), then 16 greedy decode steps from the
-   flash prefill's cache against the same tokens from the dense cache
-   (logits within the limit, tokens equal wherever the top-2 gap is
-   clear); prefill ms, decode ms a step and its weight-bytes bound;
-   deepseek-7b, qwen2.5-14b, gemma3-4b and hymba-1.5b at full width cut
-   to 2 layers, and mamba2-130m whole, each prefilled on the flash
-   kernel (B=2, S=2048) and decoded 4 steps, held against dense; then
-   ``python -m repro_torch.launch.serve --arch gemma2-9b --requests 4
-   --batch-slots 2 --prompt-len 512 --max-new 16`` in-process;
-12. the MoE, vision and audio language models through the same steps:
+   ``launch/steps.make_prefill_step`` / ``make_decode_step``, runners
+   captured as CUDA graphs, the decode's cache donated, each built once
+   a config): gemma2-9b whole (42 layers, d=3584, 16 heads over 8 x 256,
+   window 4096 on alternate layers, softcaps 50 / 30, vocab 256000, bf16,
+   ~9.24 B random weights drawn on the card from a seed), prefill B=2 x
+   S=8192 on the flash kernel (the first call captures, a second
+   replays; 42 launches a call, all on the variant ``select_variant``
+   names for bf16 hd 256), each prefill's cache written into a slot of
+   8192 + 16 positions (``lm.serve_slot``), the replay held against the
+   same runner under ``graphs.disabled()`` bit for bit (logits and every
+   cache leaf), its last-position logits held against the dense backend
+   (run under ``graphs.disabled()``, as is the planted fault, the local
+   layers' window 0, which must read over the limit); then 16 greedy
+   decode steps from the dense cache, whose tokens are fed to the
+   captured decode on the replay's slot and to the eager decode on the
+   eager prefill's slot: captured == eager bit for bit (logits, every
+   slot leaf), against dense within the limit, tokens equal wherever the
+   top-2 gap is clear; prefill ms (first call, replay, eager), decode ms
+   a step captured and eager against the weight-bytes bound (and with
+   the cache read), pool bytes a key, the bytes a decode replay copies
+   in, graphs captured after warm-up (0); deepseek-7b, qwen2.5-14b,
+   gemma3-4b and hymba-1.5b at full width cut to 2 layers, and
+   mamba2-130m whole, each the same at B=2, S=2048 and 4 decode steps;
+   then ``python -m repro_torch.launch.serve --arch gemma2-9b --requests
+   4 --batch-slots 2 --prompt-len 512 --max-new 16`` in-process (two
+   graphs, none captured by the second batch), and the same with
+   ``--mesh 1x2 --replicas 2``, which the LM path reads not (one device,
+   the same requests and tokens);
+12. the MoE, vision and audio language models through the same captured
+   runners, each held against ``graphs.disabled()`` as in phase 11:
    deepseek-moe-16b whole (28 layers, 64 routed top-6 + 2 shared experts
    of 1408, 16.88 B random weights drawn on the card, the draw's peak
    memory printed), prefill B=2 x S=4096 on the flash kernel (28
-   ``wgmma`` launches a prefill) and on dense, logits held against dense,
+   ``wgmma`` launches a prefill call) and on dense, logits held against dense,
    ``dropped_fraction`` at capacity factor 1.25, 16 greedy decode steps
    from each cache against the weight-bytes bound; one of its MoE layers
    at full width ([2, 512, 2048], nothing dropped) against
@@ -160,8 +173,10 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    "block" against "none"; 5. 12 steps on one batch must learn, and the
    sign-flipped update must not; 6. the trained gemma2-9b cut saved and
    restored by ``Checkpointer``, then a flash prefill and 4 decode steps
-   equal bit for bit to the in-memory parameters' (one ``wgmma`` launch
-   a layer a prefill); hymba-1.5b cut, mamba2-130m whole,
+   through captured runners (as in phase 11, against
+   ``graphs.disabled()``) equal bit for bit to the in-memory parameters'
+   (one ``wgmma`` launch a layer a prefill call); hymba-1.5b cut,
+   mamba2-130m whole,
    llama-3.2-vision-90b cut to one group (its cross layer and vision
    projection trained, the language model frozen) and whisper-small
    whole, 2 steps each; 7. ``python -m repro_torch.launch.train --arch
@@ -246,6 +261,18 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    1,692,272,000 / 3,284,825,600 / 3,988,572,160 (and against phase 15's
    own reading in a full run). ``python3 chip_smoke.py --only plan``
    runs phase 1 and this phase alone.
+17. runners captured once as CUDA graphs (``runtime.graphs``), each
+   against the same run under ``graphs.disabled()``: frozen DDIM, DDPM
+   and cached engines over the phase-7 wave and a budget switch,
+   ``FlexiPipeline.sample`` (static, cached, adaptive), the B=8 DiT-XL/2
+   forward, a warm-up thread capturing beside serving; then the LM
+   serving loop (``launch/serve.lm_prefill`` / ``lm_decode``) of
+   gemma2-9b and deepseek-moe-16b at full width cut to 2 layers, two
+   batches each through one prefill and one decode runner: tokens,
+   logits and the slot bit for bit, flash launches equal, two graphs
+   captured by the first batch and none by the second.
+   ``python3 chip_smoke.py --only graphs`` runs phases 1, 8 and 17
+   alone; ``--only lm`` runs phases 1 and 11-13.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -318,7 +345,7 @@ from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.common import (init_tree, tree_leaves,  # noqa: E402
                                        tree_map)
 from repro_torch.runtime import graphs  # noqa: E402
-from repro_torch.runtime.padding import pad_kv_cache  # noqa: E402
+from repro_torch.runtime.padding import write_kv_slot  # noqa: E402
 from repro_torch.pipeline import (AdaptiveBudget, FlexiPipeline,  # noqa: E402
                                   SamplingPlan)
 from repro_torch.serving import CacheSpec, ServingEngine  # noqa: E402
@@ -515,6 +542,12 @@ FAM_CLI = [["--arch", "deepseek-moe-16b", "--requests", "4", "--batch-slots", "2
             "--prompt-len", "512", "--max-new", "16"],
            ["--arch", "whisper-small", "--requests", "4", "--batch-slots", "2",
             "--prompt-len", "64", "--max-new", "16"]]
+
+# phase 17: the LM serving loop's two runners at full width, depth cut to
+# (name, layers kept): two batches of LM_G_BATCH x LM_G_SEQ with
+# LM_G_DECODE decode steps each, captured and under graphs.disabled()
+LM_GRAPHS = (("gemma2-9b", 2), ("deepseek-moe-16b", 2))
+LM_G_BATCH, LM_G_SEQ, LM_G_DECODE = 2, 1024, 8
 
 # phase 13: language-model training, bf16, random weights drawn on the
 # card. (name, layers kept, batch, sequence): gemma2-9b at full width cut
@@ -2481,26 +2514,139 @@ def rel_logits(x: torch.Tensor, ref: torch.Tensor) -> float:
     return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def lm_decode(cfg, params, cache, first: torch.Tensor, start: int, n: int,
+def lm_decode(decode, params, cache, first: torch.Tensor, start: int, n: int,
               feed: torch.Tensor = None):
-    """n greedy decode steps through make_decode_step from ``first``
-    ([B, 1]); with ``feed`` ([B, n]) the tokens fed are those (so two
-    caches can be held step for step), else each step's argmax. Returns
-    (logits [B, n, V], the tokens fed [B, n], wall seconds ending in a
+    """n greedy decode steps through the ``decode`` runner (one
+    ``make_decode_step``, built once: its first call on a cache captures a
+    graph, the later ones replay it; under ``graphs.disabled()`` it runs
+    eagerly) from ``first`` ([B, 1]) on ``cache`` in place; with ``feed``
+    ([B, n]) the tokens fed are those (so two caches can be held step for
+    step), else each step's argmax. Returns (logits [B, n, V], the tokens
+    fed [B, n], each step's wall seconds, each ending in a
     synchronisation)."""
-    decode = lm_steps.make_decode_step(cfg)
-    tok, logits_all, fed = first, [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    tok, logits_all, fed, walls = first, [], [], []
     for i in range(n):
         fed.append(tok)
         pos = torch.full((tok.shape[0],), start + i, dtype=torch.int32, device=DEV)
-        logits, cache = decode(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, out = decode(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if out is not cache:
+            raise AssertionError("the decode step did not return the caller's cache")
         logits_all.append(logits)
         tok = (feed[:, i + 1:i + 2] if feed is not None and i + 1 < n
                else logits.argmax(-1).to(torch.int32)[:, None])
+    return torch.stack(logits_all, 1), torch.cat(fed, 1), walls
+
+
+def timed_call(fn):
+    """``fn()`` and its wall seconds, between two synchronisations."""
     torch.cuda.synchronize()
-    return torch.stack(logits_all, 1), torch.cat(fed, 1), time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_serve_pair(cfg, params, inputs: dict, n_dec: int, dense_fn=None) -> dict:
+    """One batch served as ``launch/serve.serve_lm`` serves it, through two
+    runners built once (``make_prefill_step`` on the flash kernel,
+    ``make_decode_step``): the prefill's first call (eager, then the
+    capture), a replay, and the same runner under ``graphs.disabled()``;
+    each prefill's cache written into a slot of its own (``lm.serve_slot``
+    + ``write_kv_slot``); the dense backend's prefill (``dense_fn``, by
+    default a dense runner) under ``graphs.disabled()`` (a captured dense
+    prefill would keep its float32 scores in a pool); ``n_dec`` greedy
+    decode steps from the dense cache (eager), whose tokens are fed to the
+    captured decode on the replay's slot (its first step captures) and to
+    the eager decode on the eager prefill's slot. Returns the readings:
+    walls, flash launches a prefill call, whether captured equals eager
+    bit for bit (logits, decode logits, every slot leaf), graphs, pool
+    bytes a key, the bytes a decode replay copies in."""
+    prefill = lm_steps.make_prefill_step(cfg, backend="pallas")
+    decode = lm_steps.make_decode_step(cfg)
+    B, S = inputs["tokens"].shape
+    walls, launches, out = {}, {}, {}
+    for run in ("first", "replay", "eager"):
+        before = dict(ops.flash_attention.launches_by_variant)
+        ctx = graphs.disabled() if run == "eager" else contextlib.nullcontext()
+        with ctx:
+            out[run], walls[run] = timed_call(lambda: prefill(params, inputs))
+        launches[run] = {k: v - before[k] for k, v in
+                         ops.flash_attention.launches_by_variant.items()}
+    with graphs.disabled():
+        if dense_fn is None:
+            dense = lm_steps.make_prefill_step(cfg, backend="dense")
+            dense_fn = lambda: dense(params, inputs)        # noqa: E731
+        (logits_d, cache_d), walls["dense"] = timed_call(dense_fn)
+    logits_p, cache_p = out["replay"]
+    logits_e, cache_e = out["eager"]
+    prefill_equal = (torch.equal(logits_p, logits_e)
+                     and torch.equal(out["first"][0], logits_e)
+                     and all(torch.equal(cache_p[k], cache_e[k]) for k in cache_e))
+    del out
+    slots = {}
+    for side, cache in (("captured", cache_p), ("eager", cache_e),
+                        ("dense", cache_d)):
+        slots[side] = lm_mod.serve_slot(cfg, B, S + n_dec, DEV)
+        write_kv_slot(slots[side], cache, S)
+    del cache_p, cache_e, cache_d
+    first = logits_d.argmax(-1).to(torch.int32)[:, None]
+    with graphs.disabled():
+        dec_d, fed, _ = lm_decode(decode, params, slots["dense"], first, S, n_dec)
+    dec_p, _, walls_p = lm_decode(decode, params, slots["captured"], first, S,
+                                  n_dec, feed=fed)
+    with graphs.disabled():
+        dec_e, _, walls_e = lm_decode(decode, params, slots["eager"], first, S,
+                                      n_dec, feed=fed)
+    decode_equal = torch.equal(dec_p, dec_e) and all(
+        torch.equal(slots["captured"][k], slots["eager"][k]) for k in slots["eager"])
+    pools = {name: graphs.stats([r])["graph_pool_bytes"]
+             for name, r in (("prefill", prefill), ("decode", decode))}
+    res = dict(
+        walls=walls, launches=launches, logits_p=logits_p, logits_d=logits_d,
+        dec_p=dec_p, dec_d=dec_d, fed=fed, first=first, slot_d=slots["dense"],
+        prefill_equal=prefill_equal, decode_equal=decode_equal,
+        decode_first_ms=walls_p[0] * 1e3,
+        decode_ms=float(np.mean(walls_p[1:])) * 1e3 if n_dec > 1 else None,
+        eager_decode_ms=float(np.mean(walls_e)) * 1e3,
+        # a graph a runner is its first call's; one more is a capture after
+        # warm-up (the replay, decode steps 2..n_dec)
+        captured=prefill.captures + decode.captures,
+        after_warm=prefill.captures + decode.captures - 2, pools=pools,
+        in_bytes=decode.graphs()[0].in_bytes if decode.graphs() else None,
+        cache_bytes=sum(t.numel() * t.element_size()
+                        for t in slots["captured"].values()))
+    del slots, prefill, decode
+    return res
+
+
+def pair_errors(name: str, r: dict, n_flash: int, errors: list) -> None:
+    """The captured-against-eager checks of an :func:`lm_serve_pair`: bit
+    for bit, two graphs (the prefill's and the decode's) and none after,
+    ``n_flash`` launches a prefill call, all ``wgmma``."""
+    if not (r["prefill_equal"] and r["decode_equal"]):
+        errors.append(f"{name}: captured != graphs.disabled() (prefill "
+                      f"{r['prefill_equal']}, decode {r['decode_equal']})")
+    if r["captured"] != 2 or r["after_warm"]:
+        errors.append(f"{name}: {r['captured']} graphs, {r['after_warm']} after "
+                      f"warm-up (expected 2 and 0)")
+    for run, got in r["launches"].items():
+        if got.get("wgmma", 0) != n_flash or sum(got.values()) != n_flash:
+            errors.append(f"{name} prefill ({run}): flash launches {got}, not "
+                          f"{n_flash} wgmma")
+
+
+def pair_line(r: dict) -> str:
+    """The graphs' readings of an :func:`lm_serve_pair`, for a log line."""
+    return (f"captured == graphs.disabled() bit for bit: prefill "
+            f"{r['prefill_equal']}, decode {r['decode_equal']}; "
+            f"{r['captured']} graphs ({r['after_warm']} after warm-up), pools "
+            f"prefill {r['pools']['prefill'] / 2**20:.1f} MiB, decode "
+            f"{r['pools']['decode'] / 2**20:.1f} MiB; a decode replay copies in "
+            f"{r['in_bytes']} bytes")
 
 
 def lm_check_decode(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -2523,6 +2669,7 @@ def lm_check_decode(name: str, got: torch.Tensor, want: torch.Tensor,
 
 def phase_lm(gen: torch.Generator, smi: str) -> dict:
     """Language-model serving through make_prefill_step / make_decode_step
+    (captured runners, held against themselves under graphs.disabled())
     and the CLI. Every check reads before any limit is applied, so one
     run prints them all; then the phase fails on any miss."""
     from repro_torch.launch import serve as serve_mod
@@ -2550,42 +2697,28 @@ def phase_lm(gen: torch.Generator, smi: str) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), device=DEV,
                          generator=gen)
     inputs = {"tokens": toks}
-    walls = {}
-    out = {}
-    for run in ("first", "timed"):
-        before = ops.flash_attention.launches
-        t1 = time.perf_counter()
-        logits_p, cache_p = lm_steps.make_prefill_step(cfg, backend="pallas")(
-            params, inputs)
-        torch.cuda.synchronize()
-        walls[run] = time.perf_counter() - t1
-        expected += L
-        if ops.flash_attention.launches - before != L:
-            errors.append(f"prefill ({run}): {ops.flash_attention.launches - before} "
-                          f"flash launches, not {L}")
-        out[run] = logits_p
-        if run == "first":
-            del cache_p
-    deterministic = torch.equal(out["first"], out["timed"])
-    t1 = time.perf_counter()
-    logits_d, cache_d = lm_steps.make_prefill_step(cfg, backend="dense")(params, inputs)
-    torch.cuda.synchronize()
-    dense_s = time.perf_counter() - t1
+    r = lm_serve_pair(cfg, params, inputs, LM_DECODE)
+    expected += 3 * L
+    pair_errors(LM_FULL, r, L, errors)
+    walls = r["walls"]
+    logits_p, logits_d = r["logits_p"], r["logits_d"]
     rel = rel_logits(logits_p, logits_d)
     fault_cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
                                                                   sliding_window=0))
-    logits_f, cache_f = lm_steps.make_prefill_step(fault_cfg, backend="pallas")(
-        params, inputs)
+    with graphs.disabled():
+        logits_f, cache_f = lm_steps.make_prefill_step(fault_cfg, backend="pallas")(
+            params, inputs)
     del cache_f
     expected += L
     rel_fault = rel_logits(logits_f, logits_d)
     by_variant = dict(ops.flash_attention.launches_by_variant)
-    log(f"[lm] prefill B{LM_BATCH} S{LM_SEQ} on the flash kernel: "
-        f"{walls['timed'] * 1e3:.1f} ms (first call {walls['first'] * 1e3:.1f} "
-        f"ms), {LM_BATCH * LM_SEQ / walls['timed']:.0f} tokens/s; dense backend "
-        f"{dense_s * 1e3:.1f} ms; flash launches {L} a prefill, by variant so far "
-        f"{by_variant} (select_variant names {want_variant!r} for bf16 hd 256); "
-        f"repeat equal bit for bit: {deterministic}")
+    log(f"[lm] prefill B{LM_BATCH} S{LM_SEQ} on the flash kernel: replayed "
+        f"{walls['replay'] * 1e3:.1f} ms ({LM_BATCH * LM_SEQ / walls['replay']:.0f} "
+        f"tokens/s), first call (eager, then the capture) "
+        f"{walls['first'] * 1e3:.1f} ms, eager {walls['eager'] * 1e3:.1f} ms; "
+        f"dense backend {walls['dense'] * 1e3:.1f} ms; flash launches {L} a "
+        f"prefill, by variant so far {by_variant} (select_variant names "
+        f"{want_variant!r} for bf16 hd 256)")
     log(f"[lm] last-position logits vs dense: ||err||/||ref|| = {rel:.3e} "
         f"(limit {LM_LOGIT_TOL}), argmax equal on "
         f"{int((logits_p.argmax(-1) == logits_d.argmax(-1)).sum())}/{LM_BATCH}; "
@@ -2595,34 +2728,33 @@ def phase_lm(gen: torch.Generator, smi: str) -> dict:
     if not rel_fault > LM_LOGIT_TOL:
         errors.append(f"the planted window fault reads {rel_fault}, within "
                       f"{LM_LOGIT_TOL}")
-    if not deterministic or not torch.isfinite(logits_p).all():
-        errors.append("prefill logits not finite or not repeatable")
+    if not torch.isfinite(logits_p).all():
+        errors.append("prefill logits not finite")
     del logits_f
 
-    # greedy decode from each cache: dense's own tokens fed to both
-    cache_p = pad_kv_cache(cache_p, LM_SEQ, LM_DECODE)
-    cache_d = pad_kv_cache(cache_d, LM_SEQ, LM_DECODE)
-    first = logits_d.argmax(-1).to(torch.int32)[:, None]
-    dec_d, fed, _ = lm_decode(cfg, params, cache_d, first, LM_SEQ, LM_DECODE)
-    dec_p, _, dec_s = lm_decode(cfg, params, cache_p, first, LM_SEQ, LM_DECODE,
-                                feed=fed)
-    worst, clear, agree = lm_check_decode(LM_FULL, dec_p, dec_d, errors)
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache_p.values())
-    decode_ms = dec_s * 1e3 / LM_DECODE
+    # greedy decode from each cache: dense's own tokens fed to all three
+    worst, clear, agree = lm_check_decode(LM_FULL, r["dec_p"], r["dec_d"], errors)
+    decode_ms, eager_ms = r["decode_ms"], r["eager_decode_ms"]
     bound_w = w_bytes / HBM_BYTES_PER_S * 1e3
-    bound_wc = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"[lm] {LM_DECODE} greedy decode steps from each cache: "
-        f"{decode_ms:.2f} ms a step ({LM_BATCH / decode_ms * 1e3:.0f} tokens/s); "
-        f"bound {bound_w:.2f} ms a step for the weights' {w_bytes / 1e9:.2f} GB at "
-        f"3.35 TB/s ({bound_wc:.2f} ms with the {cache_bytes / 1e9:.2f} GB cache "
-        f"read), {bound_w / decode_ms:.1%} of the weight bound; logits vs the dense "
-        f"cache's: worst step ||err||/||ref|| {worst:.3e}; greedy tokens equal on "
-        f"{agree}/{clear} rows with a clear top-2 gap (of "
+    bound_wc = (w_bytes + r["cache_bytes"]) / HBM_BYTES_PER_S * 1e3
+    log(f"[lm] {LM_DECODE} greedy decode steps from each cache: captured "
+        f"{decode_ms:.2f} ms a step ({LM_BATCH / decode_ms * 1e3:.0f} tokens/s; "
+        f"the capturing first step {r['decode_first_ms']:.1f} ms), eager "
+        f"{eager_ms:.2f} ms a step; bound {bound_w:.2f} ms a step for the "
+        f"weights' {w_bytes / 1e9:.2f} GB at 3.35 TB/s ({bound_wc:.2f} ms with "
+        f"the {r['cache_bytes'] / 1e9:.2f} GB cache read), {bound_w / decode_ms:.1%} "
+        f"of the weight bound captured, {bound_w / eager_ms:.1%} eager; logits "
+        f"vs the dense cache's: worst step ||err||/||ref|| {worst:.3e}; greedy "
+        f"tokens equal on {agree}/{clear} rows with a clear top-2 gap (of "
         f"{LM_BATCH * LM_DECODE}) ({smi})")
-    out = dict(prefill_ms=walls["timed"] * 1e3, decode_ms=decode_ms,
-               decode_bound_ms=bound_w, logits_rel=rel, fault_rel=rel_fault)
-    del params, cache_p, cache_d, logits_p, logits_d, dec_p, dec_d
-    torch.cuda.empty_cache()
+    log(f"[lm] {LM_FULL} graphs: {pair_line(r)}")
+    out = dict(prefill_ms=walls["replay"] * 1e3, prefill_first_ms=walls["first"] * 1e3,
+               prefill_eager_ms=walls["eager"] * 1e3, decode_ms=decode_ms,
+               decode_eager_ms=eager_ms, decode_bound_ms=bound_w,
+               decode_bound_cache_ms=bound_wc, logits_rel=rel, fault_rel=rel_fault,
+               pools=r["pools"])
+    del params, r, logits_p, logits_d
+    free_card()
 
     # the other configs: full width, depth cut (mamba2-130m whole)
     for name in LM_CUT:
@@ -2633,66 +2765,68 @@ def phase_lm(gen: torch.Generator, smi: str) -> dict:
         toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SMALL_SEQ),
                              device=DEV, generator=gen)
         n_attn = cfg.num_layers if cfg.attn is not None else 0
-        before = dict(ops.flash_attention.launches_by_variant)
-        logits_p, cache_p = lm_steps.make_prefill_step(cfg, backend="pallas")(
-            params, {"tokens": toks})
-        torch.cuda.synchronize()
-        got = {k: ops.flash_attention.launches_by_variant[k] - before[k] for k in before}
-        expected += n_attn
+        r = lm_serve_pair(cfg, params, {"tokens": toks}, LM_SMALL_DECODE)
+        expected += 3 * n_attn
         want_v = select_variant(torch.bfloat16, cfg.head_dim, True) if n_attn else None
-        if sum(got.values()) != n_attn or (n_attn and got[want_v] != n_attn):
-            errors.append(f"{name}: flash launches {got}, expected {n_attn} {want_v}")
-        logits_d, cache_d = lm_steps.make_prefill_step(cfg, backend="dense")(
-            params, {"tokens": toks})
-        rel = rel_logits(logits_p, logits_d)
+        if n_attn and want_v != "wgmma":
+            errors.append(f"{name}: select_variant names {want_v}")
+        pair_errors(name, r, n_attn, errors)
+        rel = rel_logits(r["logits_p"], r["logits_d"])
         if not rel <= LM_LOGIT_TOL:
             errors.append(f"{name} prefill logits {rel} > {LM_LOGIT_TOL}")
-        cache_p = pad_kv_cache(cache_p, LM_SMALL_SEQ, LM_SMALL_DECODE)
-        cache_d = pad_kv_cache(cache_d, LM_SMALL_SEQ, LM_SMALL_DECODE)
-        first = logits_d.argmax(-1).to(torch.int32)[:, None]
-        dec_d, fed, _ = lm_decode(cfg, params, cache_d, first, LM_SMALL_SEQ,
-                                  LM_SMALL_DECODE)
-        dec_p, _, dec_s = lm_decode(cfg, params, cache_p, first, LM_SMALL_SEQ,
-                                    LM_SMALL_DECODE, feed=fed)
-        worst, clear, agree = lm_check_decode(name, dec_p, dec_d, errors)
+        worst, clear, agree = lm_check_decode(name, r["dec_p"], r["dec_d"], errors)
         a = cfg.attn
         log(f"[lm] {name} ({cfg.family}, {cfg.num_layers} of {base.num_layers} "
             f"layers, d={cfg.d_model}"
             + (f", {a.num_heads}/{a.num_kv_heads} heads x {a.head_dim}, window "
                f"{a.sliding_window}, qkv bias {a.qkv_bias}, qk-norm {a.qk_norm}"
                if a else ", attention-free")
-            + f"): prefill B{LM_BATCH} S{LM_SMALL_SEQ} flash launches {got}; "
-            f"logits vs dense {rel:.3e}; {LM_SMALL_DECODE} decode steps "
-            f"{dec_s * 1e3 / LM_SMALL_DECODE:.2f} ms a step, worst "
-            f"{worst:.3e}, tokens equal on {agree}/{clear} clear rows")
-        if not torch.isfinite(dec_p).all():
+            + f"): prefill B{LM_BATCH} S{LM_SMALL_SEQ} flash launches "
+            f"{r['launches']['replay']} a call; replayed "
+            f"{r['walls']['replay'] * 1e3:.1f} ms, eager "
+            f"{r['walls']['eager'] * 1e3:.1f} ms; logits vs dense {rel:.3e}; "
+            f"{LM_SMALL_DECODE} decode steps captured {r['decode_ms']:.2f} ms a "
+            f"step, eager {r['eager_decode_ms']:.2f}, worst {worst:.3e}, tokens "
+            f"equal on {agree}/{clear} clear rows; {pair_line(r)}")
+        if not torch.isfinite(r["dec_p"]).all():
             errors.append(f"{name}: decode logits not finite")
-        del params, cache_p, cache_d
-        torch.cuda.empty_cache()
+        del params, r
+        free_card()
 
     launches = ops.flash_attention.launches
     by_variant = dict(ops.flash_attention.launches_by_variant)
     if launches != expected:
         errors.append(f"flash launches {launches}, expected {expected}")
 
-    # the CLI, in-process, on its default (dense) prefill backend
-    t1 = time.perf_counter()
-    cli = serve_mod.main(LM_CLI)
-    cli_s = time.perf_counter() - t1
-    log(f"[lm] repro_torch.launch.serve {' '.join(LM_CLI)}: served "
-        f"{cli['served']:.0f} requests, {cli['tokens']:.0f} decode tokens in "
-        f"{cli['seconds']:.2f}s (prefill {cli['prefill_s'] * 1e3:.0f} ms, decode "
-        f"{cli['decode_s'] * 1e3 / cli['decode_steps']:.2f} ms a step), "
-        f"{cli_s:.1f}s with the weights' draw")
-    if cli["served"] != 4 or cli["tokens"] != 4 * 15:
-        errors.append(f"the LM CLI served {cli}")
-    torch.cuda.empty_cache()
+    # the CLI, in-process, on its default (dense) prefill backend; then
+    # with --mesh and --replicas, which the LM path reads not (one device)
+    clis = {}
+    for extra in ([], ["--mesh", "1x2", "--replicas", "2"]):
+        t1 = time.perf_counter()
+        cli = clis[" ".join(extra)] = serve_mod.main(LM_CLI + extra)
+        log(f"[lm] repro_torch.launch.serve {' '.join(LM_CLI + extra)}: served "
+            f"{cli['served']:.0f} requests, {cli['tokens']:.0f} decode tokens in "
+            f"{cli['seconds']:.2f}s (prefill {cli['prefill_s'] * 1e3:.0f} ms, "
+            f"decode {cli['decode_s'] * 1e3 / cli['decode_steps']:.2f} ms a step); "
+            f"{cli['graphs_captured']:.0f} graphs captured, "
+            f"{cli['captured_after_warmup']:.0f} by the second batch, "
+            f"{cli['graph_replays']:.0f} replays, pools "
+            f"{cli['graph_pool_bytes'] / 2**20:.1f} MiB; "
+            f"{time.perf_counter() - t1:.1f}s with the weights' draw")
+        if cli["served"] != 4 or cli["tokens"] != 4 * 15:
+            errors.append(f"the LM CLI {extra} served {cli}")
+        if cli["graphs_captured"] != 2 or cli["captured_after_warmup"]:
+            errors.append(f"the LM CLI {extra} captured {cli['graphs_captured']} "
+                          f"graphs, {cli['captured_after_warmup']} after warm-up")
+        free_card()
     log(f"[lm] flash launches on the path {launches} (expected {expected}), by "
         f"variant {by_variant}; phase done in {time.perf_counter() - t0:.1f}s "
         f"({smi})")
     if errors:
         raise AssertionError("language-model serving: " + "; ".join(errors))
-    return {"launches": launches, **out}
+    out["cli_decode_ms"] = {k or "plain": v["decode_s"] * 1e3 / v["decode_steps"]
+                            for k, v in clis.items()}
+    return {"launches": launches, "seconds": time.perf_counter() - t0, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -2825,10 +2959,12 @@ def encoder_fault_check(cfg, params, frames, errors: list) -> dict:
 
 def family_run(name: str, keep: int, B: int, S: int, n_dec: int,
                gen: torch.Generator, smi: str, errors: list) -> dict:
-    """One config: weights drawn on the card, prefill on the flash kernel
-    (twice: a first call, then the timed one) and on dense, the
-    logits gap, greedy decode from both caches, the family's planted
-    fault. Returns its readings and its flash launches."""
+    """One config: weights drawn on the card, one batch served through
+    captured runners and the same runners under graphs.disabled()
+    (:func:`lm_serve_pair`: prefill on the flash kernel, decode), the
+    dense prefill (with the MoE aux) and decode under graphs.disabled(),
+    the logits gap, the family's planted fault. Returns its readings and
+    its flash launches."""
     base = get_config(name)
     cfg = dataclasses.replace(base, num_layers=keep) if keep else base
     torch.cuda.reset_peak_memory_stats()
@@ -2859,32 +2995,22 @@ def family_run(name: str, keep: int, B: int, S: int, n_dec: int,
         n_flash = cfg.encoder_layers
     else:
         n_flash = cfg.num_layers
-    out = {"launches": 0}
-    for run in ("first", "timed"):
-        before = dict(ops.flash_attention.launches_by_variant)
-        t1 = time.perf_counter()
-        logits_p, cache_p = lm_steps.make_prefill_step(cfg, backend="pallas")(
-            params, inputs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        got = {k: ops.flash_attention.launches_by_variant[k] - before[k] for k in before}
-        out["launches"] += sum(got.values())
-        if got.get("wgmma", 0) != n_flash or sum(got.values()) != n_flash:
-            errors.append(f"{name} prefill ({run}): flash launches {got}, not "
-                          f"{n_flash} wgmma")
     aux = {}
-    t1 = time.perf_counter()
-    logits_d, cache_d = lm_mod.prefill(params, inputs["tokens"], cfg, extra=inputs,
-                                       backend="dense", aux_out=aux)
-    torch.cuda.synchronize()
-    dense_s = time.perf_counter() - t1
+    r = lm_serve_pair(cfg, params, inputs, n_dec, dense_fn=lambda: lm_mod.prefill(
+        params, inputs["tokens"], cfg, extra=inputs, backend="dense", aux_out=aux))
+    pair_errors(name, r, n_flash, errors)
+    out = {"launches": sum(sum(v.values()) for v in r["launches"].values())}
+    walls = r["walls"]
+    logits_p, logits_d = r["logits_p"], r["logits_d"]
     rel = rel_logits(logits_p, logits_d)
     drop = (f", dropped_fraction {float(aux['dropped_fraction']) / cfg.num_layers:.4f} "
             f"a layer at capacity factor {cfg.moe.capacity_factor}" if aux else "")
-    log(f"[families] {name} prefill B{B} S{S}: flash {wall * 1e3:.1f} ms "
-        f"({n_flash} wgmma launches), dense {dense_s * 1e3:.1f} ms; last-position "
-        f"logits vs dense ||err||/||ref|| = {rel:.3e} (limit {LM_LOGIT_TOL}), argmax "
-        f"equal on {int((logits_p.argmax(-1) == logits_d.argmax(-1)).sum())}/{B}{drop}")
+    log(f"[families] {name} prefill B{B} S{S}: flash replayed {walls['replay'] * 1e3:.1f}"
+        f" ms (first call, eager then the capture, {walls['first'] * 1e3:.1f} ms; "
+        f"eager {walls['eager'] * 1e3:.1f} ms; {n_flash} wgmma launches a call), "
+        f"dense {walls['dense'] * 1e3:.1f} ms; last-position logits vs dense "
+        f"||err||/||ref|| = {rel:.3e} (limit {LM_LOGIT_TOL}), argmax equal on "
+        f"{int((logits_p.argmax(-1) == logits_d.argmax(-1)).sum())}/{B}{drop}")
     if not rel <= LM_LOGIT_TOL or not torch.isfinite(logits_p).all():
         errors.append(f"{name} prefill logits {rel} > {LM_LOGIT_TOL}")
     if cfg.moe is not None and keep == 0:
@@ -2892,36 +3018,37 @@ def family_run(name: str, keep: int, B: int, S: int, n_dec: int,
     if cfg.family == "audio":
         out.update(encoder_fault_check(cfg, params, inputs["frames"], errors))
 
-    cache_p = pad_kv_cache(cache_p, S, n_dec)
-    cache_d = pad_kv_cache(cache_d, S, n_dec)
-    fault = None
+    worst, clear, agree = lm_check_decode(name, r["dec_p"], r["dec_d"], errors)
+    decode_ms, eager_ms = r["decode_ms"], r["eager_decode_ms"]
+    bound = read_b / HBM_BYTES_PER_S * 1e3
+    log(f"[families] {name} {n_dec} greedy decode steps from each cache: captured "
+        f"{decode_ms:.2f} ms a step (the capturing first step "
+        f"{r['decode_first_ms']:.1f} ms), eager {eager_ms:.2f} ms a step; bound "
+        f"{bound:.2f} ms for the {read_b / 1e9:.2f} GB of weights a step reads at "
+        f"3.35 TB/s ({bound / decode_ms:.1%} of it captured, {bound / eager_ms:.1%} "
+        f"eager); logits vs the dense cache's: worst step {worst:.3e}; greedy "
+        f"tokens equal on {agree}/{clear} rows with a clear top-2 gap (of "
+        f"{B * n_dec}) ({smi})")
+    log(f"[families] {name} graphs: {pair_line(r)}")
+    if not torch.isfinite(r["dec_p"]).all():
+        errors.append(f"{name}: decode logits not finite")
     if cfg.family == "vlm":     # the vision keys and values zeroed
         fault = {k: (torch.zeros_like(t) if k in ("xk", "xv") else t.clone())
-                 for k, t in cache_d.items()}
-    first = logits_d.argmax(-1).to(torch.int32)[:, None]
-    dec_d, fed, _ = lm_decode(cfg, params, cache_d, first, S, n_dec)
-    dec_p, _, dec_s = lm_decode(cfg, params, cache_p, first, S, n_dec, feed=fed)
-    worst, clear, agree = lm_check_decode(name, dec_p, dec_d, errors)
-    decode_ms = dec_s * 1e3 / n_dec
-    bound = read_b / HBM_BYTES_PER_S * 1e3
-    log(f"[families] {name} {n_dec} greedy decode steps from each cache: "
-        f"{decode_ms:.2f} ms a step; bound {bound:.2f} ms for the "
-        f"{read_b / 1e9:.2f} GB of weights a step reads at 3.35 TB/s "
-        f"({bound / decode_ms:.1%} of it); logits vs the dense cache's: worst "
-        f"step {worst:.3e}; greedy tokens equal on {agree}/{clear} rows with a "
-        f"clear top-2 gap (of {B * n_dec}) ({smi})")
-    if not torch.isfinite(dec_p).all():
-        errors.append(f"{name}: decode logits not finite")
-    if fault is not None:
-        dec_f, _, _ = lm_decode(cfg, params, fault, first, S, n_dec, feed=fed)
-        rel_f = max(rel_logits(dec_f[:, i], dec_d[:, i]) for i in range(n_dec))
+                 for k, t in r["slot_d"].items()}
+        with graphs.disabled():
+            dec_f, _, _ = lm_decode(lm_steps.make_decode_step(cfg), params, fault,
+                                    r["first"], S, n_dec, feed=r["fed"])
+        rel_f = max(rel_logits(dec_f[:, i], r["dec_d"][:, i]) for i in range(n_dec))
         log(f"[families] {name} planted fault (decode from a cache whose vision "
             f"keys and values are zeroed): worst step {rel_f:.3e}")
         if not rel_f > LM_LOGIT_TOL:
             errors.append(f"the zeroed vision cache reads {rel_f}, within {LM_LOGIT_TOL}")
         out["vision_fault_rel"] = rel_f
-    out.update(prefill_ms=wall * 1e3, dense_prefill_ms=dense_s * 1e3, logits_rel=rel,
-               decode_ms=decode_ms, decode_bound_ms=bound, decode_rel=worst)
+        del fault
+    out.update(prefill_ms=walls["replay"] * 1e3, prefill_first_ms=walls["first"] * 1e3,
+               prefill_eager_ms=walls["eager"] * 1e3, dense_prefill_ms=walls["dense"] * 1e3,
+               logits_rel=rel, decode_ms=decode_ms, decode_eager_ms=eager_ms,
+               decode_bound_ms=bound, decode_rel=worst, pools=r["pools"])
     if aux:
         out["dropped_fraction"] = float(aux["dropped_fraction"]) / cfg.num_layers
     return out
@@ -2929,7 +3056,8 @@ def family_run(name: str, keep: int, B: int, S: int, n_dec: int,
 
 def phase_lm_families(gen: torch.Generator, smi: str) -> dict:
     """The MoE, vision and audio models through make_prefill_step /
-    make_decode_step and the CLI. Every check reads before any limit is
+    make_decode_step (captured runners, held against themselves under
+    graphs.disabled()) and the CLI. Every check reads before any limit is
     applied; then the phase fails on any miss."""
     from repro_torch.launch import serve as serve_mod
 
@@ -2942,7 +3070,7 @@ def phase_lm_families(gen: torch.Generator, smi: str) -> dict:
         r = family_run(name, keep, B, S, n_dec, gen, smi, errors)
         launches += r.pop("launches")
         results[name] = r
-        torch.cuda.empty_cache()
+        free_card()
     by_variant = dict(ops.flash_attention.launches_by_variant)
     if ops.flash_attention.launches != launches or by_variant.get("wgmma") != launches:
         errors.append(f"flash launches {ops.flash_attention.launches} by variant "
@@ -2954,16 +3082,22 @@ def phase_lm_families(gen: torch.Generator, smi: str) -> dict:
         log(f"[families] repro_torch.launch.serve {' '.join(argv)}: served "
             f"{cli['served']:.0f} requests, {cli['tokens']:.0f} decode tokens "
             f"(prefill {cli['prefill_s'] * 1e3:.0f} ms, decode "
-            f"{cli['decode_s'] * 1e3 / cli['decode_steps']:.2f} ms a step), "
+            f"{cli['decode_s'] * 1e3 / cli['decode_steps']:.2f} ms a step); "
+            f"{cli['graphs_captured']:.0f} graphs captured, "
+            f"{cli['captured_after_warmup']:.0f} by the second batch, pools "
+            f"{cli['graph_pool_bytes'] / 2**20:.1f} MiB; "
             f"{time.perf_counter() - t1:.1f}s with the weights' draw")
         if cli["served"] != 4 or cli["tokens"] != 4 * 15:
             errors.append(f"the CLI {argv[1]} served {cli}")
-        torch.cuda.empty_cache()
+        if cli["graphs_captured"] != 2 or cli["captured_after_warmup"]:
+            errors.append(f"the CLI {argv[1]} captured {cli['graphs_captured']} "
+                          f"graphs, {cli['captured_after_warmup']} after warm-up")
+        free_card()
     log(f"[families] flash launches on the path {total}, by variant {by_variant}; "
         f"phase done in {time.perf_counter() - t0:.1f}s ({smi})")
     if errors:
         raise AssertionError("MoE, vision and audio serving: " + "; ".join(errors))
-    return {"launches": total, **results}
+    return {"launches": total, "seconds": time.perf_counter() - t0, **results}
 
 
 # ---------------------------------------------------------------------------
@@ -3113,8 +3247,9 @@ def lm_full_width_run(name: str, keep: int, B: int, S: int, gen, smi: str,
         rels = {}
         for backend in ("dense", "pallas"):
             before = ops.flash_attention.launches_by_variant.get("wgmma", 0)
-            got, cache = lm_steps.make_prefill_step(cfg, backend=backend)(
-                params, {"tokens": batch["tokens"]})
+            with graphs.disabled():     # arithmetic checks, not a capture
+                got, cache = lm_steps.make_prefill_step(cfg, backend=backend)(
+                    params, {"tokens": batch["tokens"]})
             del cache
             rels[backend] = rel_logits(last, got)
             if backend == "pallas" and (ops.flash_attention.launches_by_variant
@@ -3180,9 +3315,11 @@ def lm_precision_check(run: dict, errors: list) -> dict:
 
 def lm_train_then_serve(run: dict, errors: list) -> int:
     """Check 6: the trained parameters through Checkpointer.save /
-    restore, then a pallas prefill and LMT_DECODE decode steps from the
-    restored and the in-memory parameters, equal bit for bit; flash
-    launches one a layer a prefill, all wgmma. Returns the launches."""
+    restore, then a batch served from the restored and the in-memory
+    parameters through captured runners (:func:`lm_serve_pair`: a pallas
+    prefill and LMT_DECODE decode steps, each held against the same
+    runners under graphs.disabled()), equal bit for bit; flash launches
+    one a layer a prefill call, all wgmma. Returns the launches."""
     import shutil
     import tempfile
 
@@ -3205,30 +3342,27 @@ def lm_train_then_serve(run: dict, errors: list) -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     mism = [i for i, (a, b) in enumerate(zip(tree_leaves(restored), tree_leaves(params)))
             if a.dtype != b.dtype or not torch.equal(a, b)]
-    out, fed, before = {}, None, dict(ops.flash_attention.launches_by_variant)
+    out, before = {}, dict(ops.flash_attention.launches_by_variant)
     for name, p in (("in memory", params), ("restored", restored)):
-        logits, cache = lm_steps.make_prefill_step(cfg, backend="pallas")(
-            p, {"tokens": toks})
-        cache = pad_kv_cache(cache, S, LMT_DECODE)
-        first = logits.argmax(-1).to(torch.int32)[:, None]
-        dec, f, _ = lm_decode(cfg, p, cache, first, S, LMT_DECODE, feed=fed)
-        fed = f if fed is None else fed
-        out[name] = (logits, dec)
+        out[name] = lm_serve_pair(cfg, p, {"tokens": toks}, LMT_DECODE)
+        pair_errors(f"{cfg.name} ({name})", out[name], cfg.num_layers, errors)
     got = {k: ops.flash_attention.launches_by_variant[k] - before.get(k, 0)
            for k in ops.flash_attention.launches_by_variant}
     launches = sum(got.values())
-    same = all(torch.equal(a, b) for a, b in zip(out["in memory"], out["restored"]))
+    mem, res = out["in memory"], out["restored"]
+    same = all(torch.equal(mem[k], res[k]) for k in ("logits_p", "dec_p"))
     log(f"[lm-train] {cfg.name} check 6: {LMT_K + 1} steps trained, "
         f"Checkpointer.save {nbytes / 1e9:.2f} GB in {save_s:.1f}s, restored in "
         f"{restore_s:.1f}s, leaves differing {mism}; pallas prefill of the "
-        f"{S}-token batch + {LMT_DECODE} decode steps from each: logits "
+        f"{S}-token batch + {LMT_DECODE} decode steps from each, captured: logits "
         f"restored == in memory bit for bit: {same}; flash launches {got} "
-        f"(expected {cfg.num_layers} x 2 prefills, all wgmma)")
+        f"(expected {cfg.num_layers} x 3 prefills x 2, all wgmma); restored: "
+        f"{pair_line(res)}")
     if mism or not same:
         errors.append(f"{cfg.name}: restored parameters serve differently")
-    if not launches == got.get("wgmma", 0) == 2 * cfg.num_layers:
+    if not launches == got.get("wgmma", 0) == 6 * cfg.num_layers:
         errors.append(f"{cfg.name}: train-then-serve flash launches {got}")
-    if not all(torch.isfinite(t).all() for t in out["restored"]):
+    if not all(torch.isfinite(res[k]).all() for k in ("logits_p", "dec_p")):
         errors.append(f"{cfg.name}: served logits not finite")
     return launches
 
@@ -3406,7 +3540,7 @@ def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
         f"{time.perf_counter() - t0:.1f}s ({smi})")
     if errors:
         raise AssertionError("language-model training: " + "; ".join(errors))
-    return {"launches": launches, **out}
+    return {"launches": launches, "seconds": time.perf_counter() - t0, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -4716,6 +4850,83 @@ def forward_replay(params, cfg, gen: torch.Generator, smi: str) -> dict:
     return out
 
 
+def lm_graphs(smi: str) -> dict:
+    """The LM serving loop (``launch/serve.serve_lm``'s: ``lm_prefill``
+    into the batch's slot, ``lm_decode`` on it) for each of LM_GRAPHS at
+    full width, depth cut: two batches through one prefill and one decode
+    runner, captured, then the same batches through the same runners under
+    ``graphs.disabled()`` on a slot of their own. Returns the errors and
+    the readings: tokens, logits and the slot bit for bit, flash launches
+    equal, graphs captured by each batch (two by the first, none by the
+    second), decode ms a step replayed and eager."""
+    from repro_torch.launch import serve as serve_mod
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    out, errors = {}, []
+    for name, keep in LM_GRAPHS:
+        cfg = dataclasses.replace(get_config(name), num_layers=keep)
+        params = lm_mod.init_params(cfg, gen)
+        prefill = lm_steps.make_prefill_step(cfg, backend="pallas")
+        decode = lm_steps.make_decode_step(cfg)
+        batches = [torch.randint(0, cfg.vocab_size, (LM_G_BATCH, LM_G_SEQ),
+                                 device=DEV, generator=gen) for _ in range(2)]
+        sides = {}
+        for side in ("captured", "eager"):
+            ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+            slot = lm_mod.serve_slot(cfg, LM_G_BATCH, LM_G_SEQ + LM_G_DECODE, DEV)
+            runs = []
+            with ctx, torch.inference_mode():
+                for toks in batches:
+                    ops.reset_launches()
+                    before = prefill.captures + decode.captures
+                    logits, prefill_s = timed_call(lambda: serve_mod.lm_prefill(
+                        prefill, params, {"tokens": toks}, slot))
+                    tok = logits.argmax(-1).to(torch.int32)[:, None]
+                    (toks_out, dec), dec_s = timed_call(lambda: serve_mod.lm_decode(
+                        decode, params, slot, tok, LM_G_SEQ, LM_G_DECODE))
+                    runs.append(dict(
+                        logits=logits, gen=toks_out, dec=dec,
+                        cache={k: t.clone() for k, t in slot.items()},
+                        launches=dict(ops.flash_attention.launches_by_variant),
+                        captured=prefill.captures + decode.captures - before,
+                        prefill_ms=prefill_s * 1e3, decode_ms=dec_s * 1e3 / LM_G_DECODE))
+            sides[side] = runs
+        cap, eag = sides["captured"], sides["eager"]
+        equal = all(torch.equal(c[k], e[k]) for c, e in zip(cap, eag)
+                    for k in ("logits", "gen", "dec")) and all(
+            torch.equal(c["cache"][k], e["cache"][k]) for c, e in zip(cap, eag)
+            for k in e["cache"])
+        launches = [c["launches"] for c in cap]
+        if not equal:
+            errors.append(f"LM {name}: captured != graphs.disabled()")
+        if launches != [e["launches"] for e in eag] or any(
+                l["wgmma"] != keep or sum(l.values()) != keep for l in launches):
+            errors.append(f"LM {name}: flash launches {launches} vs eager "
+                          f"{[e['launches'] for e in eag]}")
+        if [c["captured"] for c in cap] != [2, 0] or any(e["captured"] for e in eag):
+            errors.append(f"LM {name}: graphs captured by batch "
+                          f"{[c['captured'] for c in cap]}, eager "
+                          f"{[e['captured'] for e in eag]}")
+        stats = graphs.stats([prefill, decode])
+        out[name] = dict(prefill_ms=cap[1]["prefill_ms"],
+                         prefill_eager_ms=eag[1]["prefill_ms"],
+                         decode_ms=cap[1]["decode_ms"],
+                         decode_eager_ms=eag[1]["decode_ms"],
+                         pool_bytes=stats["graph_pool_bytes"])
+        log(f"[graphs] LM {name} ({keep} layers at full width) served twice "
+            f"(B{LM_G_BATCH}, {LM_G_SEQ}-token prompts, {LM_G_DECODE} decode "
+            f"steps) through one prefill and one decode runner: graphs captured "
+            f"by batch {[c['captured'] for c in cap]}, then {stats['replays']} "
+            f"replays, pools {stats['graph_pool_bytes'] / 2**20:.1f} MiB; second "
+            f"batch: prefill {cap[1]['prefill_ms']:.1f} ms replayed vs "
+            f"{eag[1]['prefill_ms']:.1f} eager, decode {cap[1]['decode_ms']:.2f} "
+            f"ms a step replayed vs {eag[1]['decode_ms']:.2f} eager; flash "
+            f"launches {launches} == eager; tokens, logits and slot == "
+            f"graphs.disabled() bit for bit: {equal} ({smi})")
+        del params, prefill, decode, sides, cap, eag
+        free_card()
+    return {"errors": errors, **out}
+
+
 def phase_graphs(smi: str) -> dict:
     """Phase 17: every DiT runner captured once, against the same run
     eager; see the module docstring."""
@@ -4803,13 +5014,16 @@ def phase_graphs(smi: str) -> dict:
         f"{same}")
     if not (done and same):
         errors.append("warm-up thread: did not finish, or x0 differs")
+    del pipe, spipe, eng, other
+    free_card()
+    # (e) the LM serving loop's two runners
+    lm = lm_graphs(smi)
+    errors += lm.pop("errors")
     secs = time.perf_counter() - t0
     log(f"[graphs] phase 17 in {secs:.1f}s ({smi})")
-    del pipe, spipe, eng, other
-    torch.cuda.empty_cache()
     if errors:
         raise AssertionError("phase 17: " + "; ".join(errors))
-    return {"seconds": secs,
+    return {"seconds": secs, "lm": lm,
             "forward_ms": {m: {k: r[k] for k in ("eager", "replay", "bound")}
                            for m, r in fw.items()}}
 
@@ -4843,6 +5057,22 @@ def main() -> None:
         got = phase_graphs(smi)
         print(smi)
         print(json.dumps({"only": "graphs", "ok": True, **got}), flush=True)
+        return
+    if sys.argv[1:] == ["--only", "lm"]:          # phases 11-13 alone
+        phase_build()
+        got = {"lm": phase_lm(torch.Generator(device=DEV).manual_seed(SEED + 5), smi)}
+        free_card()
+        got["families"] = phase_lm_families(
+            torch.Generator(device=DEV).manual_seed(SEED + 7), smi)
+        free_card()
+        got["lm_train"] = phase_lm_train(
+            torch.Generator(device=DEV).manual_seed(SEED + 8), smi)
+        log(f"[walls] phases 11 / 12 / 13: {got['lm']['seconds']:.1f} / "
+            f"{got['families']['seconds']:.1f} / {got['lm_train']['seconds']:.1f} s")
+        print(smi)
+        print(json.dumps({"only": "lm", "ok": True, **{
+            k: {kk: vv for kk, vv in v.items() if isinstance(vv, (int, float))}
+            for k, v in got.items()}}), flush=True)
         return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()
@@ -4894,7 +5124,10 @@ def main() -> None:
     free_card()
     plan = phase_plan(smi, sharded["bytes"])
     free_card()
-    phase_graphs(smi)
+    graphs_run = phase_graphs(smi)
+    log(f"[walls] phases 11 / 12 / 13 / 17: {lm['seconds']:.1f} / "
+        f"{families['seconds']:.1f} / {lm_train['seconds']:.1f} / "
+        f"{graphs_run['seconds']:.1f} s ({smi})")
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],

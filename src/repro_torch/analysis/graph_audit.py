@@ -32,7 +32,12 @@ Invariances asserted (``graph-fingerprint-drift`` on violation):
   contents at fixed geometry (a pack-layout occupancy change);
 * the tapped packed step: dropping its tap outputs and eliminating dead
   code gives the untapped graph exactly (``graph-tap-structure``), and it
-  is ladder-invariant too.
+  is ladder-invariant too;
+* the language models' serving steps (``launch/steps.make_prefill_step``
+  / ``make_decode_step``), one tiny config a family (dense with window,
+  softcap and scaled embeddings; MoE; hybrid; vision; audio): the
+  prefill at two token contents, and the decode on one cache slot at two
+  positions and two token contents.
 
 Each graph is walked for host reads (``graph-host-sync``:
 ``aten._local_scalar_dense`` and kin, a sync that fails a capture) and
@@ -40,7 +45,9 @@ silent widenings (``graph-dtype-promotion``, a warning, as in the
 reference). ``graph-uncaptured-runner`` (the counterpart of the
 reference's ``jaxpr-nondonated-hotbuf`` check on its hot ``jax.jit``
 entry points) builds every kind of runner ``FlexiPipeline._lookup``
-caches and fails on one that does not go through ``runtime.graphs``.
+caches and both LM step factories, and fails on one that does not go
+through ``runtime.graphs`` (or a decode step that does not donate its
+cache).
 
 What the fingerprint does NOT prove, as in the reference: equality of
 phase runners across budgets (a budget switch changes the phase split of
@@ -64,6 +71,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from repro_torch.analysis.engine import Finding
 
 PIPELINE_PATH = "src/repro_torch/pipeline/pipeline.py"
+LM_STEPS_PATH = "src/repro_torch/launch/steps.py"
 
 #: aten ops that read a device value to the host (a sync: a capture fails)
 HOST_SYNC_OPS = {"_local_scalar_dense", "is_nonzero", "equal", "item"}
@@ -209,18 +217,19 @@ class AuditReport:
     fingerprints: Dict[str, str]
 
 
-def _drift(unit: str, fps: Dict[str, str], what: str) -> List[Finding]:
+def _drift(unit: str, fps: Dict[str, str], what: str,
+           path: str = PIPELINE_PATH) -> List[Finding]:
     """One finding if the fingerprints in ``fps`` are not all equal."""
     if len(set(fps.values())) <= 1:
         return []
     detail = ", ".join(f"{k}={v[:10]}" for k, v in fps.items())
     return [Finding(
-        "graph-fingerprint-drift", "error", PIPELINE_PATH, 0,
+        "graph-fingerprint-drift", "error", path, 0,
         f"{unit}: graph fingerprint differs across {what} — a data-only "
         f"switch would capture again ({detail})", unit)]
 
 
-def _trace(unit: str, fn: Callable, *args
+def _trace(unit: str, fn: Callable, *args, path: str = PIPELINE_PATH
            ) -> Tuple[Optional[torch.fx.GraphModule], List[Finding]]:
     try:
         return trace(fn, *args), []
@@ -230,28 +239,28 @@ def _trace(unit: str, fn: Callable, *args
         rule = ("graph-host-sync" if "_local_scalar_dense" in str(e)
                 else "graph-trace-failure")
         return None, [Finding(
-            rule, "error", PIPELINE_PATH, 0,
+            rule, "error", path, 0,
             f"{unit} no longer traces: {type(e).__name__}: "
             f"{str(e)[:200]}", unit)]
 
 
 def _invariant(unit: str, cases: Dict[str, Tuple[Callable, Tuple]],
-               what: str) -> AuditReport:
+               what: str, path: str = PIPELINE_PATH) -> AuditReport:
     """Trace ``fn(*args)`` per case; drift if the fingerprints differ,
     plus the walks of the last graph."""
     findings: List[Finding] = []
     fps: Dict[str, str] = {}
     last = None
     for tag, (fn, args) in cases.items():
-        gm, errs = _trace(unit, fn, *args)
+        gm, errs = _trace(unit, fn, *args, path=path)
         findings.extend(errs)
         if gm is None:
             continue
         fps[tag] = fingerprint(gm)
         last = gm
-    findings.extend(_drift(unit, fps, what))
+    findings.extend(_drift(unit, fps, what, path))
     if last is not None:
-        findings.extend(check_graph(last, unit))
+        findings.extend(check_graph(last, unit, path))
     return AuditReport(findings, {unit: next(iter(fps.values()), "")})
 
 
@@ -554,7 +563,110 @@ def audit_runners() -> AuditReport:
                 f"the {sym} runner FlexiPipeline._lookup built does not go "
                 f"through runtime.graphs: it would run eagerly on the card",
                 "FlexiPipeline._lookup"))
+    findings.extend(lm_runner_findings())
     return AuditReport(findings, {})
+
+
+# ---------------------------------------------------------------------------
+# The language models' serving steps
+
+#: one tiny config a family: dense with window, softcap and scaled
+#: embeddings (gemma2), MoE, hybrid (attention beside an SSM), vision, audio
+LM_AUDIT_ARCHS = ("gemma2-9b", "deepseek-moe-16b", "hymba-1.5b",
+                  "llama-3.2-vision-90b", "whisper-small")
+LM_B, LM_S, LM_NEW = 2, 8, 4
+
+
+@functools.lru_cache(maxsize=None)
+def _tiny_lm(arch: str):
+    """The arch's reduced config (float32) and its parameters from seed 0,
+    on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    return cfg, lm.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def _lm_inputs(cfg, seed: int) -> Dict[str, torch.Tensor]:
+    """A prompt batch (and the vision / audio states) drawn from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (LM_B, LM_S),
+                                      generator=g, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        inputs["vision"] = torch.randn((LM_B, cfg.vision_tokens, cfg.d_model),
+                                       generator=g)
+    if cfg.family == "audio":
+        inputs["frames"] = torch.randn((LM_B, cfg.audio_frames, cfg.d_model),
+                                       generator=g)
+    return inputs
+
+
+def audit_lm_steps(arch: str, decode_body: Optional[Callable] = None
+                   ) -> AuditReport:
+    """The bodies ``launch/steps`` captures for ``arch``'s tiny config: the
+    prefill at two token contents gives one graph, the decode on one cache
+    slot (``lm.serve_slot``) at two positions and two token contents gives
+    one graph; each walked for host reads. ``decode_body`` stands in for
+    the decode step's body (a planted fault)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    cfg, params = _tiny_lm(arch)
+    prefill = steps.make_prefill_step(cfg).fn
+    decode = decode_body or steps.make_decode_step(cfg).fn
+    out = _invariant(f"lm_prefill[{arch}]", {
+        f"tokens-{seed}": (prefill, (params, _lm_inputs(cfg, seed)))
+        for seed in (0, 1)}, "token contents", LM_STEPS_PATH)
+    slot = lm.serve_slot(cfg, LM_B, LM_S + LM_NEW, "cpu")
+    cases = {}
+    for i in range(2):
+        tok = _lm_inputs(cfg, 2 + i)["tokens"][:, :1]
+        pos = torch.full((LM_B,), LM_S + i, dtype=torch.int32)
+        cases[f"pos-{LM_S + i}"] = (decode, (params, slot, tok, pos))
+    rep = _invariant(f"lm_decode[{arch}]", cases,
+                     "positions and token contents", LM_STEPS_PATH)
+    out.findings.extend(rep.findings)
+    out.fingerprints.update(rep.fingerprints)
+    return out
+
+
+def audit_lm_serving() -> AuditReport:
+    """:func:`audit_lm_steps` for every family of ``LM_AUDIT_ARCHS``."""
+    out = AuditReport([], {})
+    for arch in LM_AUDIT_ARCHS:
+        rep = audit_lm_steps(arch)
+        out.findings.extend(rep.findings)
+        out.fingerprints.update(rep.fingerprints)
+    return out
+
+
+def lm_runner_findings(factories: Optional[Dict[str, Tuple[Callable, Tuple[
+        int, ...]]]] = None) -> List[Finding]:
+    """``graph-uncaptured-runner`` over the LM step factories (name →
+    (factory, the arguments its runner must donate); default
+    ``launch/steps``' two, the decode donating its cache as the
+    reference's ``donate_argnums=(1,)``): each must return a
+    ``runtime.graphs`` runner captured on CUDA."""
+    from repro_torch.launch import steps
+    from repro_torch.runtime import graphs
+    if factories is None:
+        factories = {"make_prefill_step": (steps.make_prefill_step, ()),
+                     "make_decode_step": (steps.make_decode_step, (1,))}
+    cfg, _ = _tiny_lm(LM_AUDIT_ARCHS[0])
+    findings = []
+    for name, (factory, donate) in factories.items():
+        runner = factory(cfg)
+        if not isinstance(runner, graphs.Captured) or runner.eager_only:
+            why = ("does not go through runtime.graphs: it would run eagerly "
+                   "on the card")
+        elif runner.donate != donate:
+            why = (f"donates arguments {runner.donate}, not {donate}: on the "
+                   f"card the cache would be copied in and cloned out a step")
+        else:
+            continue
+        findings.append(Finding(
+            "graph-uncaptured-runner", "error", LM_STEPS_PATH, 0,
+            f"the runner of launch/steps.{name} {why}", name))
+    return findings
 
 
 # ---------------------------------------------------------------------------
@@ -568,7 +680,7 @@ def audit_step_functions() -> AuditReport:
     fingerprints: Dict[str, str] = {}
     units = [audit_plain_step, audit_packed_step, audit_packed_cached_step,
              audit_cached_runner, audit_tapped_step,
-             audit_attention_segments, audit_runners]
+             audit_attention_segments, audit_runners, audit_lm_serving]
     for unit in units:
         try:
             with torch.inference_mode(False), torch.no_grad():

@@ -1,6 +1,7 @@
 """Serving entry point of the port: ``repro.launch.serve``'s DiT path and
 its language-model path (:func:`serve_lm`: batches of prompts prefilled,
-then greedy KV-cache decode, for the dense, hybrid and SSM models).
+then greedy KV-cache decode, for every language-model family, both steps
+captured once as CUDA graphs on the card).
 
 Requests carry a class label, a relative-compute budget quantized onto
 the ``--budget-levels`` plan menu, and a deadline; the continuous-batching
@@ -34,8 +35,8 @@ requests, in DATA x SEQ rank processes started here
 rule of ``launch/mesh.py``: ``gloo`` on the CPU, ``nccl`` when every rank
 has its own card, and ranks that share a card need ``--dist-backend
 gloo``. ``--mesh`` with ``--replicas`` (a router over multi-process
-replicas) is not ported and raises, and so does ``--replicas`` with a
-language model (the fleet serves DiT requests).
+replicas) is not ported and raises. The language-model path reads
+neither flag: it serves on one device, as the reference's does.
 
 Runs on CUDA unless ``--device cpu``.
 
@@ -56,7 +57,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,34 +146,72 @@ def serve_dit(cfg, args) -> Dict[str, float]:
     return _serve_dit_engine(cfg, args, pipe, plans)
 
 
+def lm_prefill(prefill, params, inputs: Dict[str, torch.Tensor],
+               slot: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One batch's prefill through the ``prefill`` runner, its cache
+    written into ``slot`` (``runtime.padding.write_kv_slot``: K/V at the
+    prompt's positions, zeros after). Returns the last-position logits
+    [B, V] float32."""
+    from repro_torch.runtime.padding import write_kv_slot
+
+    logits, cache = prefill(params, inputs)
+    write_kv_slot(slot, cache, inputs["tokens"].shape[1])
+    return logits
+
+
+def lm_decode(decode, params, slot: Dict[str, torch.Tensor],
+              tok: torch.Tensor, start: int, n: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n`` greedy decode steps through the ``decode`` runner from token
+    ``tok`` [B, 1] at position ``start``, written into ``slot`` in place.
+    Returns (the tokens each step chose [B, n] int32, their logits [B, n,
+    V] float32)."""
+    toks, logits_all = [], []
+    for i in range(n):
+        pos = torch.full((tok.shape[0],), start + i, dtype=torch.int32,
+                         device=tok.device)
+        logits, _ = decode(params, slot, tok, pos)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        logits_all.append(logits)
+    if not toks:            # --max-new 1: the prefill's token only
+        return tok[:, :0], torch.empty((tok.shape[0], 0, 0), device=tok.device)
+    return torch.cat(toks, dim=1), torch.stack(logits_all, dim=1)
+
+
 def serve_lm(cfg, args) -> Dict[str, float]:
     """Serve language-model requests as the reference does: random prompts
     of ``--prompt-len`` tokens (numpy, seed 0) in batches of
     ``--batch-slots``, each batch prefilled on the default backend (the
     vision model's image states and whisper's audio frames zeros, as the
-    reference feeds them), its cache padded by ``--max-new`` positions,
-    then ``--max-new`` - 1 greedy decode steps. Weights are random
-    (``lm.init_params`` from seed 0 on ``args.device``). Returns the
-    counts and the wall times (prefill and decode, each ending in a device
-    synchronisation)."""
+    reference feeds them), then ``--max-new`` - 1 greedy decode steps.
+    Weights are random (``lm.init_params`` from seed 0 on
+    ``args.device``).
+
+    The prefill and decode steps are built once (``launch/steps``: the
+    reference's two ``jax.jit``), captured as CUDA graphs on the card.
+    Each batch size has one cache slot of ``--prompt-len`` +
+    ``--max-new`` positions (``lm.serve_slot``), made at its first batch;
+    each prefill's cache is copied into it, and the decode replays on it
+    in place. After the first batch of a size, a batch captures nothing.
+    ``--mesh`` and ``--replicas`` are read by the DiT path only: the LM
+    path serves on one device, as the reference's does. Returns the counts,
+    the wall times (prefill and decode, each ending in a device
+    synchronisation) and the graphs' counts."""
     from repro_torch.device import resolve_device
     from repro_torch.launch import steps as st
     from repro_torch.models import lm
-    from repro_torch.runtime.padding import pad_kv_cache
+    from repro_torch.runtime import graphs
 
-    if getattr(args, "mesh", None):
-        raise NotImplementedError("--mesh: sharded language-model serving "
-                                  "comes with a later distributed slice of "
-                                  "the port (ROADMAP queue 1)")
-    if getattr(args, "replicas", 1) > 1:
-        raise NotImplementedError("--replicas: the fleet serves DiT requests; "
-                                  "a language-model fleet is not part of the "
-                                  "port")
+    if getattr(args, "mesh", None) or getattr(args, "replicas", 1) > 1:
+        print("[lm] the language-model path reads neither --mesh nor "
+              "--replicas: serving on one device, as the reference does")
     device = resolve_device(getattr(args, "device", None))
     params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0))
     B = args.batch_slots
     prefill = st.make_prefill_step(cfg)
     decode = st.make_decode_step(cfg)
+    slots: Dict[int, Dict[str, torch.Tensor]] = {}
 
     def sync() -> float:
         if device.type == "cuda":
@@ -183,13 +222,18 @@ def serve_lm(cfg, args) -> Dict[str, float]:
     pending: List[np.ndarray] = [
         rng.integers(0, cfg.vocab_size, size=(args.prompt_len,), dtype=np.int32)
         for _ in range(args.requests)]
-    done = tokens_out = n_steps = 0
+    done = tokens_out = n_steps = late = 0
     prefill_s = decode_s = 0.0
     t0 = sync()
     with torch.inference_mode():
         while pending:
             batch = [pending.pop(0) for _ in range(min(B, len(pending)))]
             n = len(batch)
+            warm = n in slots
+            if not warm:
+                slots[n] = lm.serve_slot(cfg, n, args.prompt_len + args.max_new,
+                                         device)
+            before = prefill.captures + decode.captures
             t1 = sync()
             inputs = {"tokens": torch.from_numpy(np.stack(batch)).to(device)}
             if cfg.family == "vlm":      # the stub front ends: zero states
@@ -198,36 +242,39 @@ def serve_lm(cfg, args) -> Dict[str, float]:
             if cfg.family == "audio":
                 inputs["frames"] = torch.zeros(
                     (n, cfg.audio_frames, cfg.d_model), device=device)
-            logits, cache = prefill(params, inputs)
-            # pad the cache along seq so decode can write new positions
-            cache = pad_kv_cache(cache, args.prompt_len, args.max_new)
+            logits = lm_prefill(prefill, params, inputs, slots[n])
             tok = logits.argmax(-1).to(torch.int32)[:, None]
             t2 = sync()
-            outs = [tok]
-            for i in range(args.max_new - 1):
-                pos = torch.full((n,), args.prompt_len + i, dtype=torch.int32,
-                                 device=device)
-                logits, cache = decode(params, cache, tok, pos)
-                tok = logits.argmax(-1).to(torch.int32)[:, None]
-                outs.append(tok)
-                tokens_out += n
-                n_steps += 1
+            toks, _ = lm_decode(decode, params, slots[n], tok, args.prompt_len,
+                                args.max_new - 1)
             t3 = sync()
+            if warm:
+                late += prefill.captures + decode.captures - before
+            tokens_out += n * toks.shape[1]
+            n_steps += toks.shape[1]
             prefill_s += t2 - t1
             decode_s += t3 - t2
             done += n
-            gen = torch.cat(outs, dim=1)
+            gen = torch.cat([tok, toks], dim=1)
             print(f"[batch done] {n} reqs, first gen: "
                   f"{gen[0].cpu().numpy()[:8].tolist()}", flush=True)
     dt = sync() - t0
+    g = graphs.stats([prefill, decode])
     print(f"served {done} requests, {tokens_out} tokens in {dt:.1f}s "
           f"({tokens_out / max(dt, 1e-9):.1f} tok/s)")
     print(f"[lm] {cfg.name} on {device}: prefill {prefill_s * 1e3:.1f} ms in "
           f"all, decode {decode_s * 1e3 / max(1, n_steps):.2f} ms a step "
           f"({n_steps} steps)")
+    print(f"[graphs] prefill and decode: {g['captured']} graphs captured "
+          f"({late} after the first batch of a size), {g['replays']} "
+          f"replays, pools {g['graph_pool_bytes'] / 2**20:.1f} MiB")
     return {"served": float(done), "tokens": float(tokens_out),
             "seconds": dt, "prefill_s": prefill_s, "decode_s": decode_s,
-            "decode_steps": float(n_steps)}
+            "decode_steps": float(n_steps),
+            "graphs_captured": float(g["captured"]),
+            "graph_replays": float(g["replays"]),
+            "graph_pool_bytes": float(g["graph_pool_bytes"]),
+            "captured_after_warmup": float(late)}
 
 
 def _serve_dit_mesh(cfg, args) -> Dict[str, float]:
@@ -620,14 +667,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                     help="p99 latency SLO for the watchdog's rolling "
                          "breach detector (default: off)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="serve through a fleet of N packed engines behind "
-                         "a router (all on the one card)")
+                    help="serve DiT requests through a fleet of N packed "
+                         "engines behind a router (all on the one card); "
+                         "the LM path serves on one device")
     ap.add_argument("--router", default="cheapest",
                     choices=["cheapest", "rr", "affinity"],
                     help="fleet placement policy (--replicas > 1)")
     ap.add_argument("--mesh", default=None, metavar="DATAxSEQ",
                     help="serve DiT requests sequence-parallel over DATA x "
-                         "SEQ rank processes started here, e.g. 1x2")
+                         "SEQ rank processes started here, e.g. 1x2 (the LM "
+                         "path serves on one device)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="--mesh: the torch.distributed backend (default: "
                          "gloo on the CPU, nccl when every rank has its own "

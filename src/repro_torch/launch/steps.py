@@ -29,6 +29,7 @@ from repro_torch.models import dit as dit_mod
 from repro_torch.models import lm
 from repro_torch.models.common import dtype_of, tree_map
 from repro_torch.optim.adamw import TrainStep, value_and_grad
+from repro_torch.runtime import graphs
 from repro_torch.runtime import placement as plc
 from repro_torch.runtime.sharding import data_mean
 
@@ -92,25 +93,45 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     return TrainStep(loss_fn, _no_draws, tc, trainable, stacked)
 
 
-def make_prefill_step(cfg: ModelConfig, backend: str = "xla") -> Callable:
+def make_prefill_step(cfg: ModelConfig, backend: str = "xla"
+                      ) -> graphs.Captured:
     """(params, inputs) → (last-position logits [B,V] float32, cache);
     ``inputs["tokens"]``: [B,S] int, with ``inputs["vision"]`` [B,
     vision_tokens, d] for the vision model and ``inputs["frames"]`` [B,
     audio_frames, d] for whisper. ``backend="pallas"`` runs on the flash
     kernel the attention the reference sends to its Pallas kernel (see
-    ``models/lm.py``)."""
-    def prefill_step(params, inputs):
+    ``models/lm.py``).
+
+    The step is a ``runtime.graphs`` runner, the counterpart of the
+    reference's ``jax.jit(make_prefill_step(cfg))``: on the card one CUDA
+    graph per (batch, prompt length) and this runner's backend, captured
+    at the first call and replayed after it; another batch size or prompt
+    length is another graph, as a new shape retraces the reference's
+    ``jit``. The cache comes back as the graph's outputs do, cloned: copy
+    it into the batch's slot (``runtime.padding.write_kv_slot``)."""
+    def prefill_step(params, inputs):  # repro: traced
         return lm.prefill(params, inputs["tokens"], cfg, extra=inputs,
                           backend=backend)
-    return prefill_step
+    return graphs.capture(prefill_step, name=f"prefill[{backend}]")
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig) -> graphs.Captured:
     """(params, cache, token [B,1], pos [B]) → (logits [B,V] float32,
-    cache updated in place)."""
-    def decode_step(params, cache, token, pos):
+    cache updated in place).
+
+    The step is a ``runtime.graphs`` runner with the cache donated, the
+    counterpart of the reference planner's ``jax.jit(make_decode_step(cfg),
+    donate_argnums=(1,))``: on the card one CUDA graph per cache (keyed by
+    the identity of its tensors: a served batch's slot, ``lm.serve_slot``,
+    made once per batch size) and per shape of token and position. A
+    replay copies in the token and the position only, writes the K/V
+    entry and the SSM state into the caller's cache, and returns that same
+    cache object; the graph holds its tensors. A batch of another size
+    decodes in another slot, so it is another graph, as a new shape
+    retraces the reference's ``jit``."""
+    def decode_step(params, cache, token, pos):  # repro: traced
         return lm.decode_step(params, cache, token, pos, cfg)
-    return decode_step
+    return graphs.capture(decode_step, name="decode", donate=(1,))
 
 
 # ---------------------------------------------------------------------------

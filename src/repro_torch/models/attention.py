@@ -335,7 +335,7 @@ def _quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale.to(torch.bfloat16)
 
 
-def decode_attention(params: Params, cache: Params, x: torch.Tensor,
+def decode_attention(params: Params, cache: Params, x: torch.Tensor,  # repro: traced
                      pos: torch.Tensor, cfg: AttnConfig, *,
                      window: int = 0) -> Tuple[torch.Tensor, Params]:
     """One decode step. x: [B,1,d]; pos: [B] current position (int).
@@ -373,7 +373,7 @@ def decode_attention(params: Params, cache: Params, x: torch.Tensor,
     return _out_proj(params, out, x.dtype), dict(cache)
 
 
-def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig, *,
+def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig, *,  # repro: traced
                       window: int = 0, backend: str = "xla"
                       ) -> Tuple[torch.Tensor, Params]:
     """Prefill: causal self-attention that also returns the populated

@@ -90,7 +90,7 @@ def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig
     return mlp_apply(p["mlp"], h, cfg.mlp_activation), {}
 
 
-def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,  # repro: traced
                 window: int = 0, mode: str = "train",
                 cache: Optional[Params] = None,
                 pos: Optional[torch.Tensor] = None,

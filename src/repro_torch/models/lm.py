@@ -9,7 +9,10 @@ cross layers ``[G, ...]`` under ``groups``; whisper's ``enc_blocks`` and
 those leaves, so each layer's window is a static int (the reference's
 unrolled route); the cache is stacked the same way. Decode writes each
 layer's new K/V entry and SSM state into the cache it is given, in place,
-and returns that cache.
+and returns that cache. On the card, prefill and decode run inside the
+CUDA graphs of ``launch/steps``' runners (their defs carry the
+``# repro: traced`` mark of the capture-safety rule): they read no
+device value on the host and copy nothing from it.
 
 Which attention runs the flash kernel on ``backend="pallas"`` follows the
 reference: every self-attention layer of the dense, MoE and hybrid
@@ -32,6 +35,7 @@ data axes (``runtime/sharding.data_sum`` / ``data_mean``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -130,17 +134,19 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 # Embedding / unembedding
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor,
+def embed_tokens(params: Params, tokens: torch.Tensor,  # repro: traced
                  cfg: ModelConfig) -> torch.Tensor:
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
     if cfg.scale_embeddings:
-        # sqrt(d) in float32, then rounded to x's dtype, as the reference
-        scale = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.float32)
-        x = x * scale.to(x.dtype).to(x.device)
+        # sqrt(d) in float32, then rounded to x's dtype, as the reference;
+        # filled on the device (a host copy would fail a capture)
+        scale = torch.full((), math.sqrt(float(cfg.d_model)),
+                           dtype=torch.float32, device=x.device)
+        x = x * scale.to(x.dtype)
     return x
 
 
-def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:  # repro: traced
     """Final norm, then logits with a float32 result (one rounding of the
     products' sums), soft-capped."""
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
@@ -152,10 +158,12 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Aux losses of the MoE layers, summed over layers
 
 
-def _aux_zero(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def _aux_zero(cfg: ModelConfig, device: Any = None
+              ) -> Dict[str, torch.Tensor]:
+    """The sums' zeros, on ``device`` (the activations')."""
     if cfg.moe is None:
         return {}
-    return {k: torch.zeros((), dtype=torch.float32)
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
             for k in ("load_balance", "router_z", "dropped_fraction")}
 
 
@@ -229,7 +237,7 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     [B,S] keeps packed documents apart (dense, MoE and hybrid layers, as
     the reference)."""
     x = embed_tokens(params, tokens, cfg)
-    aux = _aux_zero(cfg)
+    aux = _aux_zero(cfg, x.device)
     if cfg.family == "vlm":
         vis = extra["vision"].to(x.dtype)
         vis = torch.matmul(vis, params["vision_proj"].to(x.dtype))
@@ -334,6 +342,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return c
 
 
+def serve_slot(cfg: ModelConfig, batch: int, max_len: int,
+               device: Any = None) -> Params:
+    """The cache a served batch decodes in: :func:`init_cache`'s leaves
+    for ``batch`` rows of ``max_len`` positions, made once per batch size
+    and written by each prefill (``runtime.padding.write_kv_slot``), so a
+    captured decode step replays on the same tensors batch after batch.
+    Its K/V are in the compute dtype, as a prefill writes them (a served
+    cache holds no int8 scales: the reference pads its prefill's)."""
+    return init_cache(dataclasses.replace(cfg, kv_cache_dtype="compute"),
+                      batch, max_len, device)
+
+
 def _store(cache: Params, index: Tuple[int, ...], n: Tuple[int, ...],
            c: Params) -> None:
     """Write one layer's cache entries at ``index`` of the stacked leaves
@@ -344,7 +364,7 @@ def _store(cache: Params, index: Tuple[int, ...], n: Tuple[int, ...],
         cache[k][index].copy_(t)
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,  # repro: traced
             extra: Optional[Dict[str, torch.Tensor]] = None,
             backend: str = "xla",
             aux_out: Optional[Dict[str, torch.Tensor]] = None
@@ -370,7 +390,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, cache = _vlm_prefill(params["groups"], x, vis, cfg, backend)
     else:
         windows = layer_windows(cfg)
-        aux = _aux_zero(cfg)
+        aux = _aux_zero(cfg, x.device)
         for i in range(cfg.num_layers):
             x, c, a = block_apply(_layer(params["blocks"], i), x, cfg,
                                   window=int(windows[i]), mode="prefill",
@@ -383,7 +403,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return logits, cache
 
 
-def _vlm_prefill(groups: Params, x: torch.Tensor, vis: torch.Tensor,
+def _vlm_prefill(groups: Params, x: torch.Tensor, vis: torch.Tensor,  # repro: traced
                  cfg: ModelConfig, backend: str) -> Tuple[torch.Tensor, Params]:
     """Each group: its k-1 self layers (window 0, on ``backend``), then the
     gated cross layer over the projected vision states, whose keys and
@@ -404,7 +424,7 @@ def _vlm_prefill(groups: Params, x: torch.Tensor, vis: torch.Tensor,
     return x, cache
 
 
-def _audio_encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+def _audio_encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,  # repro: traced
                   backend: str = "xla") -> torch.Tensor:
     """Whisper encoder over frame embeddings [B,F,d] (the conv front end
     is a stub, as in the reference: frames arrive embedded); non-causal
@@ -416,7 +436,7 @@ def _audio_encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     return apply_norm(params["enc_norm"], h, cfg.norm_type)
 
 
-def _audio_decoder(dec_p: Params, x: torch.Tensor, enc: torch.Tensor,
+def _audio_decoder(dec_p: Params, x: torch.Tensor, enc: torch.Tensor,  # repro: traced
                    cfg: ModelConfig, mode: str, cache: Optional[Params] = None,
                    pos: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Params]:
@@ -447,7 +467,7 @@ def _audio_decoder(dec_p: Params, x: torch.Tensor, enc: torch.Tensor,
     return x, out
 
 
-def decode_step(params: Params, cache: Params, token: torch.Tensor,
+def decode_step(params: Params, cache: Params, token: torch.Tensor,  # repro: traced
                 pos: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. token: [B,1] int; pos: [B] int. Returns (logits
@@ -468,13 +488,13 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
         x, c_new, _ = block_apply(_layer(params["blocks"], i), x, cfg,
                                   window=int(windows[i]), mode="decode",
                                   cache=c, pos=pos)
-        for k, t in c_new.items():
-            if t is not c[k]:            # the SSM state comes back anew
-                cache[k][i].copy_(t)
+        if cfg.ssm is not None:          # the SSM state comes back anew
+            cache["h"][i].copy_(c_new["h"])
+            cache["conv"][i].copy_(c_new["conv"])
     return unembed(params, x, cfg)[:, 0], cache
 
 
-def _vlm_decode(groups: Params, x: torch.Tensor, cache: Params,
+def _vlm_decode(groups: Params, x: torch.Tensor, cache: Params,  # repro: traced
                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Each group: its self layers decode against their cache (K/V only,
     as the reference's), then the gated cross layer attends to the cached

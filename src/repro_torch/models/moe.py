@@ -122,7 +122,7 @@ def capacity(num_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def moe_apply_sorted(params: Params, x: torch.Tensor, cfg: MoEConfig,
+def moe_apply_sorted(params: Params, x: torch.Tensor, cfg: MoEConfig,  # repro: traced
                      activation: str = "swiglu"
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Per-row sort-based dispatch. x: [B,S,d] → (y [B,S,d], aux with

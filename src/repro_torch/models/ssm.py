@@ -173,7 +173,7 @@ def ssd_recurrent_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     return h_new, y.to(x.dtype)
 
 
-def ssm_apply(params: Params, u: torch.Tensor, cfg: SSMConfig, d_model: int,
+def ssm_apply(params: Params, u: torch.Tensor, cfg: SSMConfig, d_model: int,  # repro: traced
               state: Optional[Params] = None, use_kernel: bool = False
               ) -> Tuple[torch.Tensor, Params]:
     """Full Mamba2 layer. u: [B,S,d]. ``state`` enables streaming decode:

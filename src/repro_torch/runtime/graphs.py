@@ -20,6 +20,12 @@ one CUDA graph per key and replays it:
 * the wrapper owns static input buffers and copies the inputs into them
   before each replay, and returns clones of the outputs (callers keep
   latents, scatter deltas and hold tap tensors across later replays);
+* ``donate`` names body arguments that are resident instead (the
+  counterpart of ``jax.jit(fn, donate_argnums=...)``; the LM decode step
+  donates its cache): they join the key by the identity of their tensors,
+  as the parameter tree does, are read and written in place by the
+  captured region (never copied in, never cloned out), come back as the
+  caller's own objects, and are held by the graph;
 * it holds a reference to every tensor the captured region reads that
   it did not make: the parameter tree, its static buffers, and the
   cached device constants the region reads, which the caches register
@@ -100,10 +106,19 @@ def _param_ids(params: Any) -> Tuple[int, ...]:
                  if isinstance(t, torch.Tensor))
 
 
-def make_key(static: Any, args: Tuple[Any, ...]) -> Tuple:
+def _copied(args: Tuple[Any, ...], donate: Tuple[int, ...]) -> Tuple[Any, ...]:
+    """The body arguments after the parameter tree that are copied into
+    static buffers (every one but the donated)."""
+    return tuple(a for i, a in enumerate(args) if i and i not in donate)
+
+
+def make_key(static: Any, args: Tuple[Any, ...],
+             donate: Tuple[int, ...] = ()) -> Tuple:
     """A body call's graph key (see the module docstring)."""
-    leaves, spec = pytree.tree_flatten(args[1:])
-    return (static, _param_ids(args[0]), str(spec),
+    leaves, spec = pytree.tree_flatten(_copied(args, donate))
+    resident = tuple((str(pytree.tree_structure(args[i])), _param_ids(args[i]))
+                     for i in donate)
+    return (static, _param_ids(args[0]), resident, str(spec),
             tuple(_signature(x) for x in leaves))
 
 
@@ -125,11 +140,32 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return streams[device]
 
 
+class _Resident:
+    """Where a captured body's output is one of its donated arguments."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+def _out_tree(out: Any, args: Tuple[Any, ...], donate: Tuple[int, ...]) -> Any:
+    """``out`` with each donated argument it returns whole (by identity)
+    replaced by a :class:`_Resident` marker."""
+    where = {id(args[i]): i for i in donate}
+    return pytree.tree_map(
+        lambda x: _Resident(where[id(x)]) if id(x) in where else x, out,
+        is_leaf=lambda x: id(x) in where)
+
+
+def _is_resident(x: Any) -> bool:
+    return isinstance(x, _Resident)
+
+
 class _Graph:
     """One captured key: the graph, its static buffers, the tensors it
     reads from outside, and its launch tally."""
 
-    def __init__(self, device, graph, static_in, static_out, tally, held):
+    def __init__(self, device, graph, static_in, static_out, tally, held,
+                 donate):
         self.device = device
         self.graph = graph
         self.pool_bytes: Optional[int] = None    # read once, by stats()
@@ -137,22 +173,31 @@ class _Graph:
         self.static_out = static_out
         self.tally = tally
         self.held = held
+        self.donate = donate
         self.done = torch.cuda.Event()
         self.replays = 0
 
-    def replay(self, inputs: Tuple[Any, ...]) -> Any:
+    @property
+    def in_bytes(self) -> int:
+        """Bytes a replay copies into the static buffers."""
+        return sum(b.numel() * b.element_size() for b in self.static_in)
+
+    def replay(self, args: Tuple[Any, ...]) -> Any:
         stream = torch.cuda.current_stream(self.device)
         # the last replay's outputs were cloned (on whatever stream ran it)
         # before these buffers are written again
         stream.wait_event(self.done)
-        flat = [x for x in pytree.tree_leaves(inputs)
+        flat = [x for x in pytree.tree_leaves(_copied(args, self.donate))
                 if isinstance(x, torch.Tensor)]
         for buf, x in zip(self.static_in, flat):
             buf.copy_(x)
         self.graph.replay()
-        out = pytree.tree_map(
-            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-            self.static_out)
+
+        def out(x):
+            if isinstance(x, _Resident):     # the caller's own object
+                return args[x.index]
+            return x.clone() if isinstance(x, torch.Tensor) else x
+        out = pytree.tree_map(out, self.static_out, is_leaf=_is_resident)
         self.done.record(stream)
         self.replays += 1
         for (fn, key), n in self.tally.items():
@@ -164,14 +209,20 @@ class Captured:
     """A runner body captured once per key and replayed (module
     docstring). ``fn(*args)``, or ``fn(static, *args)`` with ``host``:
     ``host(*call_args, **call_kw) -> (static, args)`` prepares host data
-    outside the captured region. ``args[0]`` is the parameter tree."""
+    outside the captured region. ``args[0]`` is the parameter tree;
+    ``donate`` the indices of the body arguments that are resident."""
 
     def __init__(self, fn: Callable, *, host: Optional[Callable] = None,
-                 name: Optional[str] = None, eager: bool = False):
+                 name: Optional[str] = None, eager: bool = False,
+                 donate: Tuple[int, ...] = ()):
+        if 0 in donate:
+            raise ValueError("the parameter tree (argument 0) is keyed by "
+                             "identity already; donate other arguments")
         self.fn = fn
         self.host = host
         self.name = name or getattr(fn, "__qualname__", "runner")
         self.eager_only = eager
+        self.donate = tuple(donate)
         self.keys_seen: set = set()
         self._graphs: Dict[Tuple, _Graph] = {}
         self._lock = threading.Lock()
@@ -189,7 +240,7 @@ class Captured:
 
     def key(self, *args: Any, **kw: Any) -> Tuple:
         static, body_args = self.split(*args, **kw)
-        return make_key(static, body_args)
+        return make_key(static, body_args, self.donate)
 
     def eager(self, *args: Any, **kw: Any) -> Any:
         """The body run eagerly, whatever the device (a FLOP counter
@@ -206,7 +257,7 @@ class Captured:
 
     def __call__(self, *args: Any, **kw: Any) -> Any:
         static, body_args = self.split(*args, **kw)
-        key = make_key(static, body_args)
+        key = make_key(static, body_args, self.donate)
         with self._lock:
             self.keys_seen.add(key)
             device = _device(body_args[1:])
@@ -215,22 +266,25 @@ class Captured:
                 return self._body(static, body_args)
             graph = self._graphs.get(key)
             if graph is not None:
-                return graph.replay(body_args[1:])
+                return graph.replay(body_args)
             out, self._graphs[key] = self._capture(static, body_args, device)
             return out
 
     def _capture(self, static: Any, args: Tuple[Any, ...],
                  device: torch.device) -> Tuple[Any, _Graph]:
         params = args[0]
-        leaves, spec = pytree.tree_flatten(args[1:])
+        leaves, spec = pytree.tree_flatten(_copied(args, self.donate))
         with torch.inference_mode(False):     # written in any mode
             static_in = [torch.empty_like(x) for x in leaves
                          if isinstance(x, torch.Tensor)]
         it = iter(static_in)
         static_leaves = [next(it) if isinstance(x, torch.Tensor) else x
                          for x in leaves]
-        static_args = (params,) + tuple(pytree.tree_unflatten(static_leaves,
-                                                              spec))
+        copied = iter(pytree.tree_unflatten(static_leaves, spec))
+        # the donated arguments go in as the caller's own objects
+        static_args = (params,) + tuple(
+            a if i in self.donate else next(copied)
+            for i, a in enumerate(args) if i)
         stream = torch.cuda.current_stream(device)
         side = _capture_stream(device)
         for buf, x in zip(static_in, (x for x in leaves
@@ -240,6 +294,8 @@ class Captured:
         graph = torch.cuda.CUDAGraph()
         tally: Dict = {}
         held: List[torch.Tensor] = list(pytree.tree_leaves(params))
+        for i in self.donate:
+            held.extend(pytree.tree_leaves(args[i]))
         with torch.cuda.stream(side):
             # the key's first call: eager, its result returned, its
             # launches counted as any eager launch
@@ -263,23 +319,29 @@ class Captured:
         # returns its delta input): the next replay would overwrite it
         buffers = {b.untyped_storage().data_ptr() for b in static_in}
 
+        donated = {id(args[i]) for i in self.donate}
+
         def own(t):
-            if not isinstance(t, torch.Tensor):
-                return t
+            if not isinstance(t, torch.Tensor) or id(t) in donated:
+                return t                # a donated argument: the caller's
             if t.untyped_storage().data_ptr() in buffers:
                 t = t.clone()
             t.record_stream(stream)
             return t
-        out = pytree.tree_map(own, out)
-        return out, _Graph(device, graph, static_in, static_out, tally, held)
+        out = pytree.tree_map(own, out, is_leaf=lambda x: id(x) in donated)
+        static_out = _out_tree(static_out, static_args, self.donate)
+        return out, _Graph(device, graph, static_in, static_out, tally, held,
+                           self.donate)
 
 
 def capture(fn: Callable, *, host: Optional[Callable] = None,
-            name: Optional[str] = None, eager: bool = False) -> Captured:
+            name: Optional[str] = None, eager: bool = False,
+            donate: Tuple[int, ...] = ()) -> Captured:
     """Wrap a runner body (see :class:`Captured`). ``eager``: always run
     it eagerly (a runner over a mesh: Gloo collectives cannot be
-    captured)."""
-    return Captured(fn, host=host, name=name, eager=eager)
+    captured). ``donate``: the body arguments (by index, never 0) that
+    are resident: read and written in place, returned as the caller's."""
+    return Captured(fn, host=host, name=name, eager=eager, donate=donate)
 
 
 class HostLoop:

@@ -1,6 +1,7 @@
 """Padding helpers — the port of ``repro.runtime.padding``: round a count
 up to a bucket boundary, pad a tensor along one axis, and pad a KV cache
-so decode steps can write past the prefill length."""
+so decode steps can write past the prefill length, into new tensors or
+into a served batch's cache slot in place."""
 from __future__ import annotations
 
 from typing import Any
@@ -57,3 +58,28 @@ def pad_kv_cache(cache: Any, seq_len: int, extra: int) -> Any:
             leaf = pad_to(leaf, seq_len + extra, axis=leaf.ndim + axis)
         out[name] = leaf
     return out
+
+
+def write_kv_slot(slot: Any, cache: Any, seq_len: int) -> Any:
+    """Write a prefill's ``cache`` into ``slot`` in place and return the
+    slot: what :func:`pad_kv_cache` gives, without new tensors. ``slot``
+    holds the same leaves (``models.lm.serve_slot``) with KV leaves longer
+    along the sequence axis: each KV leaf takes the prefill's ``seq_len``
+    positions first and zeros after them; every other leaf (the SSM
+    state, the vision keys and values, whisper's encoder states) is
+    copied whole."""
+    if sorted(slot) != sorted(cache):
+        raise ValueError(f"the slot holds {sorted(slot)}, the prefill's "
+                         f"cache {sorted(cache)}")
+    for name, leaf in cache.items():
+        dst = slot[name]
+        axis = _SEQ_AXIS.get(name)
+        if axis is not None:
+            axis += dst.ndim
+            dst.narrow(axis, seq_len, dst.shape[axis] - seq_len).zero_()
+            dst = dst.narrow(axis, 0, seq_len)
+        if dst.shape != leaf.shape:
+            raise ValueError(f"{name}: a prefill's {tuple(leaf.shape)} does "
+                             f"not fit the slot's {tuple(dst.shape)}")
+        dst.copy_(leaf)
+    return slot

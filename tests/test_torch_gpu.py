@@ -955,6 +955,70 @@ def test_tiny_bf16_lm_prefill_pallas_matches_dense(cuda):
 
 
 @pytest.mark.gpu
+def test_captured_lm_steps_equal_eager_on_card(cuda):
+    """gemma2's reduced config in bf16 at hd 256 on ``pallas``, two batches
+    served as ``launch/serve.serve_lm`` serves them (a prefill into the
+    batch size's slot, then 4 decode steps on it) through the captured
+    runners (the first batch captures, the second replays), against the
+    same runners under ``graphs.disabled()``: logits, tokens and every
+    cache leaf bit for bit, the slot's tensors written in place
+    (``data_ptr`` unchanged), flash launches equal to eager's, and no
+    capture in the second batch."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.runtime import graphs
+
+    base = get_config("gemma2-9b").reduced()
+    cfg = base.reduced(attn=dataclasses.replace(base.attn, head_dim=256),
+                       param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    prefill = st.make_prefill_step(cfg, backend="pallas")
+    decode = st.make_decode_step(cfg)
+    S, n_dec = 96, 4
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batches = [torch.randint(0, cfg.vocab_size, (2, S), device=cuda, generator=g)
+               for _ in range(2)]
+    out = {}
+    for side in ("captured", "eager"):
+        ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+        slot = lm.serve_slot(cfg, 2, S + n_dec, cuda)
+        ptrs = {k: t.data_ptr() for k, t in slot.items()}
+        runs = []
+        with ctx, torch.inference_mode():
+            for toks in batches:
+                ops.reset_launches()
+                before = prefill.captures + decode.captures
+                logits = serve.lm_prefill(prefill, params, {"tokens": toks}, slot)
+                tok = logits.argmax(-1).to(torch.int32)[:, None]
+                gen, dec = serve.lm_decode(decode, params, slot, tok, S, n_dec)
+                torch.cuda.synchronize()
+                runs.append(dict(
+                    logits=logits, gen=gen, dec=dec,
+                    cache={k: t.clone() for k, t in slot.items()},
+                    launches=dict(ops.flash_attention.launches_by_variant),
+                    captured=prefill.captures + decode.captures - before))
+        out[side] = runs
+        assert {k: t.data_ptr() for k, t in slot.items()} == ptrs
+    for cap, eag in zip(out["captured"], out["eager"]):
+        for key in ("logits", "gen", "dec"):
+            assert torch.equal(cap[key], eag[key]), key
+        assert all(torch.equal(cap["cache"][k], eag["cache"][k])
+                   for k in eag["cache"])
+        assert cap["launches"] == eag["launches"]
+        assert cap["launches"]["wgmma"] == cfg.num_layers
+        assert eag["captured"] == 0
+    assert [r["captured"] for r in out["captured"]] == [2, 0]
+    assert decode.graphs()[0].in_bytes == 2 * 4 + 2 * 4    # token and position
+    assert prefill.graphs()[0].replays == 1 and decode.graphs()[0].replays \
+        == 2 * n_dec - 1
+
+
+@pytest.mark.gpu
 def test_out_dtype_matmul_matches_f32_upcast(cuda):
     """``matmul_f32`` on CUDA bf16 (cuBLAS, ``out_dtype=float32``) against
     the float32 product of the upcast operands (TF32 off): both sum exact

@@ -1,8 +1,12 @@
 """The port's graph audit (``repro_torch/analysis/graph_audit.py``, the
 counterpart of the JAX package's jaxpr audit) on the CPU.
 
-Each audit unit passes on the port's own step functions; fixture steps
-that bake a tensor constant or branch on a device value are caught; the
+Each audit unit passes on the port's own step functions, the language
+models' prefill and decode bodies included (one tiny config a family);
+fixture steps that bake a tensor constant or branch on a device value are
+caught, and so are a decode body that reads its position on the host and
+an LM step factory whose runner is not captured (or does not donate the
+decode's cache); the
 cached packed step shows the refresh-mask fault that capture would have
 turned into wrong answers (the flags baked as a constant differ between
 two same-branch patterns; handed in as a tensor they do not) and exactly
@@ -48,6 +52,60 @@ def test_audit_unit_passes_on_the_port(unit):
     assert all(len(fp) == 32 for fp in rep.fingerprints.values())
     if unit is not ga.audit_runners:
         assert rep.fingerprints
+
+
+@pytest.mark.parametrize("arch", ga.LM_AUDIT_ARCHS)
+def test_lm_audit_unit_passes_on_the_port(arch):
+    """The prefill at two token contents and the decode at two positions
+    and token contents, on one slot: one graph each, no host read."""
+    rep = ga.audit_lm_steps(arch)
+    assert [f.render() for f in rep.findings] == []
+    assert sorted(rep.fingerprints) == [f"lm_decode[{arch}]",
+                                        f"lm_prefill[{arch}]"]
+    assert all(len(fp) == 32 for fp in rep.fingerprints.values())
+
+
+def test_lm_audit_catches_a_host_read_of_the_position():
+    """A planted decode body reads ``pos`` on the host (``int(pos[0])``, a
+    sync a capture refuses, or a position frozen into the graph): both
+    decode cases are flagged, the prefill is not."""
+    from repro_torch.models import lm as tlm
+    cfg, _ = ga._tiny_lm("gemma2-9b")
+
+    def planted(params, cache, token, pos):
+        start = int(pos[0])
+        return tlm.decode_step(params, cache, token,
+                               torch.full_like(pos, start), cfg)
+
+    rep = ga.audit_lm_steps("gemma2-9b", decode_body=planted)
+    assert [(f.rule, f.symbol) for f in rep.findings] == \
+        [("graph-host-sync", "lm_decode[gemma2-9b]")] * 2
+
+
+def test_uncaptured_lm_step_factory_is_flagged():
+    """``graph-uncaptured-runner`` over the LM step factories: the port's
+    two pass; a factory returning a plain closure is flagged, and so is a
+    decode runner that does not donate its cache."""
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.runtime import graphs
+    assert ga.lm_runner_findings() == []
+
+    def closure_factory(cfg):
+        def decode_step(params, cache, token, pos):
+            return tsteps.lm.decode_step(params, cache, token, pos, cfg)
+        return decode_step
+
+    def undonated(cfg):
+        return graphs.capture(tsteps.make_decode_step(cfg).fn)
+
+    found = ga.lm_runner_findings({"closure": (closure_factory, (1,)),
+                                   "undonated": (undonated, (1,)),
+                                   "prefill": (tsteps.make_prefill_step, ())})
+    assert [(f.rule, f.symbol) for f in found] == [
+        ("graph-uncaptured-runner", "closure"),
+        ("graph-uncaptured-runner", "undonated")]
+    assert "runtime.graphs" in found[0].message
+    assert "donates" in found[1].message
 
 
 def test_audit_catches_a_baked_constant_and_a_host_branch():

@@ -159,8 +159,10 @@ def test_convert_refuses_a_tree_of_another_schema():
 def test_later_families_raise_naming_the_slice():
     """Every family serves and trains, and ``sequence_parallel`` (once a
     raise naming the distributed slice) runs: with no mesh its forward
-    and train step equal the plain ones bit for bit. The seams still open
-    keep their raises, each naming its owner."""
+    and train step equal the plain ones bit for bit. ``serve_lm`` (once
+    raising on ``--mesh`` and ``--replicas``) serves on one device with
+    either, as the reference's does. The seam still open keeps its raise,
+    naming its owner."""
     import argparse
     jcfg, tcfg, jp, tp = setup("deepseek-7b")
     cfg = dataclasses.replace(tcfg, sequence_parallel=True)
@@ -168,10 +170,15 @@ def test_later_families_raise_naming_the_slice():
                             % tcfg.vocab_size)
     assert torch.equal(tlm.forward_train(tp, toks, cfg)[0],
                        tlm.forward_train(tp, toks, tcfg)[0])
-    with pytest.raises(NotImplementedError, match="later distributed slice"):
-        tserve.serve_lm(tcfg, argparse.Namespace(mesh="1x2", replicas=1))
-    with pytest.raises(NotImplementedError, match="not part of the port"):
-        tserve.serve_lm(tcfg, argparse.Namespace(mesh=None, replicas=2))
+    lm_args = dict(device="cpu", batch_slots=2, requests=3, prompt_len=4,
+                   max_new=2)
+    plain = tserve.serve_lm(tcfg, argparse.Namespace(mesh=None, replicas=1,
+                                                     **lm_args))
+    for mesh, replicas in (("1x2", 1), (None, 2)):
+        got = tserve.serve_lm(tcfg, argparse.Namespace(
+            mesh=mesh, replicas=replicas, **lm_args))
+        assert (got["served"], got["tokens"]) == (plain["served"],
+                                                  plain["tokens"]) == (3.0, 3.0)
     with pytest.raises(NotImplementedError, match="later distributed slice"):
         tserve.serve_dit(tcfgs.get_config("dit-xl-2"),
                          argparse.Namespace(mesh="1x2", replicas=2))

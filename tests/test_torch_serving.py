@@ -483,10 +483,19 @@ def test_serve_cli_smoke_on_cpu(capsys, extra):
     (["--replicas", "2", "--mesh", "2x1"], "distributed"),
     (["--mesh", "1x2", "--replicas", "3"], "distributed"),
     (["--arch", "mamba2-130m", "--replicas", "2"], "language-model")])
-def test_serve_cli_later_slices_raise(flags, owner):
+def test_serve_cli_later_slices_raise(capsys, flags, owner):
+    """The DiT path's ``--mesh`` with ``--replicas`` raises, naming its
+    slice. The language-model path (once raising on ``--replicas``) reads
+    neither flag and serves on one device, as the reference's does."""
+    argv = ["--arch", "dit-xl-2", "--smoke", "--device", "cpu"] + flags
+    if owner == "language-model":
+        m = tserve.main(argv + ["--requests", "2", "--batch-slots", "2",
+                                "--prompt-len", "4", "--max-new", "2"])
+        assert (m["served"], m["tokens"]) == (2.0, 2.0)
+        assert "reads neither --mesh nor --replicas" in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match=owner):
-        tserve.main(["--arch", "dit-xl-2", "--smoke", "--device", "cpu"]
-                    + flags)
+        tserve.main(argv)
 
 
 def test_serve_needs_cuda_unless_cpu_is_asked():
