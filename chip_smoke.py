@@ -75,19 +75,31 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 9. training at full width: DiT-XL/2 (bf16 parameters, float32 AdamW
    moments, random trained-like weights from a seed) through
    ``make_dit_train_step`` at B=32, patch modes 0 and 1 alternating (the
-   shared recipe): ms/step, TFLOP/s against 3 x B x ``dit_nfe_flops`` and
-   peak memory per mode; the LoRA recipe (rank 8) through
-   ``make_distill_step`` with every frozen leaf and its moments unchanged
-   bit for bit; one bootstrapped-MMD step at a batch sized from the
-   measured memory; a learning check on one fixed batch and the same
-   steps with the update's sign flipped, which must fail it; the tiny
-   float32 config's train steps on the card against the CPU (loss,
-   gradients and updated parameters within 1e-5 of their norms); then
-   ``python -m repro_torch.launch.train --arch dit-xl-2 --flexi --recipe
-   lora`` in-process, its checkpoint restored by ``Checkpointer`` and
-   served through ``FlexiPipeline.sample`` at budget 0.6 on the flash
-   kernel (28 ``wgmma`` launches per forward call), x0 equal bit for bit
-   to the in-memory parameters';
+   shared recipe). Every train step runs captured (``runtime.graphs``:
+   one CUDA graph a step object, the parameters and the AdamW state
+   donated, written in place) and is held against the same step under
+   ``graphs.disabled()`` from the same weights, moments and draws: after
+   four steps a mode the losses and every parameter and moment leaf equal
+   bit for bit, no graph captured after the first calls, and a planted
+   fault (the body reading its draws from the step object, so a replay
+   reuses the first call's) must differ; ms/step captured and eager (the
+   eager steps interleaved with the timed replays where they fit beside
+   the graphs' pools), TFLOP/s against 3 x B x ``dit_nfe_flops``, peak
+   memory (a replay's: its allocated peak plus its pools), graph pool
+   bytes and the bytes a replay copies in, per mode; the LoRA recipe
+   (rank 8) through ``make_distill_step``, held the same way, with every
+   frozen leaf and its moments unchanged bit for bit; one
+   bootstrapped-MMD step at a batch sized from the measured memory; a
+   learning check on one fixed batch and the same steps with the
+   update's sign flipped, which must fail it; the tiny float32 config's
+   train steps on the card against the CPU (loss, gradients and updated
+   parameters within 1e-5 of their norms); then ``python -m
+   repro_torch.launch.train --arch dit-xl-2 --flexi --recipe lora``
+   in-process (captured: one graph a mode, the other steps replays), its
+   checkpoint restored by ``Checkpointer`` and served through
+   ``FlexiPipeline.sample`` at budget 0.6 on the flash kernel (28
+   ``wgmma`` launches per forward call), x0 equal bit for bit to the
+   in-memory parameters';
 10. the fleet and its resilience layer (``repro_torch.fleet``,
    ``repro_torch.resilience``) on the phase-3 DiT-XL/2 weights, menu
    {0.6, 0.8, 1.0}, T=10 DDIM, CFG 1.5, on the virtual clock: a wave of 15
@@ -163,8 +175,14 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    (dense attention, as the reference trains; no kernel has a backward):
    gemma2-9b at full width cut to 4 layers (2 local at window 4096, 2
    global) at B=1 x S=8192 with remat "block", and deepseek-moe-16b cut
-   to 2 layers at B=2 x 4096, each one warm and 3 timed steps (ms/step,
-   tokens/s, TFLOP/s against the model FLOPs, peak memory); 1. one
+   to 2 layers at B=2 x 4096, each step captured (one CUDA graph, the
+   parameters and the AdamW state donated) and held against the same
+   step under ``graphs.disabled()`` as in phase 9 (four steps on two
+   batches of the trainer's corpus, loss and every parameter and moment
+   leaf bit for bit, no graph after the first call; the planted fault
+   reads its batch from the step object), then 2 more captured steps
+   (ms/step captured and eager, tokens/s, TFLOP/s against the model
+   FLOPs, peak memory, pool bytes, bytes a replay copies in); 1. one
    reduced float32 config per family, gradients card against CPU; 2.
    the training forward's last-position logits against ``lm.prefill``'s
    on dense and on the flash kernel; 3. every bf16 gradient leaf against
@@ -179,9 +197,9 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    mamba2-130m whole,
    llama-3.2-vision-90b cut to one group (its cross layer and vision
    projection trained, the language model frozen) and whisper-small
-   whole, 2 steps each; 7. ``python -m repro_torch.launch.train --arch
-   mamba2-130m --steps 4`` and ``--arch deepseek-moe-16b --smoke``
-   in-process;
+   whole, 2 captured steps each; 7. ``python -m repro_torch.launch.train
+   --arch mamba2-130m --steps 4`` and ``--arch deepseek-moe-16b --smoke``
+   in-process, captured;
 14. sequence-parallel sampling (``repro_torch.distributed``): the
    kernels built here before any rank starts, then rank processes
    (``launch/mesh.run_ranks``), every one on this card over Gloo, each
@@ -272,7 +290,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    logits and the slot bit for bit, flash launches equal, two graphs
    captured by the first batch and none by the second.
    ``python3 chip_smoke.py --only graphs`` runs phases 1, 8 and 17
-   alone; ``--only lm`` runs phases 1 and 11-13.
+   alone; ``--only lm`` runs phases 1 and 11-13; ``--only train`` runs
+   phases 1, 9 and 13.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -449,15 +468,30 @@ T2I_BATCH, T2I_BUDGETS, T2I_SOLVERS = 2, (0.6, 1.0), ("flow_euler", "flow_heun")
 # random weights x0 depends weakly on attention (PERF.md §6). The limit
 # sits between, 1.5x from each; the readings are deterministic.
 T2I_X0_TOL = 4.7e-3
-# phase 9: training at full width. TRAIN_K timed steps a mode after one
-# warm step each (B = 32, the usual per-device DiT batch); LEARN_N steps
+# phases 9 and 13: every train step runs captured (runtime.graphs, the
+# parameters and the AdamW state donated) and is held against the same
+# step under graphs.disabled(): COMPARE_STEPS calls a step object each
+# way from the same parameters, moments and draws, then the loss and every
+# parameter and moment leaf must be equal bit for bit (0 leaves differing,
+# the limit). The planted fault (the body reading its draws, or its batch,
+# from the step object instead of its copied-in argument: a replay reads
+# the first call's) must read over it. The check's eager calls but the
+# first time the eager step (3 a step object), with one more each timed
+# round but the first where an eager step fits beside the graphs' pools
+COMPARE_STEPS = 4
+# bytes the card keeps spare when the check holds the eager run's end
+# state beside a step's peak (else the state goes to pinned host memory)
+SNAPSHOT_MARGIN = 8e9
+# phase 9: training at full width. The captured-vs-eager check, then
+# TRAIN_K more captured steps a mode, timed (B = 32, the usual per-device
+# DiT batch); eager ms/step from the check's calls a mode; LEARN_N steps
 # on one fixed batch with fixed draws, the mean loss of the last
 # LEARN_TAIL against the loss before any update held under LEARN_LIMIT,
 # and the same steps with the update's sign flipped held over it. On an
 # H100 80GB HBM3 (700 W) the sound run reads 0.230 and the sign-flipped
 # one 1762 (deterministic across repeats; PERF.md §6): the limit sits
 # 2.2x over the sound reading
-TRAIN_BATCH, TRAIN_K, TRAIN_LR = 32, 3, 1e-4
+TRAIN_BATCH, TRAIN_K, TRAIN_LR = 32, 2, 1e-4
 LEARN_BATCH, LEARN_N, LEARN_TAIL, LEARN_LR = 8, 12, 3, 3e-4
 LEARN_LIMIT = 0.5
 # the card against the CPU on the tests' tiny float32 config (TF32 off)
@@ -553,11 +587,12 @@ LM_G_BATCH, LM_G_SEQ, LM_G_DECODE = 2, 1024, 8
 # card. (name, layers kept, batch, sequence): gemma2-9b at full width cut
 # to 2 local (window 4096) and 2 global layers at one 8192-token row, so
 # the window binds; deepseek-moe-16b at full width cut to 2 layers. Both
-# take one warm step, then LMT_K timed steps through make_train_step
-# (remat "block", their configs' default).
+# take the captured-vs-eager check (COMPARE_STEPS calls each way, two
+# batches of the trainer's corpus in turn), then LMT_K more captured steps,
+# timed, through make_train_step (remat "block", their configs' default).
 LMT_DENSE = ("gemma2-9b", 4, 1, 8192)
 LMT_MOE = ("deepseek-moe-16b", 2, 2, 4096)
-LMT_K, LMT_LR = 3, 1e-4
+LMT_K, LMT_LR = 2, 1e-4
 # check 3: each bf16 gradient leaf against a float32 copy's (TF32 off) as
 # ||g - g32|| / ||g32||; the planted fault (each layer recomputed in the
 # backward with the next layer's window) must read over it. Fixed before
@@ -2068,6 +2103,186 @@ def cuda_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def pinned_copy(tree):
+    """A copy of a tree of device tensors in the host's pinned memory
+    (copied at the link's rate, both ways)."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=True).copy_(t), tree)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def write_into(tree, src) -> None:
+    """``src``'s values written into ``tree``'s own tensors: a captured
+    train step keys its graph by the identity of the trees it donates."""
+    tree_map(lambda t, v: t.copy_(v), tree, src)
+
+
+def differing(tree, ref) -> list:
+    """The leaves of ``tree`` that differ in any bit from ``ref``'s (on the
+    card, or in pinned host memory: compared on the card a leaf at a
+    time)."""
+    return [i for i, (t, r) in enumerate(zip(tree_leaves(tree), tree_leaves(ref)))
+            if t.dtype != r.dtype or not torch.equal(t, r.to(t.device))]
+
+
+def bypassed(step, index: int):
+    """The planted fault of the captured-step checks, on a fresh step
+    object: its body reads argument ``index`` (2: the batch, 3: the
+    draws) from the step object, where the host side leaves each call's
+    tensors, rather than from the argument the runner copies into its
+    static buffers. Eagerly that is the same data; a replay reads the
+    tensors the capture saw, the first call's (kept alive here)."""
+    base = type(step)
+
+    class Bypassed(base):
+        def split(self, *args, **kw):
+            static, body = base.split(self, *args, **kw)
+            self.seen.append(body[index])
+            return static, body
+
+        def update(self, *body):
+            body = list(body)
+            body[index] = self.seen[-1]
+            return base.update(self, *body)
+
+    step.__class__, step.seen = Bypassed, []
+    return step
+
+
+def step_calls(calls, state: dict, batches: list, loss_key: str) -> list:
+    """``calls`` (step objects) in order on ``state`` ({"p": parameters,
+    "o": AdamW state}), the i-th on ``batches[i % len(batches)]``, all
+    drawing from one generator seeded SEED: (loss, ms, peak memory) a
+    call."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    out = []
+    for i, step in enumerate(calls):
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, m), dt = cuda_ms(lambda: step(state["p"], state["o"],
+                                             batches[i % len(batches)], gen))
+        out.append((float(m[loss_key]), dt, torch.cuda.max_memory_allocated()))
+    return out
+
+
+def captured_vs_eager(tag: str, label: str, make, state: dict, batches: list,
+                      loss_key: str, k_timed: int, bypass: int, smi: str,
+                      errors: list) -> dict:
+    """The check of phases 9 and 13. ``make()`` builds the step objects
+    (one a mode, called in turn, COMPARE_STEPS calls each). They run from
+    ``state`` under ``graphs.disabled()``; the planted fault
+    (:func:`bypassed` on argument ``bypass``) and then the sound steps run
+    captured from the same values, written back into the same tensors,
+    with the same draws: the sound run's losses and every parameter and
+    moment leaf equal the eager run's bit for bit, one graph a step object
+    taken by its first call; the planted run's losses and parameters must
+    differ. Then ``k_timed`` rounds of one more captured call each, timed,
+    none of which may capture, each round followed by one eager call each
+    under ``graphs.disabled()`` where an eager step's peak fits beside the
+    graphs' pools (SNAPSHOT_MARGIN spare). Eager ms: the eager calls but
+    each step object's first of the check and first interleaved (each
+    fills the allocator's emptied cache again); captured ms: the
+    replays. Eager peak: the
+    check's eager calls (allocated); captured peak: the timed replays'
+    allocated peak plus what the graphs' pools hold unallocated, with the
+    check's snapshot gone. Leaves ``state`` trained, every graph dropped
+    with its step object; returns the readings, with ``start``, the
+    state's values before any step, in pinned host memory. The eager
+    run's end state is kept on the card when it fits beside the eager
+    run's peak (SNAPSHOT_MARGIN spare), else in pinned host memory."""
+    t0 = time.perf_counter()
+    start = pinned_copy(state)
+    with graphs.disabled():
+        eager = step_calls(make() * COMPARE_STEPS, state, batches, loss_key)
+    total = torch.cuda.get_device_properties(0).total_memory
+    on_card = (max(x[2] for x in eager) + tree_bytes(state)
+               <= total - SNAPSHOT_MARGIN)
+    want = tree_map(torch.clone, state) if on_card else pinned_copy(state)
+    write_into(state, start)
+    torch.cuda.empty_cache()
+    planted = [bypassed(s, bypass) for s in make()]
+    fault = step_calls(planted * COMPARE_STEPS, state, batches, loss_key)
+    fault_diff = differing(state["p"], want["p"])
+    del planted
+    torch.cuda.empty_cache()
+    write_into(state, start)
+    steps = make()
+    n = len(steps)
+    capt = step_calls(steps * COMPARE_STEPS, state, batches, loss_key)
+    diff = differing(state, want)
+    del want
+    torch.cuda.empty_cache()
+    warm = [s.captures for s in steps]
+    stats = graphs.stats(steps)
+    interleave = (max(x[2] for x in eager) + stats["graph_pool_bytes"]
+                  <= total - SNAPSHOT_MARGIN)
+    timed, e_timed = [], []
+    for _ in range(k_timed):
+        timed += step_calls(steps, state, batches, loss_key)
+        if interleave:
+            with graphs.disabled():
+                e_timed += step_calls(steps, state, batches, loss_key)
+    late = sum(s.captures for s in steps) - sum(warm)
+    keys = [dict(pool=g.pool_bytes, copied_in=g.in_bytes, replays=g.replays)
+            for s in steps for g in s.graphs()]
+    pools = {tuple(g.graph.pool()) for s in steps for g in s.graphs()}
+    idle = sum(seg["total_size"] - seg["allocated_size"]
+               for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) in pools)
+    del steps
+    torch.cuda.empty_cache()
+    losses_e, losses_c = [x[0] for x in eager], [x[0] for x in capt]
+    per = []
+    for j in range(n):
+        e_ms = [x[1] for x in eager[j::n][1:] + e_timed[j::n][1:]]
+        c_ms = [x[1] for x in capt[j::n][1:] + timed[j::n]]
+        per.append(dict(eager_ms=float(np.median(e_ms)),
+                        captured_ms=float(np.median(c_ms)),
+                        first_ms=capt[j][1], captured_all=c_ms, eager_all=e_ms,
+                        eager_peak=max(x[2] for x in eager[j::n]),
+                        captured_peak=max(x[2] for x in timed[j::n]) + idle))
+    fault_losses = [x[0] for x in fault]
+    log(f"[{tag}] {label}, captured vs graphs.disabled(), {COMPARE_STEPS} "
+        f"steps a step object from the same values and draws "
+        f"({tree_bytes(state) / 1e9:.2f} GB of state; the eager end state "
+        f"kept {'on the card' if on_card else 'in pinned host memory'}; "
+        f"{time.perf_counter() - t0:.1f} s in all): losses eager "
+        f"{', '.join(f'{x:.6f}' for x in losses_e)}, captured equal bit for "
+        f"bit: {losses_c == losses_e}; {len(diff)} of "
+        f"{len(tree_leaves(state))} parameter and moment leaves differ (limit "
+        f"0); graphs {warm} taken by the first calls, {late} captured after "
+        f"warm-up; planted fault ({'batch' if bypass == 2 else 'draws'} read "
+        f"from the step object): losses "
+        f"{', '.join(f'{x:.6f}' for x in fault_losses)}, {len(fault_diff)} of "
+        f"{len(tree_leaves(state['p']))} parameter leaves differ; eager calls "
+        f"{'interleaved with the timed replays' if interleave else 'from the check only (an eager step does not fit beside the pools)'} "
+        f"({smi})")
+    for j, r in enumerate(per):
+        log(f"[{tag}] {label}, step object {j}: {r['captured_ms']:.1f} ms/step captured "
+            f"(replays {', '.join(f'{x:.1f}' for x in r['captured_all'])}; the "
+            f"first call, eager + capture, {r['first_ms']:.1f}) vs "
+            f"{r['eager_ms']:.1f} eager (median of "
+            f"{', '.join(f'{x:.1f}' for x in r['eager_all'])}); peak memory "
+            f"{r['captured_peak'] / 1e9:.2f} GB captured (replays' allocated "
+            f"peak + {idle / 1e9:.2f} GB the pools hold unallocated), "
+            f"{r['eager_peak'] / 1e9:.2f} GB eager; graph pool "
+            f"{keys[j]['pool'] / 1e9:.2f} GB, a replay copies in "
+            f"{keys[j]['copied_in'] / 1e6:.3f} MB ({smi})")
+    if losses_c != losses_e or diff:
+        errors.append(f"{label}: captured steps differ from eager: losses "
+                      f"{losses_c} vs {losses_e}, leaves {diff[:8]}")
+    if warm != [1] * n or late:
+        errors.append(f"{label}: graphs {warm}, {late} captured after warm-up")
+    if fault_losses == losses_e or not fault_diff:
+        errors.append(f"{label}: the planted fault reads as sound")
+    return dict(per=per, keys=keys, stats=stats, start=start, losses=losses_e,
+                differing=len(diff), fault_differing=len(fault_diff), late=late,
+                interleaved=interleave,
+                steps=COMPARE_STEPS + k_timed * (2 if interleave else 1))
+
+
 def train_batch(cfg, n: int, seed: int) -> dict:
     """A batch of the reference's synthetic class-pattern latents."""
     from repro_torch.data import pipeline as dp
@@ -2078,11 +2293,14 @@ def train_batch(cfg, n: int, seed: int) -> dict:
 
 def flip_update(step):
     """The planted fault: the update applied with its sign flipped
-    (p' = p - (p_step - p), in float32, cast back)."""
-    def run(params, opt, batch, gen):
-        new, opt, m = step(params, opt, batch, gen)
-        return tree_map(lambda p, q: (2.0 * p.float() - q.float()).to(p.dtype),
-                        params, new), opt, m
+    (p' = p - (p_step - p), in float32, cast back), written into the same
+    tensors (the step writes ``params`` in place)."""
+    def run(params, opt, batch, gen=None):
+        old = tree_map(torch.clone, params)
+        _, opt, m = step(params, opt, batch, gen)
+        tree_map(lambda q, p: q.copy_((2.0 * p.float() - q.float()).to(q.dtype)),
+                 params, old)
+        return params, opt, m
     return run
 
 
@@ -2144,7 +2362,7 @@ def card_against_cpu(tc) -> float:
         draws = step.draw(batch, torch.Generator().manual_seed(SEED + 1))
         outs = {}
         for where, dev in (("cpu", cpu), ("card", DEV)):
-            to = lambda x: x.to(dev)
+            to = lambda x: x.to(dev, copy=True)     # the step writes its trees
             d = {k: [to(c) for c in v] if isinstance(v, list) else to(v)
                  for k, v in draws.items()}
             p = tree_map(to, params)
@@ -2189,6 +2407,7 @@ def phase_training(gen: torch.Generator, smi: str) -> dict:
     t0 = time.perf_counter()
     params, cfg = trained_like_xl(gen)
     sched = linear_schedule(1000)
+    tgen = torch.Generator(device=DEV).manual_seed(SEED)
     tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=1000,
                      schedule="constant")
     n_params = sum(x.numel() for x in tree_leaves(params))
@@ -2196,105 +2415,110 @@ def phase_training(gen: torch.Generator, smi: str) -> dict:
         f"{n_params / 1e6:.1f}M parameters in {cfg.param_dtype}, float32 "
         f"moments; weights in {time.perf_counter() - t0:.1f}s ({smi})")
 
-    # 1. the shared recipe: modes 0 and 1 alternating
+    # 1. the shared recipe: modes 0 and 1 alternating, captured against
+    # eager (the step writes its trees: a copy of the weights)
     batch = train_batch(cfg, TRAIN_BATCH, SEED)
-    steps = [st.make_dit_train_step(cfg, tc, sched, mode=m) for m in (0, 1)]
-    p, opt = params, adamw.init_opt_state(params)
+    errors = []
+    state = {"p": tree_map(torch.clone, params)}
+    state["o"] = adamw.init_opt_state(state["p"])
     base = torch.cuda.memory_allocated()
-    tgen = torch.Generator(device=DEV).manual_seed(SEED)
-    ms = {0: [], 1: []}
-    peak = {0: 0, 1: 0}
-    losses = []
-    for i in range(2 * (TRAIN_K + 1)):
-        mode = i % 2
-        torch.cuda.reset_peak_memory_stats()
-        (p, opt, m), dt = cuda_ms(lambda: steps[mode](p, opt, batch, tgen))
-        peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
-        losses.append(m["loss"])
-        if i >= 2:                  # one warm step a mode
-            ms[mode].append(dt)
-    losses = [float(x) for x in losses]
-    if not all(np.isfinite(losses)) or not all(
-            torch.isfinite(x).all() for x in tree_leaves(p)):
-        raise AssertionError(f"shared-recipe steps not finite: {losses}")
+    shared = captured_vs_eager(
+        "train", "shared recipe (modes 0, 1)",
+        lambda: [st.make_dit_train_step(cfg, tc, sched, mode=m)
+                          for m in (0, 1)],
+        state, [batch], "loss", TRAIN_K, 3, smi, errors)
+    if not all(np.isfinite(shared["losses"])) or not all(
+            torch.isfinite(x).all() for x in tree_leaves(state["p"])):
+        raise AssertionError(f"shared-recipe steps not finite: {shared['losses']}")
     per_sample = {}
-    out = {"ms": {}, "tflops": {}, "peak_gb": {}}
+    out = {"ms": {}, "eager_ms": {}, "tflops": {}, "peak_gb": {},
+           "eager_peak_gb": {}, "pool_gb": {}}
     for mode in (0, 1):
-        step_ms = float(np.median(ms[mode]))
+        r = shared["per"][mode]
         flop = 3 * TRAIN_BATCH * dit_nfe_flops(cfg, mode)
-        out["ms"][mode], out["peak_gb"][mode] = step_ms, peak[mode] / 1e9
-        out["tflops"][mode] = flop / step_ms / 1e9
-        per_sample[mode] = (peak[mode] - base) / TRAIN_BATCH
+        out["ms"][mode], out["eager_ms"][mode] = r["captured_ms"], r["eager_ms"]
+        out["peak_gb"][mode] = r["captured_peak"] / 1e9
+        out["eager_peak_gb"][mode] = r["eager_peak"] / 1e9
+        out["pool_gb"][mode] = shared["keys"][mode]["pool"] / 1e9
+        out["tflops"][mode] = flop / r["captured_ms"] / 1e9
+        per_sample[mode] = (r["eager_peak"] - base) / TRAIN_BATCH
         log(f"[train] shared recipe, mode {mode} "
             f"({dit_mod.tokens_for_mode(cfg, mode)} tokens), B={TRAIN_BATCH}: "
-            f"{step_ms:.1f} ms/step (median of {len(ms[mode])}: "
-            f"{', '.join(f'{x:.1f}' for x in ms[mode])}), "
-            f"{flop / 1e12:.2f} TFLOP a step (3 x B x dit_nfe_flops), "
-            f"{out['tflops'][mode]:.1f} TFLOP/s, peak memory "
-            f"{peak[mode] / 1e9:.2f} GB ({smi})")
-    log(f"[train] shared-recipe loss trajectory (modes 0, 1 alternating): "
-        f"{', '.join(f'{x:.4f}' for x in losses)}")
-    del p, opt
+            f"{r['captured_ms']:.1f} ms/step captured vs {r['eager_ms']:.1f} "
+            f"eager, {flop / 1e12:.2f} TFLOP a step (3 x B x dit_nfe_flops), "
+            f"{out['tflops'][mode]:.1f} TFLOP/s captured, "
+            f"{flop / r['eager_ms'] / 1e9:.1f} eager ({smi})")
+    del state
     torch.cuda.empty_cache()
 
     # 2. the LoRA recipe: rank-8 adapters, the base frozen, distilled
+    # (flexify copies the weights it keeps: params stays as drawn)
     lparams, lcfg = flexify(params, cfg, [(1, 4, 4)], lora_rank=8,
                             generator=gen)
     mask = trainable_mask(lparams, "lora")
-    dstep = distill.make_distill_step(lcfg, tc, sched, trainable=mask)
-    p, opt = lparams, adamw.init_opt_state(lparams)
-    dms = []
-    for _ in range(3):
-        (p, opt, m), dt = cuda_ms(lambda: dstep(p, opt, batch, tgen))
-        dms.append(dt)
+    state = {"p": lparams, "o": adamw.init_opt_state(lparams)}
+    lora = captured_vs_eager(
+        "train", "LoRA distillation",
+        lambda: [distill.make_distill_step(lcfg, tc, sched,
+                                                         trainable=mask)],
+        state, [batch], "distill_loss", 1, 3, smi, errors)
     flat = lambda tree: dict(enumerate(tree_leaves(tree)))
-    fm, f0, f1 = flat(mask), flat(lparams), flat(p)
-    fmo, fvo = flat(opt["m"]), flat(opt["v"])
+    fm, f0, f1 = flat(mask), flat(lora["start"]["p"]), flat(state["p"])
+    fmo, fvo = flat(state["o"]["m"]), flat(state["o"]["v"])
     frozen = [i for i, on in fm.items() if not on]
-    moved = [i for i, on in fm.items() if on and not torch.equal(f1[i], f0[i])]
-    kept = all(torch.equal(f1[i], f0[i]) and not fmo[i].any() and not fvo[i].any()
-               for i in frozen)
+    moved = [i for i, on in fm.items()
+             if on and not torch.equal(f1[i], f0[i].to(DEV))]
+    kept = all(torch.equal(f1[i], f0[i].to(DEV)) and not fmo[i].any()
+               and not fvo[i].any() for i in frozen)
+    dms = lora["per"][0]
+    out["lora_ms"], out["lora_eager_ms"] = dms["captured_ms"], dms["eager_ms"]
     log(f"[train] LoRA recipe (rank 8, trainable_mask 'lora'): distill "
-        f"{float(m['distill_loss']):.4f}, {dms[-1]:.1f} ms/step (warm: "
-        f"{dms[0]:.1f}); {len(frozen)} frozen leaves "
+        f"{lora['losses'][-1]:.4f}, {dms['captured_ms']:.1f} ms/step captured "
+        f"vs {dms['eager_ms']:.1f} eager; {len(frozen)} frozen leaves "
         f"({sum(f0[i].numel() for i in frozen) / 1e6:.1f}M) unchanged bit for "
         f"bit with zero moments: {kept}; {len(moved)} of "
         f"{len(fm) - len(frozen)} trainable leaves moved")
-    if not kept or not moved or not np.isfinite(float(m["distill_loss"])):
-        raise AssertionError("the LoRA recipe moved a frozen leaf, or moved "
-                             "nothing")
-    del p, opt, lparams, f0, f1, fmo, fvo
+    if not kept or not moved or not np.isfinite(lora["losses"][-1]):
+        errors.append("the LoRA recipe moved a frozen leaf, or moved nothing")
+    if errors:
+        raise AssertionError("training: " + "; ".join(errors))
+    del state, lparams, lora, f0, f1, fmo, fvo
     torch.cuda.empty_cache()
 
-    # 3. one bootstrapped-MMD fine-tune step, its batch sized from the
-    # measured memory: the chain backpropagates through 2 weak and 2
-    # powerful forwards plus the denoising forward (~3.5 mode-0 forwards)
+    # 3. one bootstrapped-MMD fine-tune step (captured: its first call runs
+    # eagerly, then captures), its batch sized from the measured memory:
+    # the chain backpropagates through 2 weak and 2 powerful forwards plus
+    # the denoising forward (~3.5 mode-0 forwards)
     free = torch.cuda.mem_get_info()[0] - 8e9
     mmd_b = int(max(2, min(16, free // (3.5 * 1.25 * per_sample[0]))))
     mstep = mmd.make_mmd_finetune_step(cfg, tc, sched)
-    opt = adamw.init_opt_state(params)
+    mp = tree_map(torch.clone, params)
+    opt = adamw.init_opt_state(mp)
     torch.cuda.reset_peak_memory_stats()
-    (_, _, m), dt = cuda_ms(lambda: mstep(params, opt, train_batch(cfg, mmd_b, 1),
+    (_, _, m), dt = cuda_ms(lambda: mstep(mp, opt, train_batch(cfg, mmd_b, 1),
                                           tgen))
     mmd_loss, den = float(m["mmd_loss"]), float(m["denoise_loss"])
     log(f"[train] MMD fine-tune step (2 weak + 2 powerful chain steps), "
         f"B={mmd_b} (sized from {per_sample[0] / 1e9:.2f} GB a sample at mode "
-        f"0): denoise {den:.4f}, mmd {mmd_loss:.4f}, {dt:.1f} ms, peak memory "
+        f"0): denoise {den:.4f}, mmd {mmd_loss:.4f}, {dt:.1f} ms with its "
+        f"capture ({mstep.captures} graph), peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not (np.isfinite(mmd_loss) and np.isfinite(den)):
         raise AssertionError(f"MMD step not finite: {m}")
-    del opt
+    del opt, mp, mstep
     torch.cuda.empty_cache()
 
-    # 4. the learning check, then the same with the update's sign flipped
+    # 4. the learning check, then the same with the update's sign flipped,
+    # each from a copy of the weights through a step object of its own
     ltc = dataclasses.replace(tc, learning_rate=LEARN_LR)
-    lstep = st.make_dit_train_step(cfg, ltc, sched, mode=0)
     lbatch = train_batch(cfg, LEARN_BATCH, 2)
     ratios = {}
-    for name, fn in (("sound", lstep), ("sign flipped", flip_update(lstep))):
-        traj, ratios[name] = learning_check(fn, params,
-                                            adamw.init_opt_state(params),
-                                            lbatch, LEARN_N)
+    for name, wrap in (("sound", lambda s: s), ("sign flipped", flip_update)):
+        lp = tree_map(torch.clone, params)
+        traj, ratios[name] = learning_check(
+            wrap(st.make_dit_train_step(cfg, ltc, sched, mode=0)), lp,
+            adamw.init_opt_state(lp), lbatch, LEARN_N)
+        del lp
         log(f"[train] learning check ({name}), {LEARN_N} steps on one batch "
             f"(B={LEARN_BATCH}, lr {LEARN_LR}): loss "
             f"{', '.join(f'{x:.4f}' for x in traj)}; mean(last {LEARN_TAIL}) / "
@@ -2328,10 +2552,14 @@ def phase_training(gen: torch.Generator, smi: str) -> dict:
         nbytes = sum(f.stat().st_size for f in Path(ck.root).rglob("*.npy"))
         log(f"[train] repro_torch.launch.train --arch dit-xl-2 --steps 4 "
             f"--flexi --recipe lora --batch 8: {wall:.1f}s, losses "
-            f"{cli['losses']}; checkpoint steps {ck.all_steps()}, "
+            f"{cli['losses']}; its steps {cli['graphs']} (one graph a mode, "
+            f"the rest replays); checkpoint steps {ck.all_steps()}, "
             f"{nbytes / 1e9:.2f} GB, restored in {restore_s:.1f}s")
         if ck.all_steps() != [4] or int(tree["opt"]["step"]) != 4:
             raise AssertionError(f"the CLI's checkpoint: {ck.all_steps()}")
+        if (cli["graphs"]["captured"], cli["graphs"]["replays"]) != (2, 2):
+            raise AssertionError(f"the CLI's steps did not run captured: "
+                                 f"{cli['graphs']}")
         mism = [i for i, (a, b) in enumerate(zip(tree_leaves(tree["params"]),
                                                  tree_leaves(cli["params"])))
                 if a.dtype != b.dtype or not torch.equal(a, b)]
@@ -3181,8 +3409,9 @@ class RematNextWindow:
 
 
 def lm_timed_steps(step, params, opt, batch, k: int):
-    """One warm step, then ``k`` timed ones (CUDA events): (params, opt,
-    the timed ms, peak memory over all, the losses)."""
+    """One warm step (on the card: eager, then the capture), then ``k``
+    timed ones (CUDA events): (params, opt, the timed ms, peak memory over
+    all, the losses)."""
     ms, peak, losses = [], 0, []
     for i in range(k + 1):
         torch.cuda.reset_peak_memory_stats()
@@ -3196,48 +3425,58 @@ def lm_timed_steps(step, params, opt, batch, k: int):
 
 def lm_full_width_run(name: str, keep: int, B: int, S: int, gen, smi: str,
                       errors: list) -> dict:
-    """Draw, time LMT_K steps, check training forward against serving
-    forward on dense and pallas (check 2). Returns its readings with the
-    drawn and the trained parameters, the config and the batch."""
+    """Draw; the captured-vs-eager check and LMT_K timed captured steps;
+    training forward against serving forward on dense and pallas (check
+    2). Returns its readings with the drawn and the trained parameters,
+    the config and the batch."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim import adamw
     base, cfg = lm_cut(name, keep)
     t0 = time.perf_counter()
-    params = lm_mod.init_params(cfg, gen)
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = {"p": lm_mod.init_params(cfg, gen)}
+    state["o"] = adamw.init_opt_state(state["p"])
+    n_params = sum(t.numel() for t in tree_leaves(state["p"]))
     batch = lm_train_batch(cfg, B, S, SEED, gen)
+    batches = [batch, lm_train_batch(cfg, B, S, SEED + 1, gen)]
     tc = TrainConfig(learning_rate=LMT_LR, warmup_steps=0, schedule="constant")
+    r = captured_vs_eager("lm-train", name,
+                          lambda: [lm_steps.make_train_step(cfg, tc)], state,
+                          batches, "loss", LMT_K, 2, smi, errors)
+    trained, opt = state["p"], state["o"]
+    params = tree_map(lambda h: h.to(DEV), r["start"]["p"])     # as drawn
+    run = r["per"][0]
+    # where a step's time goes, eagerly: the forward alone (no graph, so
+    # no recompute), forward and backward, AdamW on those gradients
     step = lm_steps.make_train_step(cfg, tc)
-    trained, opt, ms, peak, losses = lm_timed_steps(
-        step, params, adamw.init_opt_state(params), batch, LMT_K)
-    # where a step's time goes: the forward alone (no graph, so no
-    # recompute), forward and backward, AdamW on those gradients
     with torch.no_grad():
         _, fwd_ms = cuda_ms(lambda: lm_mod.lm_loss(trained, batch, cfg))
     (_, grads), grad_ms = cuda_ms(lambda: step.loss_and_grads(trained, batch))
     _, opt_ms = cuda_ms(lambda: adamw.adamw_update(trained, grads, opt, tc))
-    del opt, grads
+    del opt, grads, state
     torch.cuda.empty_cache()
-    step_ms = float(np.median(ms))
+    step_ms = run["captured_ms"]
     split = dict(forward_ms=fwd_ms, backward_ms=grad_ms - fwd_ms, adamw_ms=opt_ms)
     flops = lm_train_flops(cfg, params, B, S)
     windows = sorted(set(lm_mod.layer_windows(cfg).tolist()))
     log(f"[lm-train] {name} ({cfg.num_layers} of {base.num_layers} layers, "
         f"d={cfg.d_model}, windows {windows}, remat {cfg.remat!r}), "
         f"{n_params / 1e9:.3f} B parameters, B={B} x S={S}: {step_ms:.1f} ms/step "
-        f"(median of {LMT_K}: {', '.join(f'{x:.1f}' for x in ms)}), "
-        f"{B * S / step_ms * 1e3:.0f} tokens/s, {flops / 1e12:.1f} TFLOP a step, "
-        f"{flops / step_ms / 1e9:.1f} TFLOP/s, peak memory {peak / 1e9:.2f} GB; "
-        f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"captured (replays {', '.join(f'{x:.1f}' for x in run['captured_all'])}) "
+        f"vs {run['eager_ms']:.1f} eager, {B * S / step_ms * 1e3:.0f} tokens/s, "
+        f"{flops / 1e12:.1f} TFLOP a step, {flops / step_ms / 1e9:.1f} TFLOP/s "
+        f"captured, {flops / run['eager_ms'] / 1e9:.1f} eager, peak memory "
+        f"{run['captured_peak'] / 1e9:.2f} GB captured, "
+        f"{run['eager_peak'] / 1e9:.2f} GB eager; eager losses "
+        f"{', '.join(f'{x:.4f}' for x in r['losses'])}; "
         f"{time.perf_counter() - t0:.1f}s with the draw ({smi})")
-    log(f"[lm-train] {name} a step's split (CUDA events, one run each): "
+    log(f"[lm-train] {name} a step's split (CUDA events, one eager run each): "
         f"forward alone {fwd_ms:.1f} ms, forward + backward {grad_ms:.1f} ms "
         f"(backward with the remat recompute {grad_ms - fwd_ms:.1f}), "
-        f"adamw_update {opt_ms:.1f} ms, the rest "
-        f"{step_ms - grad_ms - opt_ms:.1f} ms")
-    if not all(np.isfinite(losses)) or not all(torch.isfinite(t).all()
-                                               for t in tree_leaves(trained)):
-        errors.append(f"{name}: training not finite: {losses}")
+        f"adamw_update {opt_ms:.1f} ms, the rest of an eager step "
+        f"{run['eager_ms'] - grad_ms - opt_ms:.1f} ms")
+    if not all(np.isfinite(r["losses"])) or not all(torch.isfinite(t).all()
+                                                    for t in tree_leaves(trained)):
+        errors.append(f"{name}: training not finite: {r['losses']}")
 
     # check 2: the training forward's last position against prefill's
     with torch.no_grad():
@@ -3261,9 +3500,11 @@ def lm_full_width_run(name: str, keep: int, B: int, S: int, gen, smi: str,
     if not max(rels.values()) <= LM_LOGIT_TOL:
         errors.append(f"{name}: training vs serving forward {rels}")
     return dict(cfg=cfg, params=params, trained=trained, batch=batch, ms=step_ms,
-                tokens_s=B * S / step_ms * 1e3, tflops=flops / step_ms / 1e9,
-                peak_gb=peak / 1e9, losses=losses, flash=cfg.num_layers,
-                forward_rel=rels, **split)
+                eager_ms=run["eager_ms"], tokens_s=B * S / step_ms * 1e3,
+                tflops=flops / step_ms / 1e9, peak_gb=run["captured_peak"] / 1e9,
+                eager_peak_gb=run["eager_peak"] / 1e9,
+                pool_gb=r["keys"][0]["pool"] / 1e9, losses=r["losses"],
+                flash=cfg.num_layers, forward_rel=rels, steps=r["steps"], **split)
 
 
 def lm_remat_check(name: str, cfg, params, batch, errors: list) -> float:
@@ -3330,7 +3571,7 @@ def lm_train_then_serve(run: dict, errors: list) -> int:
     try:
         ck = Checkpointer(ckpt_dir, device=DEV)
         t1 = time.perf_counter()
-        ck.save(LMT_K + 1, {"params": params})
+        ck.save(run["steps"], {"params": params})
         ck.wait()
         save_s = time.perf_counter() - t1
         nbytes = sum(f.stat().st_size for f in Path(ck.root).rglob("*.npy"))
@@ -3351,7 +3592,7 @@ def lm_train_then_serve(run: dict, errors: list) -> int:
     launches = sum(got.values())
     mem, res = out["in memory"], out["restored"]
     same = all(torch.equal(mem[k], res[k]) for k in ("logits_p", "dec_p"))
-    log(f"[lm-train] {cfg.name} check 6: {LMT_K + 1} steps trained, "
+    log(f"[lm-train] {cfg.name} check 6: {run['steps']} steps trained, "
         f"Checkpointer.save {nbytes / 1e9:.2f} GB in {save_s:.1f}s, restored in "
         f"{restore_s:.1f}s, leaves differing {mism}; pallas prefill of the "
         f"{S}-token batch + {LMT_DECODE} decode steps from each, captured: logits "
@@ -3392,13 +3633,18 @@ def lm_family_run(name: str, keep: int, B: int, S: int, gen, smi: str,
     batch = lm_train_batch(cfg, B, S, SEED, gen)
     tc = TrainConfig(learning_rate=LMT_LR, warmup_steps=0, schedule="constant")
     step = lm_steps.make_train_step(cfg, tc, trainable=mask)
+    # the steps write params in place: the trainable leaves as drawn
+    on = tree_leaves(mask) if mask else [True] * len(tree_leaves(params))
+    drawn = [t.clone() if o else None for t, o in zip(tree_leaves(params), on)]
     new, opt, ms, peak, losses = lm_timed_steps(step, params, opt, batch, 1)
-    moved = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(new),
-                                                      tree_leaves(params)))
+    moved = sum(d is not None and not torch.equal(a, d)
+                for a, d in zip(tree_leaves(new), drawn))
+    del drawn
     log(f"[lm-train] {name} ({cfg.family}, {cfg.num_layers} of {base.num_layers} "
         f"layers, d={cfg.d_model}, {n_params / 1e9:.3f} B parameters"
         + (", the language model frozen" if mask else "")
-        + f"), B={B} x S={S}: 2 steps, the second {ms[0]:.1f} ms, peak memory "
+        + f"), B={B} x S={S}: 2 steps ({step.captures} graph), the second (a "
+        f"replay) {ms[0]:.1f} ms, peak memory "
         f"{peak / 1e9:.2f} GB; losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"{moved} of {len(tree_leaves(params))} leaves moved")
     if not all(np.isfinite(losses)) or not moved or not all(
@@ -3465,12 +3711,14 @@ def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
     del short
     torch.cuda.empty_cache()
     ltc = TrainConfig(learning_rate=LMT_LEARN_LR, warmup_steps=0, schedule="constant")
-    lstep = lm_steps.make_train_step(cfg, ltc)
     lbatch = lm_train_batch(cfg, LMT_LEARN_B, LMT_LEARN_S, SEED + 1, gen)
     ratios = {}
-    for name, fn in (("sound", lstep), ("sign flipped", flip_update(lstep))):
-        traj, ratios[name] = learning_check(fn, params, adamw.init_opt_state(params),
-                                            lbatch, LMT_LEARN_N)
+    for name, wrap in (("sound", lambda s: s), ("sign flipped", flip_update)):
+        lp = tree_map(torch.clone, params)     # each run from the drawn weights
+        traj, ratios[name] = learning_check(
+            wrap(lm_steps.make_train_step(cfg, ltc)), lp,
+            adamw.init_opt_state(lp), lbatch, LMT_LEARN_N)
+        del lp
         log(f"[lm-train] check 5 ({name}), {LMT_LEARN_N} steps on one batch of "
             f"the trainer's corpus (B={LMT_LEARN_B} x S={LMT_LEARN_S}, lr "
             f"{LMT_LEARN_LR}): loss {', '.join(f'{x:.4f}' for x in traj)}; "
@@ -3483,8 +3731,8 @@ def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
         errors.append(f"the learning check misses a sign-flipped update: "
                       f"{ratios['sign flipped']}")
     out["learn"] = ratios
-    keep = ("ms", "tokens_s", "tflops", "peak_gb", "forward_rel", "forward_ms",
-            "backward_ms", "adamw_ms")
+    keep = ("ms", "eager_ms", "tokens_s", "tflops", "peak_gb", "eager_peak_gb",
+            "pool_gb", "forward_rel", "forward_ms", "backward_ms", "adamw_ms")
     out[cfg.name] = {k: run[k] for k in keep}
     del run, params, lbatch
     torch.cuda.empty_cache()
@@ -3524,11 +3772,14 @@ def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
         steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 100
         log(f"[lm-train] repro_torch.launch.train {' '.join(argv)}: {wall:.1f}s, "
-            f"losses {cli['losses']}; checkpoints at steps {kept}, "
-            f"{nbytes / 1e9:.2f} GB on disk")
+            f"losses {cli['losses']}; its step {cli['graphs']}; checkpoints at "
+            f"steps {kept}, {nbytes / 1e9:.2f} GB on disk")
         if (int(cli["opt"]["step"]) != steps or kept[-1] != steps
                 or not all(np.isfinite(l) for _, l in cli["losses"])):
             errors.append(f"the CLI {' '.join(argv)}: {cli['losses']}")
+        if (cli["graphs"]["captured"], cli["graphs"]["replays"]) != (1, steps - 1):
+            errors.append(f"the CLI {' '.join(argv)} did not run captured: "
+                          f"{cli['graphs']}")
         del cli
         torch.cuda.empty_cache()
 
@@ -4081,7 +4332,8 @@ def st_lm_setup(name, keep, over, device):
 def st_references(tmp: Path) -> dict:
     """This process's single-device steps: the first DiT step's and each LM
     step's loss, metrics and gradients (the gradients to files the ranks
-    read their chunks of), and the walls of 4 single-device DiT steps."""
+    read their chunks of), and the walls of 4 single-device DiT steps
+    (captured: each mode's first step runs eagerly, then captures)."""
     from repro_torch.optim import adamw
     refs = {}
     params, cfg, batch, draws = st_dit_setup(DEV)
@@ -4097,7 +4349,7 @@ def st_references(tmp: Path) -> dict:
         walls.append(wall)
     refs["dit_walls"] = walls
     refs["dit_peak"] = torch.cuda.max_memory_allocated()
-    del params, p, o
+    del params, p, o, steps     # the steps' graphs and pools with them
     torch.cuda.empty_cache()
     for name, keep, _, over in ST_LMS:
         torch.cuda.reset_peak_memory_stats()
@@ -4221,20 +4473,24 @@ def st_dit_rank(rank, mesh, tmp: Path, device) -> dict:
                grad_norm=float(adamw.global_norm(g)))
     with st_planted("norm_local"):
         out["norm_local"] = float(adamw.global_norm(g))
-    (p, o, _), wall = st_timed(lambda: adamw.adamw_update(p0, g, o0, first.tc))
+    # AdamW writes its trees in place: p0 stays as drawn for the planted
+    # fault below
+    p = tree_map(torch.clone, p0)
+    (p, o, _), wall = st_timed(lambda: adamw.adamw_update(p, g, o0, first.tc))
     del g
     torch.cuda.empty_cache()     # the ranks share the card: hand back the cache
-    walls, p1, o1 = [out["grads_wall"] + wall], p, o
+    walls = [out["grads_wall"] + wall]
     with st_planted("unsummed"):
         _, g = first.grads(p0, batch, **draws[0])
     out["unsummed"] = max(st_grad_rels(g, tmp / "dit.pt", device).values())
     del g, p0, o0
     torch.cuda.empty_cache()
     ck = Checkpointer(tmp / "ckpt", device=device)     # written while steps run
-    (_, out["save_s"]) = st_timed(lambda: ck.save(1, {"params": p1, "opt": o1}))
-    full = tree_map(plc.gather_full, p1)               # every rank gathers
+    (_, out["save_s"]) = st_timed(lambda: ck.save(1, {"params": p, "opt": o}))
+    full = tree_map(plc.gather_full, p)                # every rank gathers
     mem = tree_map(lambda x: x.cpu(), full) if rank == 0 else None
     del full
+    p1 = tree_map(torch.clone, p)      # step 1's: the steps below write p
     losses = [float(loss)]
     for i in range(1, 4):
         (p, o, m), wall = st_timed(lambda: steps[ST_MODES[i]].with_draws(
@@ -4247,7 +4503,7 @@ def st_dit_rank(rank, mesh, tmp: Path, device) -> dict:
                 d = plc.gather_full(a).float() - plc.gather_full(b).float()
                 if rank == 0:
                     d_ref.append(d.cpu())
-            del p1, o1, d
+            del p1, d
     out.update(walls=walls, losses=losses, peak=torch.cuda.max_memory_allocated(),
                finite=all(bool(torch.isfinite(plc.local(x)).all())
                           for x in tree_leaves(p)))
@@ -4274,11 +4530,11 @@ def st_elastic_rank(rank, device, ck, cfg, step, batch, draws, d_ref) -> dict:
     if sub.get_coordinate() is not None:
         (state, _), restore_s = st_timed(lambda: elastic.elastic_restore(
             ck, cfg, sub, profile="fsdp2d", device=device))
+        restored = tree_map(torch.clone, state["params"])  # the step writes them
         (p2, _, _), wall = st_timed(lambda: step.with_draws(
             state["params"], state["opt"], batch, **draws))
         num = den = 0.0
-        for i, (a, b) in enumerate(zip(tree_leaves(p2),
-                                       tree_leaves(state["params"]))):
+        for i, (a, b) in enumerate(zip(tree_leaves(p2), tree_leaves(restored))):
             d = plc.gather_full(a).float() - plc.gather_full(b).float()
             if rank == 0:
                 ref = d_ref[i].to(device)
@@ -4308,7 +4564,8 @@ def st_lm_rank(rank, mesh, tmp: Path, device, name, keep, profile, over) -> dict
     out.update(loss=float(loss), grads_wall=wall,
                metrics={k: float(v) for k, v in m.items()},
                rels=st_grad_rels(g, tmp / f"{name}.pt", device))
-    (p1, _, m), wall = st_timed(lambda: adamw.adamw_update(p0, g, o0, step.tc))
+    p1 = tree_map(torch.clone, p0)   # written in place; p0 kept for the fault
+    (p1, _, m), wall = st_timed(lambda: adamw.adamw_update(p1, g, o0, step.tc))
     out.update(adamw_wall=wall, finite=all(bool(torch.isfinite(plc.local(x)).all())
                                            for x in tree_leaves(p1)))
     del g, p1
@@ -5071,6 +5328,18 @@ def main() -> None:
             f"{got['families']['seconds']:.1f} / {got['lm_train']['seconds']:.1f} s")
         print(smi)
         print(json.dumps({"only": "lm", "ok": True, **{
+            k: {kk: vv for kk, vv in v.items() if isinstance(vv, (int, float))}
+            for k, v in got.items()}}), flush=True)
+        return
+    if sys.argv[1:] == ["--only", "train"]:       # phases 9 and 13 alone
+        phase_build()
+        got = {"train": phase_training(
+            torch.Generator(device=DEV).manual_seed(SEED + 3), smi)}
+        free_card()
+        got["lm_train"] = phase_lm_train(
+            torch.Generator(device=DEV).manual_seed(SEED + 8), smi)
+        print(smi)
+        print(json.dumps({"only": "train", "ok": True, **{
             k: {kk: vv for kk, vv in v.items() if isinstance(vv, (int, float))}
             for k, v in got.items()}}), flush=True)
         return

@@ -37,7 +37,13 @@ Invariances asserted (``graph-fingerprint-drift`` on violation):
   / ``make_decode_step``), one tiny config a family (dense with window,
   softcap and scaled embeddings; MoE; hybrid; vision; audio): the
   prefill at two token contents, and the decode on one cache slot at two
-  positions and two token contents.
+  positions and two token contents;
+* the train steps' captured body (``optim/adamw.TrainStep.update``:
+  gradients, then AdamW written in place), traced with autograd on (the
+  audit's units run under ``no_grad``; ``value_and_grad`` turns it back
+  on): the DiT step at the weak mode, the LoRA distillation with its
+  mask, and the LM step with remat "block" over two microbatches, each at
+  two batch contents and draws.
 
 Each graph is walked for host reads (``graph-host-sync``:
 ``aten._local_scalar_dense`` and kin, a sync that fails a capture) and
@@ -47,7 +53,11 @@ reference's ``jaxpr-nondonated-hotbuf`` check on its hot ``jax.jit``
 entry points) builds every kind of runner ``FlexiPipeline._lookup``
 caches and both LM step factories, and fails on one that does not go
 through ``runtime.graphs`` (or a decode step that does not donate its
-cache).
+cache), and the train-step factories (``make_train_step``,
+``make_dit_train_step``, ``make_distill_step``,
+``make_mmd_finetune_step``), each of which must return a captured runner
+that donates the parameter tree and the optimizer state (the reference
+planner's ``donate_argnums=(0, 1)``).
 
 What the fingerprint does NOT prove, as in the reference: equality of
 phase runners across budgets (a budget switch changes the phase split of
@@ -72,6 +82,7 @@ from repro_torch.analysis.engine import Finding
 
 PIPELINE_PATH = "src/repro_torch/pipeline/pipeline.py"
 LM_STEPS_PATH = "src/repro_torch/launch/steps.py"
+ADAMW_PATH = "src/repro_torch/optim/adamw.py"
 
 #: aten ops that read a device value to the host (a sync: a capture fails)
 HOST_SYNC_OPS = {"_local_scalar_dense", "is_nonzero", "equal", "item"}
@@ -190,8 +201,8 @@ def check_graph(gm: torch.fx.GraphModule, unit: str,
 # `python -m repro_torch.analysis` works outside pytest)
 
 
-@functools.lru_cache(maxsize=1)
-def _tiny():
+@functools.lru_cache(maxsize=2)
+def _tiny(lora_rank: int = 0):
     from repro_torch.configs.base import AttnConfig, DiTConfig, ModelConfig
     from repro_torch.core.flexify import flexify
     from repro_torch.diffusion import schedule as sch
@@ -207,7 +218,7 @@ def _tiny():
         max_seq_len=256)
     with torch.random.fork_rng():
         params = dit_mod.init_dit(cfg, torch.Generator().manual_seed(0))
-        fparams, fcfg = flexify(params, cfg, [(1, 4, 4)])
+        fparams, fcfg = flexify(params, cfg, [(1, 4, 4)], lora_rank=lora_rank)
     return fparams, fcfg, sch.linear_schedule(100)
 
 
@@ -564,6 +575,7 @@ def audit_runners() -> AuditReport:
                 f"through runtime.graphs: it would run eagerly on the card",
                 "FlexiPipeline._lookup"))
     findings.extend(lm_runner_findings())
+    findings.extend(train_runner_findings())
     return AuditReport(findings, {})
 
 
@@ -669,6 +681,122 @@ def lm_runner_findings(factories: Optional[Dict[str, Tuple[Callable, Tuple[
     return findings
 
 
+def train_runner_findings(factories: Optional[Dict[str, Tuple[
+        Callable[[], Any], str]]] = None) -> List[Finding]:
+    """``graph-uncaptured-runner`` over the train-step factories (name →
+    (a builder of the factory's step on a tiny config, the factory's
+    file); default the four of ``launch/steps``, ``core/distill`` and
+    ``core/mmd``): each step must be a ``runtime.graphs`` runner captured
+    on CUDA that donates the parameter tree and the optimizer state."""
+    from repro_torch.runtime import graphs
+    if factories is None:
+        factories = _train_factories()
+    findings = []
+    for name, (build, path) in factories.items():
+        runner = build()
+        if not isinstance(runner, graphs.Captured) or runner.eager_only:
+            why = ("does not go through runtime.graphs: it would run eagerly "
+                   "on the card")
+        elif runner.donate != (0, 1):
+            why = (f"donates arguments {runner.donate}, not (0, 1): on the "
+                   f"card the parameters and the AdamW state would be copied "
+                   f"in and cloned out a step")
+        else:
+            continue
+        findings.append(Finding("graph-uncaptured-runner", "error", path, 0,
+                                f"the step of {name} {why}", name))
+    return findings
+
+
+def _train_factories() -> Dict[str, Tuple[Callable[[], Any], str]]:
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import distill, mmd
+    from repro_torch.launch import steps
+    lm_cfg, _ = _tiny_lm(LM_AUDIT_ARCHS[0])
+    _, dit_cfg, sched = _tiny()
+    tc = TrainConfig()
+    return {
+        "make_train_step": (lambda: steps.make_train_step(lm_cfg, tc),
+                            LM_STEPS_PATH),
+        "make_dit_train_step": (
+            lambda: steps.make_dit_train_step(dit_cfg, tc, sched), LM_STEPS_PATH),
+        "make_distill_step": (lambda: distill.make_distill_step(dit_cfg, tc, sched),
+                              "src/repro_torch/core/distill.py"),
+        "make_mmd_finetune_step": (
+            lambda: mmd.make_mmd_finetune_step(dit_cfg, tc, sched),
+            "src/repro_torch/core/mmd.py")}
+
+
+# ---------------------------------------------------------------------------
+# The train steps' captured body
+
+TRAIN_AUDIT_KINDS = ("dit", "distill", "lm")
+
+
+def audit_train_step(kind: str, update: Optional[Callable] = None
+                     ) -> AuditReport:
+    """The body a train step captures (``TrainStep.update``) for ``kind``
+    (``dit``: the denoising step at mode 1; ``distill``: the LoRA
+    distillation with its mask; ``lm``: gemma2's tiny config with remat
+    "block" over two microbatches), traced at two batch contents and
+    draws from a copy of the same parameters and state: one graph, no
+    host read. ``update`` stands in for the body (a planted fault)."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import distill, trainable_mask
+    from repro_torch.launch import steps
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+    tc = TrainConfig(warmup_steps=2, total_steps=10)
+    if kind == "lm":
+        cfg, params = _tiny_lm(LM_AUDIT_ARCHS[0])
+        step = steps.make_train_step(dc.replace(cfg, remat="block"), tc,
+                                     n_microbatches=2)
+    elif kind == "distill":
+        params, cfg, sched = _tiny(lora_rank=2)
+        step = distill.make_distill_step(cfg, tc, sched,
+                                         trainable=trainable_mask(params, "lora"))
+    else:
+        params, cfg, sched = _tiny()
+        step = steps.make_dit_train_step(cfg, tc, sched, mode=1)
+    body = update or step.update
+    cases = {}
+    for seed in (0, 1):
+        g = torch.Generator().manual_seed(seed)
+        if kind == "lm":
+            toks = torch.randint(0, cfg.vocab_size, (2 * LM_B, LM_S),
+                                 generator=g, dtype=torch.int32)
+            batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+        else:
+            batch = {"x0": torch.randn((LM_B,) + cfg.dit.latent_shape,
+                                       generator=g),
+                     "cond": torch.randint(0, cfg.dit.num_classes, (LM_B,),
+                                           generator=g)}
+        p = tree_map(torch.clone, params)
+        _, (p, o, b, d, m) = step.split(p, adamw.init_opt_state(p), batch, g)
+        cases[f"batch-{seed}"] = (functools.partial(_with_mask, body, m),
+                                  (p, o, b, d))
+    return _invariant(f"train_step[{kind}]", cases,
+                      "batch contents and draws", ADAMW_PATH)
+
+
+def _with_mask(body: Callable, mask: Any, params: Any, opt_state: Any,
+               batch: Any, draws: Any) -> Any:
+    """``body`` with its mask bound (Python bools: a key of the graph)."""
+    return body(params, opt_state, batch, draws, mask)
+
+
+def audit_train_steps() -> AuditReport:
+    """:func:`audit_train_step` for every kind of ``TRAIN_AUDIT_KINDS``."""
+    out = AuditReport([], {})
+    for kind in TRAIN_AUDIT_KINDS:
+        rep = audit_train_step(kind)
+        out.findings.extend(rep.findings)
+        out.fingerprints.update(rep.fingerprints)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Entry point
 
@@ -680,7 +808,8 @@ def audit_step_functions() -> AuditReport:
     fingerprints: Dict[str, str] = {}
     units = [audit_plain_step, audit_packed_step, audit_packed_cached_step,
              audit_cached_runner, audit_tapped_step,
-             audit_attention_segments, audit_runners, audit_lm_serving]
+             audit_attention_segments, audit_runners, audit_lm_serving,
+             audit_train_steps]
     for unit in units:
         try:
             with torch.inference_mode(False), torch.no_grad():

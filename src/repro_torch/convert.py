@@ -94,8 +94,10 @@ def opt_state_from_numpy(state: Any, device: Any = None) -> Any:
 
 def tree_to_numpy(tree: Any) -> Any:
     """The port's tree → nested dict of numpy arrays on the host
-    (bfloat16 leaves as float32, which holds every bfloat16 exactly)."""
+    (bfloat16 leaves as float32, which holds every bfloat16 exactly),
+    copies even of CPU tensors: a train step later writes the tree in
+    place."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
-    t = tree.detach().cpu()
+    t = tree.detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -46,8 +46,12 @@ def make_distill_step(cfg: ModelConfig, tc: TrainConfig,
                       sched: Optional[sch.DiffusionSchedule] = None,
                       mode_weak: int = 1,
                       trainable: Optional[Any] = None) -> TrainStep:
-    """(params, opt_state, batch, generator) → (params, opt_state, metrics).
-    ``trainable`` comes from ``core.flexify.trainable_mask(params, 'lora')``."""
+    """(params, opt_state, batch, generator) → (params, opt_state, metrics),
+    captured with ``params`` and ``opt_state`` donated (updated in place,
+    returned as the caller's objects; ``launch/steps.make_train_step``).
+    ``trainable`` comes from ``core.flexify.trainable_mask(params, 'lora')``:
+    its Python bools join the graph's key, and a frozen leaf is never
+    written."""
     sched = sched or sch.linear_schedule(1000)
 
     def draw(batch, generator):
@@ -59,4 +63,5 @@ def make_distill_step(cfg: ModelConfig, tc: TrainConfig,
         return distill_loss(params, batch, t, noise, cfg, sched, mode_weak)
 
     return TrainStep(loss_fn, draw, tc, trainable,
-                     plc.stacked_leaves(dit_mod.dit_schema(cfg)))
+                     plc.stacked_leaves(dit_mod.dit_schema(cfg)),
+                     name=f"distill_step[mode {mode_weak}]")

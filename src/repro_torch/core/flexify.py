@@ -6,6 +6,10 @@ underlying patch size ``p'`` with the PI-resize init (the pre-trained
 forward is preserved at the pre-trained patch size), and new parameters
 get function-preserving inits (zeros / PI-resize). Randomly initialized
 new leaves (LoRA ``a``) are drawn from the given ``torch.Generator``.
+Every leaf of ``flex_params`` is its own tensor (the leaves kept from
+``params`` are copies): the train steps update a tree in place, so a
+leaf shared with the pre-trained tree, or appearing twice, would be
+written where the reference's values stay as they were.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ def flexify(params: Params, cfg: ModelConfig,
             return {k: merge(v, old_tree[k]) if (isinstance(old_tree, dict)
                                                  and k in old_tree) else v
                     for k, v in new_tree.items()}
-        return old_tree if old_tree is not None else new_tree
+        return old_tree.clone() if old_tree is not None else new_tree
 
     flex = merge(fresh, params)
 
@@ -65,7 +69,7 @@ def flexify(params: Params, cfg: ModelConfig,
         # collapse the old flex storage to the pre-trained size, then lift
         w_pre = resize.project_embed(params["embed"]["w_flex"], p_pre, old_pp)
         flex["embed"] = {"w_flex": resize.lift_embed(w_pre, p_pre, new_pp),
-                         "b": params["embed"]["b"]}
+                         "b": params["embed"]["b"].clone()}
         wd_pre = resize.project_deembed(params["deembed"]["w_flex"], p_pre, old_pp)
         bd_pre = resize.project_deembed_bias(params["deembed"]["b_flex"], p_pre,
                                              old_pp)
@@ -73,8 +77,8 @@ def flexify(params: Params, cfg: ModelConfig,
             "w_flex": resize.lift_deembed(wd_pre, p_pre, new_pp),
             "b_flex": resize.lift_deembed_bias(bd_pre, p_pre, new_pp)}
     else:
-        flex["embed"] = dict(params["embed"])
-        flex["deembed"] = dict(params["deembed"])
+        flex["embed"] = tree_map(torch.clone, params["embed"])
+        flex["deembed"] = tree_map(torch.clone, params["deembed"])
 
     # LoRA recipe: per-new-mode embed layers, PI-resized from the
     # pre-trained weights: W(p_k) = B_up(p_pre→p_k)·w_pre.
@@ -87,7 +91,7 @@ def flexify(params: Params, cfg: ModelConfig,
         for m, p_new in enumerate(new_patch_sizes, start=1):
             flex["embed_new"][f"m{m}"] = {
                 "w": resize.lift_embed(w_pre, p_pre, p_new),
-                "b": params["embed"]["b"]}
+                "b": params["embed"]["b"].clone()}
             flex["deembed_new"][f"m{m}"] = {
                 "w": resize.lift_deembed(wd_pre, p_pre, p_new),
                 "b": resize.lift_deembed_bias(bd_pre, p_pre, p_new)}

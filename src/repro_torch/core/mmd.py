@@ -166,7 +166,10 @@ def make_mmd_finetune_step(cfg: ModelConfig, tc: TrainConfig,
     """Shared-params recipe (§4.1): standard denoising loss at a (per-step
     static) patch mode + the bootstrapped MMD correction. Draws in the
     reference's order: t and noise, then the bootstrap's (:func:`draw_mmd`,
-    a chain of 2 weak + 2 powerful steps)."""
+    a chain of 2 weak + 2 powerful steps). The loss makes no decision on
+    the host (the chain's modes are static, the median bandwidth an index
+    by shape), so the step is captured like the others, ``params`` and
+    ``opt_state`` donated."""
     sched = sched or sch.linear_schedule(1000)
 
     def draw(batch, generator):
@@ -181,4 +184,5 @@ def make_mmd_finetune_step(cfg: ModelConfig, tc: TrainConfig,
                                  train_mode=train_mode, **draws)
 
     return TrainStep(loss_fn, draw, tc,
-                     stacked=plc.stacked_leaves(dit_mod.dit_schema(cfg)))
+                     stacked=plc.stacked_leaves(dit_mod.dit_schema(cfg)),
+                     name="mmd_finetune_step")

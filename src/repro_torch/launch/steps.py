@@ -11,6 +11,14 @@ gradients and applies AdamW. Training runs the dense attention path, as
 the reference does at 256 unsegmented tokens (no Pallas kernel of the
 JAX package has a backward rule).
 
+Every train step is a ``runtime.graphs`` runner that donates the
+parameter tree and the optimizer state (the counterpart of
+``train.py``'s ``jax.jit`` of the step and the planner's
+``donate_argnums=(0, 1)``): on the card one CUDA graph per step object,
+tree, state and batch shape, captured at the first call and replayed
+after it; AdamW writes both trees in place, so a caller that needs the
+old values copies them first.
+
 Handed placed parameters (``runtime/placement``), every step here is the
 sharded step over their mesh: each rank takes its rows of the global
 batch and of the global draws, gathers each layer's weights on use, and
@@ -44,7 +52,8 @@ class _MicrobatchedStep(TrainStep):
 
     def __init__(self, loss_fn, tc: TrainConfig, n: int,
                  trainable: Optional[Params] = None, stacked: Any = None):
-        super().__init__(loss_fn, _no_draws, tc, trainable, stacked)
+        super().__init__(loss_fn, _no_draws, tc, trainable, stacked,
+                         name=f"train_step[{n} microbatches]")
         self.n = n
 
     def loss_and_grads(self, params: Params, batch: Dict
@@ -80,8 +89,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     ``batch``: ``tokens`` / ``targets`` [B,S] int, optional ``loss_mask``
     and ``segment_ids``, and ``vision`` / ``frames`` for those families.
     ``n_microbatches > 1`` splits B into that many slices taken one after
-    another (bounds activation memory; see DESIGN.md §5). Placed
-    parameters (``runtime/placement``) make it a sharded step: see
+    another (bounds activation memory; see DESIGN.md §5). The step is
+    captured with ``params`` and ``opt_state`` donated (updated in place,
+    returned as the caller's objects). Placed parameters
+    (``runtime/placement``) make it a sharded step, run eagerly: see
     :class:`~repro_torch.optim.adamw.TrainStep`."""
     def loss_fn(params, batch):
         return lm.lm_loss(params, batch, cfg, backend=backend)
@@ -172,10 +183,11 @@ def make_dit_train_step(cfg: ModelConfig, tc: TrainConfig,
                         sched: Optional[sch.DiffusionSchedule] = None,
                         mode: int = 0,
                         trainable: Optional[Params] = None) -> TrainStep:
-    """Denoising-objective train step at a fixed patch mode. The FlexiDiT
-    fine-tuning loop alternates modes across steps (one step object
-    each), matching §4.1: 'learn to denoise using one of the available
-    patch sizes'."""
+    """Denoising-objective train step at a fixed patch mode, captured with
+    ``params`` and ``opt_state`` donated (see ``make_train_step``). The
+    FlexiDiT fine-tuning loop alternates modes across steps (one step
+    object, so one graph, each), matching §4.1: 'learn to denoise using
+    one of the available patch sizes'."""
     sched = sched or sch.linear_schedule(1000)
 
     def draw(batch, generator):
@@ -187,7 +199,8 @@ def make_dit_train_step(cfg: ModelConfig, tc: TrainConfig,
         return dit_loss(params, batch, t, noise, cfg, sched, mode)
 
     return TrainStep(loss_fn, draw, tc, trainable,
-                     plc.stacked_leaves(dit_mod.dit_schema(cfg)))
+                     plc.stacked_leaves(dit_mod.dit_schema(cfg)),
+                     name=f"dit_train_step[mode {mode}]")
 
 
 def make_dit_serve_step(cfg: ModelConfig, mode_cond: int = 0,

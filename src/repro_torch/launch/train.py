@@ -40,6 +40,7 @@ from repro_torch.launch import steps as st
 from repro_torch.models import dit as dit_mod
 from repro_torch.models import lm
 from repro_torch.optim import adamw, ema
+from repro_torch.runtime import graphs
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.runtime.straggler import StragglerDetector
 
@@ -67,7 +68,13 @@ def build_dit_training(cfg, tc, batch, device, mode=0, trainable=None):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Train; returns the final ``params``, ``opt``, ``ema``, ``cfg``, the
-    logged ``losses`` and the checkpoint directory ``ckpt_root``."""
+    logged ``losses``, the checkpoint directory ``ckpt_root`` and the
+    step functions' ``graphs`` (``runtime.graphs.stats``: on the card one
+    graph a step function, every later step a replay; none on the CPU).
+
+    Each step function donates ``params`` and ``opt``: the step writes
+    them in place and returns the same trees (the EMA reads them after
+    each step, the checkpointer copies them to the host)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dit-xl-2")
     ap.add_argument("--steps", type=int, default=100)
@@ -159,7 +166,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"checkpoints at {ckpt.root}; straggler report: "
           f"{sd.report(args.steps)}", flush=True)
     return {"params": params, "opt": opt, "ema": ema_state, "cfg": cfg,
-            "losses": losses, "ckpt_root": ckpt.root}
+            "losses": losses, "ckpt_root": ckpt.root,
+            "graphs": graphs.stats(step_fns)}
 
 
 if __name__ == "__main__":

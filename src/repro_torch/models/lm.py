@@ -187,9 +187,12 @@ def _remat(cfg: ModelConfig, fn: Callable, *args: Any) -> Any:
     backward from these same arguments, so everything ``fn`` depends on
     (the layer's parameters, its window) is an argument, never a name of
     the caller's loop. Other values run plainly: the reference acts on
-    ``"block"`` alone."""
+    ``"block"`` alone. The layers draw nothing, so the RNG state is not
+    saved for the recompute (reading the CUDA generator's state fails a
+    CUDA-graph capture of the train step)."""
     if cfg.remat == "block" and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
     return fn(*args)
 
 

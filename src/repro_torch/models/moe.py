@@ -6,7 +6,13 @@
   expert's capacity are dropped; the residual keeps those tokens), runs
   the experts as batched products, and gathers the results back weighted
   by the router's gates. Dispatch is gather-only: the one scatter is of
-  int token indices.
+  int token indices. The two row gathers (:class:`_GatherRows`) take
+  their backward from the inverse map, as gathers too: a token's
+  gradient sums its k slots' in a fixed order, where ``index_select``'s
+  backward (``index_add_``) adds them by atomics on CUDA, in an order
+  that changes from run to run (a train step captured as a CUDA graph is
+  held against its eager run bit for bit), and indexing's
+  (``index_put_``'s accumulate) sorts the index every step.
 * :func:`moe_apply_dense` — every expert on every token, gated combine:
   the oracle the sorted path is held against.
 
@@ -114,6 +120,37 @@ def _expert_ffn_batched(params: Params, xb: torch.Tensor, activation: str
     return y.reshape(E, B, C, d).transpose(0, 1)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``src.index_select(0, index)`` whose backward is made of gathers,
+    with no atomics and no sort: the same bits on every run. Row i of
+    ``src``'s gradient sums, over j < k in that order, the incoming
+    gradient's rows ``back[i·k + j]`` where ``back_ok`` holds (the rows
+    that carry gradient). ``back`` None: ``index`` is one to one on the
+    rows where ``back_ok`` holds (k = 1), and the backward inverts it."""
+
+    @staticmethod
+    def forward(ctx, src, index, back, back_ok, k):
+        ctx.save_for_backward(index, back, back_ok)
+        ctx.k, ctx.rows = k, src.shape[0]
+        return src.index_select(0, index)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        index, back, back_ok = ctx.saved_tensors
+        if back is None:
+            n, dev = index.shape[0], index.device
+            back = torch.full((ctx.rows + 1,), n, dtype=index.dtype,
+                              device=dev).scatter_(
+                0, torch.where(back_ok, index, ctx.rows),
+                torch.arange(n, device=dev))[:ctx.rows]
+            back_ok, back = back < n, back.clamp(max=n - 1)
+        g = grad.index_select(0, back)
+        g = torch.where(back_ok[:, None], g, g.new_zeros(()))
+        return (g.reshape(-1, ctx.k, g.shape[-1]).sum(dim=1),
+                None, None, None, None)
+
+
 def capacity(num_tokens: int, cfg: MoEConfig) -> int:
     """Slots per (row, expert): tokens x k x capacity_factor / E, rounded
     up to a multiple of 8, at least 8."""
@@ -154,22 +191,26 @@ def moe_apply_sorted(params: Params, x: torch.Tensor, cfg: MoEConfig,  # repro: 
     idx_buf = torch.full((B, E * C + 1), S, dtype=torch.long, device=dev)
     idx_buf = idx_buf.scatter_(1, buf_idx, tok_sorted)[:, :E * C]
     valid = (idx_buf < S)[..., None].to(x.dtype)
-    rows = torch.arange(B, device=dev)[:, None] * S
-    # one flat gather of whole token rows: an index of B*E*C ints
-    x_buf = x.reshape(B * S, d).index_select(
-        0, (idx_buf.clamp(max=S - 1) + rows).reshape(-1)).reshape(B, E * C, d)
+    # the inverse permutation: assignment (token-major) → slot
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(T, device=dev).expand(B, T))
+    buf_pos = buf_idx.gather(1, inv)                              # [B,T]
+    keep_tok = keep.gather(1, inv).reshape(-1)
+    rows = torch.arange(B, device=dev)[:, None]
+    slot_of = (buf_pos.clamp(max=E * C - 1) + rows * (E * C)).reshape(-1)
+    # one flat gather of whole token rows: an index of B*E*C ints; a
+    # token's gradient gathers its k slots'
+    x_buf = _GatherRows.apply(
+        x.reshape(B * S, d), (idx_buf.clamp(max=S - 1) + rows * S).reshape(-1),
+        slot_of, keep_tok, k).reshape(B, E * C, d)
     x_buf = x_buf * valid
     y_buf = _expert_ffn_batched(params, x_buf.reshape(B, E, C, d), activation)
     y_buf = y_buf.reshape(B * E * C, d)
 
-    # back to token-major through the inverse permutation (gathers only)
-    inv = torch.empty_like(order).scatter_(
-        1, order, torch.arange(T, device=dev).expand(B, T))
-    buf_pos = buf_idx.gather(1, inv)                              # [B,T]
-    keep_tok = keep.gather(1, inv)
-    brow = torch.arange(B, device=dev)[:, None] * (E * C)
-    y_slots = y_buf.index_select(
-        0, (buf_pos.clamp(max=E * C - 1) + brow).reshape(-1)).reshape(B, T, d)
+    # back to token-major (gathers only)
+    y_slots = _GatherRows.apply(y_buf, slot_of, None, keep_tok,
+                                1).reshape(B, T, d)
+    keep_tok = keep_tok.reshape(B, T)
     w_tok = (gates * keep_tok.float())[..., None].to(x.dtype)
     out = (y_slots * w_tok).reshape(B, S, k, d).sum(dim=2)
     if "shared" in params:

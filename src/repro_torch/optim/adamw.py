@@ -2,14 +2,25 @@
 ``repro.optim.adamw``.
 
 Parameters, gradients and moments are nested dicts of tensors (the
-port's parameter tree). The update is functional: it returns new trees
-and never writes into the ones it was given. The arithmetic and its
-order are the reference's: float32 moments (or ``opt_dtype``), bias
-corrections from the incremented step, and
-``p_new = (p.f32 - lr·(m̂/(√v̂ + eps) + wd·p.f32)).to(p.dtype)``. A frozen
-leaf (``trainable`` False) keeps p, m and v unchanged, bit for bit.
-``step`` and the learning rate stay tensors on the parameters' device,
-so a step never waits on the host.
+port's parameter tree). The update is in place, the counterpart of the
+reference planner's ``jax.jit(step, donate_argnums=(0, 1))``: it writes
+p, m, v and ``step`` into the trees it is handed and returns those same
+objects; a caller that needs the old values copies them first. The
+arithmetic and its order are the reference's (and the functional
+update's this one replaced, bit for bit): float32 moments (or
+``opt_dtype``), bias corrections from the incremented step, and
+``p_new = (p.f32 - lr·(m̂/(√v̂ + eps) + wd·p.f32)).to(p.dtype)``; a float32
+moment or parameter is computed in its own storage, any other in a
+float32 copy written back once. A frozen leaf (``trainable`` False)
+keeps p, m and v unchanged, bit for bit. ``step`` and the learning rate
+stay tensors on the parameters' device, so a step never waits on the
+host.
+
+:class:`TrainStep` is a ``runtime.graphs`` runner (the counterpart of
+``train.py``'s ``jax.jit`` of the step): on the card one CUDA graph per
+step object, parameter tree and optimizer state (by identity, both
+donated) and batch / draw shape; the draws are made on the host side and
+copied in with the batch.
 
 Placed leaves (``runtime/placement``: DTensors on a ``("data", "model")``
 mesh) are updated chunk by chunk, their moments placed like them (the
@@ -30,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.common import dtype_of, tree_leaves, tree_map
+from repro_torch.runtime import graphs
 from repro_torch.runtime import placement as plc
 from repro_torch.runtime.sharding import use_mesh
 
@@ -78,12 +90,22 @@ def clip_by_global_norm(grads: Params, max_norm: float
         lambda l: (l.float() * scale).to(l.dtype), x), grads), g
 
 
+def _work(x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """Where a leaf's new float32 value is computed: in ``x`` itself when
+    it is float32 and unmasked, else in a float32 copy."""
+    if x.dtype == torch.float32 and keep is None:
+        return x
+    return x.to(torch.float32, copy=True)
+
+
 def adamw_update(params: Params, grads: Params, opt_state: Dict,
                  tc: TrainConfig, trainable: Optional[Params] = None
                  ) -> Tuple[Params, Dict, Dict[str, torch.Tensor]]:
-    """One AdamW step. ``trainable``: optional tree of bools (or bool
-    tensors) freezing leaves (the FlexiDiT LoRA recipe)."""
-    step = opt_state["step"] + 1
+    """One AdamW step written into ``params`` and ``opt_state`` (returned,
+    the caller's objects). ``trainable``: optional tree of bools (or bool
+    tensors on the parameters' device) freezing leaves (the FlexiDiT
+    LoRA recipe)."""
+    step = opt_state["step"].add_(1)
     lr = lr_at(tc, step)
     if tc.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
@@ -95,31 +117,31 @@ def adamw_update(params: Params, grads: Params, opt_state: Dict,
 
     def upd(p, g, m, v, t=True):
         if t is False:                          # a frozen leaf: untouched
-            return p, m, v
+            return
         if plc.is_placed(p):                    # chunk by chunk
-            out = upd(p.to_local(), *(plc.local(x) for x in (g, m, v, t)))
-            return tuple(plc.wrap(o, p) for o in out)
+            upd(p.to_local(), *(plc.local(x) for x in (g, m, v, t)))
+            return
         gf = g.float()
-        m_new = b1 * m.float() + (1 - b1) * gf
-        v_new = b2 * v.float() + (1 - b2) * gf * gf
-        mh = m_new / c1
-        vh = v_new / c2
-        delta = lr * (mh / (torch.sqrt(vh) + eps) + tc.weight_decay * p.float())
-        p_new = (p.float() - delta).to(p.dtype)
-        if t is not True:                       # a bool tensor
-            keep = torch.as_tensor(t, dtype=torch.bool, device=p.device)
-            p_new = torch.where(keep, p_new, p)
+        keep = (None if t is True
+                else torch.as_tensor(t, dtype=torch.bool, device=p.device))
+        m_new = _work(m, keep).mul_(b1).add_(gf * (1 - b1))
+        v_new = _work(v, keep).mul_(b2).add_(gf.mul(1 - b2).mul_(gf))
+        den = (v_new / c2).sqrt_().add_(eps)
+        delta = (m_new / c1).div_(den).add_(p.float() * tc.weight_decay).mul_(lr)
+        p_new = _work(p, keep).sub_(delta)
+        if keep is not None:
+            p_new = torch.where(keep, p_new.to(p.dtype), p)
             m_new = torch.where(keep, m_new, m.float())
             v_new = torch.where(keep, v_new, v.float())
-        return p_new, m_new.to(m.dtype), v_new.to(v.dtype)
+        for x, new in ((p, p_new), (m, m_new), (v, v_new)):
+            if new is not x:
+                x.copy_(new)
 
     rest = (grads, opt_state["m"], opt_state["v"])
     if trainable is not None:
         rest += (trainable,)
-    out = tree_map(upd, params, *rest)
-    pick = lambda i: tree_map(lambda _p, o: o[i], params, out)
-    new_state = {"m": pick(1), "v": pick(2), "step": step}
-    return pick(0), new_state, {"lr": lr, "grad_norm": gnorm}
+    tree_map(upd, params, *rest)
+    return params, opt_state, {"lr": lr, "grad_norm": gnorm}
 
 
 def value_and_grad(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
@@ -164,26 +186,45 @@ def value_and_grad(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
     return (loss.detach(), aux), grads
 
 
-class TrainStep:
+class TrainStep(graphs.Captured):
     """``(params, opt_state, batch, generator) → (params, opt_state,
     metrics)``: draw the step's randomness from ``generator`` (``draw``),
-    take gradients of ``loss_fn(params, batch, **draws)``, then AdamW.
+    take gradients of ``loss_fn(params, batch, **draws)``, then AdamW,
+    written into ``params`` and ``opt_state`` (both donated: returned as
+    the caller's objects, updated in place).
 
     The draws are the loss's arguments, so a caller may hand in its own
     (``with_draws``), for example another package's draws. A step that
     draws nothing (the language models') needs no generator.
 
+    The step is a ``runtime.graphs`` runner with ``donate=(0, 1)``: the
+    draws are made eagerly on the host side (:meth:`split`) and copied,
+    like the batch, into the graph's static buffers; the body
+    (:meth:`update`) takes the gradients and writes AdamW's update. On the
+    card one CUDA graph per key: this step object, the identity of the
+    parameter tree and of the optimizer state, the batch's and the draws'
+    shapes, and a ``trainable`` mask of Python bools by value (bool
+    tensors are copied in). The metrics come back cloned. A call on
+    another tree or state (a restore, a fresh copy) drops the graphs of
+    the old ones before it captures, as they are dead after a step: the
+    step object holds one tree's graphs, one a batch shape, and frees
+    them when it goes.
+
     With placed parameters the batch and the draws are the global ones,
     the same on every rank (drawn from one seed for the whole batch): the
-    step takes this rank's rows of both. ``stacked`` (a tree of bools, set
-    by the step builders from the model's schema) marks the leaves
-    gathered one layer at a time.
+    step takes this rank's rows of both, and runs eagerly (Gloo
+    collectives cannot be captured), under the same in-place contract.
+    ``stacked`` (a tree of bools, set by the step builders from the
+    model's schema) marks the leaves gathered one layer at a time.
     """
+
+    one_tree = True                 # graphs.Captured: one tree's graphs
 
     def __init__(self, loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
                  draw: Callable[[Dict, torch.Generator], Dict],
                  tc: TrainConfig, trainable: Optional[Params] = None,
-                 stacked: Any = None):
+                 stacked: Any = None, name: str = "train_step"):
+        super().__init__(None, name=name, donate=(0, 1))
         self.loss_fn = loss_fn
         self.draw = draw
         self.tc = tc
@@ -207,15 +248,45 @@ class TrainStep:
             draws = {k: plc.take_rows(v, rows, mesh) for k, v in draws.items()}
         return self.loss_and_grads(params, batch, **draws)
 
-    def with_draws(self, params: Params, opt_state: Dict, batch: Dict,
-                   **draws: Any) -> Tuple[Params, Dict, Dict]:
+    def update(self, params: Params, opt_state: Dict, batch: Dict,  # repro: traced
+               draws: Dict, trainable: Optional[Params]
+               ) -> Tuple[Params, Dict, Dict]:
+        """The captured body: gradients, then AdamW in place."""
         (_loss, metrics), grads = self.grads(params, batch, **draws)
         params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             self.tc, self.trainable)
+                                             self.tc, trainable)
         return params, opt_state, {**metrics, **om}
 
+    def split(self, params: Params, opt_state: Dict, batch: Dict,
+              generator: Optional[torch.Generator] = None, *,
+              draws: Optional[Dict] = None) -> Tuple[Any, Tuple[Any, ...]]:
+        """The host side: the draws (unless handed in) and the mask on the
+        parameters' device, outside the captured region."""
+        leaves = tree_leaves(params)
+        if len({id(x) for x in leaves}) != len(leaves):
+            raise ValueError(f"{self.name}: a tensor appears twice in the "
+                             f"parameter tree, and the update is written in "
+                             f"place: copy one of them")
+        if draws is None:
+            draws = self.draw(batch, generator)
+        mask = self.trainable
+        if mask is not None:
+            dev = plc.local(leaves[0]).device
+            mask = tree_map(lambda t: t.to(dev) if torch.is_tensor(t) else t,
+                            mask)
+        return (), (params, opt_state, batch, draws, mask)
+
+    def _body(self, static: Any, args: Tuple[Any, ...]) -> Any:
+        return self.update(*args)
+
+    def with_draws(self, params: Params, opt_state: Dict, batch: Dict,
+                   **draws: Any) -> Tuple[Params, Dict, Dict]:
+        return self(params, opt_state, batch, draws=draws)
+
     def __call__(self, params: Params, opt_state: Dict, batch: Dict,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Tuple[Params, Dict, Dict]:
-        return self.with_draws(params, opt_state, batch,
-                               **self.draw(batch, generator))
+                 generator: Optional[torch.Generator] = None, *,
+                 draws: Optional[Dict] = None) -> Tuple[Params, Dict, Dict]:
+        if plc.placed_mesh(params) is not None:
+            return self.eager(params, opt_state, batch, generator, draws=draws)
+        return super().__call__(params, opt_state, batch, generator,
+                                draws=draws)

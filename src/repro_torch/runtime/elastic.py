@@ -58,7 +58,12 @@ def elastic_restore(checkpointer, cfg, mesh, profile: str = "auto",
     model's schema, and the AdamW moments ``opt.m`` / ``opt.v`` by the
     same specs (ZeRO state inherits the weights' specs; the reference's
     jitted step reshards them on entry), every other leaf as
-    ``Checkpointer.restore`` gives it. Raises on a rank outside ``mesh``."""
+    ``Checkpointer.restore`` gives it. Raises on a rank outside ``mesh``.
+
+    The restored trees are new tensors: a train step handed them writes
+    them in place (a placed step runs eagerly; a single-device one drops
+    the graphs of the trees it held and captures on these), so take a
+    copy first where the restored values are needed after the step."""
     from repro_torch.models import dit as dit_mod
     from repro_torch.models import lm
     from repro_torch.models.common import spec_tree

@@ -22,20 +22,30 @@ one CUDA graph per key and replays it:
   latents, scatter deltas and hold tap tensors across later replays);
 * ``donate`` names body arguments that are resident instead (the
   counterpart of ``jax.jit(fn, donate_argnums=...)``; the LM decode step
-  donates its cache): they join the key by the identity of their tensors,
-  as the parameter tree does, are read and written in place by the
-  captured region (never copied in, never cloned out), come back as the
-  caller's own objects, and are held by the graph;
+  donates its cache, a train step its parameter tree and its optimizer
+  state, ``donate=(0, 1)``): they join the key by the identity of their
+  tensors, as the parameter tree does, are read and written in place by
+  the captured region (never copied in, never cloned out), come back as
+  the caller's own objects when the body returns them whole, and are
+  held by the graph. The capture itself runs no kernel, so a body that
+  writes a donated tree is applied once by the key's first call (its
+  eager run) and once by each replay, never twice a call. A caller that
+  needs a donated tree's old values copies them first, as the
+  reference's donated buffers are dead after the call;
 * it holds a reference to every tensor the captured region reads that
   it did not make: the parameter tree, its static buffers, and the
   cached device constants the region reads, which the caches register
   through :func:`hold` (pack plans, positional embeddings, projection
   matrices, tile envelopes, schedule tables), so a replay never reads
-  freed memory; a new parameter tree captures afresh;
+  freed memory; a new parameter tree captures afresh (a train step,
+  whose donated trees are dead after a call, first drops the graphs of
+  the trees it held: :class:`Captured`'s ``one_tree``);
 * kernel wrappers count their launches through :func:`count`: while this
   thread captures, a launch joins the capture's tally, and each replay
   adds that tally to the wrapper's counters, so launch counts read the
   same as eager.
+
+A runner's graphs, and their pools, go when the runner does.
 
 On CPU tensors the body runs eagerly (the caller asked for the CPU) and
 the key is still computed and recorded (``keys_seen``), so the CPU tests
@@ -209,15 +219,29 @@ class Captured:
     """A runner body captured once per key and replayed (module
     docstring). ``fn(*args)``, or ``fn(static, *args)`` with ``host``:
     ``host(*call_args, **call_kw) -> (static, args)`` prepares host data
-    outside the captured region. ``args[0]`` is the parameter tree;
-    ``donate`` the indices of the body arguments that are resident."""
+    outside the captured region. ``args[0]`` is the parameter tree
+    (keyed by identity and held, donated or not); ``donate`` the indices
+    of the body arguments that are resident. A subclass may override
+    :meth:`split` and :meth:`_body` instead of handing in ``fn`` and
+    ``host`` (a runner whose own methods are its body: stored bound
+    methods would make a reference cycle that keeps the graphs' pools
+    alive until the cyclic collector runs)."""
 
-    def __init__(self, fn: Callable, *, host: Optional[Callable] = None,
+    # Set by a train step (``optim.adamw.TrainStep``), whose graphs are as
+    # large as its activations: a call on another parameter tree or
+    # donated tree drops the graphs of the old ones (donated trees are
+    # dead after a call), so the runner holds one tree's graphs, one a
+    # batch shape; and the cached blocks of the dropped graphs and of the
+    # key's first call go back to the device before the capture (its
+    # private pool would sit beside as much again). That synchronises the
+    # device, so such a runner is never captured beside another thread's
+    # capture.
+    one_tree = False
+
+    def __init__(self, fn: Optional[Callable], *,
+                 host: Optional[Callable] = None,
                  name: Optional[str] = None, eager: bool = False,
                  donate: Tuple[int, ...] = ()):
-        if 0 in donate:
-            raise ValueError("the parameter tree (argument 0) is keyed by "
-                             "identity already; donate other arguments")
         self.fn = fn
         self.host = host
         self.name = name or getattr(fn, "__qualname__", "runner")
@@ -267,6 +291,9 @@ class Captured:
             graph = self._graphs.get(key)
             if graph is not None:
                 return graph.replay(body_args)
+            if self.one_tree:       # key[1:3]: the trees' identities
+                self._graphs = {k: g for k, g in self._graphs.items()
+                                if k[1:3] == key[1:3]}
             out, self._graphs[key] = self._capture(static, body_args, device)
             return out
 
@@ -296,10 +323,14 @@ class Captured:
         held: List[torch.Tensor] = list(pytree.tree_leaves(params))
         for i in self.donate:
             held.extend(pytree.tree_leaves(args[i]))
+        if self.one_tree:
+            torch.cuda.empty_cache()
         with torch.cuda.stream(side):
             # the key's first call: eager, its result returned, its
             # launches counted as any eager launch
             out = self._body(static, static_args)
+            if self.one_tree:
+                torch.cuda.empty_cache()
             _local.tally, _local.held = tally, held
             try:
                 graph.capture_begin(capture_error_mode="thread_local")
@@ -339,8 +370,8 @@ def capture(fn: Callable, *, host: Optional[Callable] = None,
             donate: Tuple[int, ...] = ()) -> Captured:
     """Wrap a runner body (see :class:`Captured`). ``eager``: always run
     it eagerly (a runner over a mesh: Gloo collectives cannot be
-    captured). ``donate``: the body arguments (by index, never 0) that
-    are resident: read and written in place, returned as the caller's."""
+    captured). ``donate``: the body arguments (by index) that are
+    resident: read and written in place, returned as the caller's."""
     return Captured(fn, host=host, name=name, eager=eager, donate=donate)
 
 

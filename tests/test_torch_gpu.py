@@ -1252,3 +1252,130 @@ def test_captured_sample_equals_eager_on_card(cuda, kind):
     assert torch.equal(xs[0], xs[2]) and torch.equal(xs[1], xs[2])
     assert launches[0] == launches[1] == launches[2] > 0
     assert stats["captured"] >= 1 and stats["replays"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dit", "lm", "moe"])
+def test_captured_train_steps_equal_eager_on_card(cuda, kind):
+    """A tiny train step (DiT at the weak mode, drawing from a CUDA
+    generator; gemma2's reduced config with remat "block" over two
+    microbatches; deepseek-moe's reduced config, whose row gathers'
+    backward must add in a fixed order) three times through its captured runner against the
+    same step object under ``graphs.disabled()`` from a copy of the same
+    parameters, moments and generator state: the loss and every parameter
+    and moment leaf bit for bit after each step; one capture, taken by
+    the first call, which applies exactly one update (``step`` 1, the
+    parameters equal to the eager first step's); the trees written in
+    place (``data_ptr`` unchanged) and returned as the caller's."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import AttnConfig, DiTConfig, ModelConfig, get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import flexify
+    from repro_torch.launch import steps as st
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import graphs
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    if kind == "dit":
+        cfg = ModelConfig(
+            name="tiny-dit", family="dit", num_layers=2, d_model=64, d_ff=256,
+            vocab_size=0, attn=AttnConfig(4, 4, 16, use_rope=False),
+            dit=DiTConfig(latent_shape=(1, 16, 16, 4), patch_size=(1, 2, 2),
+                          flex_patch_sizes=(), underlying_patch_size=(1, 2, 2),
+                          conditioning="class", num_classes=10),
+            mlp_activation="gelu", norm_type="layernorm", param_dtype="float32",
+            compute_dtype="float32", remat="none", max_seq_len=256)
+        params, cfg = flexify(dit_mod.init_dit(cfg, gen), cfg, [(1, 4, 4)],
+                              generator=gen)
+        step = st.make_dit_train_step(cfg, tc, mode=1)
+        batch = {"x0": torch.randn((4, 1, 16, 16, 4), device=cuda, generator=gen),
+                 "cond": torch.randint(0, 10, (4,), device=cuda, generator=gen)}
+    else:
+        arch = "gemma2-9b" if kind == "lm" else "deepseek-moe-16b"
+        cfg = dataclasses.replace(get_config(arch).reduced(), remat="block")
+        params = lm.init_params(cfg, gen)
+        step = st.make_train_step(cfg, tc, n_microbatches=2 if kind == "lm" else 1)
+        toks = torch.randint(0, cfg.vocab_size, (4, 40), device=cuda, generator=gen)
+        batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    opt = adamw.init_opt_state(params)
+    start = tree_map(torch.clone, {"p": params, "o": opt})
+    out = {}
+    for side in ("captured", "eager"):
+        p, o = ((params, opt) if side == "captured"
+                else (tree_map(torch.clone, start["p"]),
+                      tree_map(torch.clone, start["o"])))
+        ptrs = [t.data_ptr() for t in tree_leaves({"p": p, "o": o})]
+        g = torch.Generator(device=cuda).manual_seed(1)
+        ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+        runs = []
+        with ctx:
+            for i in range(3):
+                p2, o2, m = step(p, o, batch, g)
+                assert p2 is p and o2 is o
+                torch.cuda.synchronize()
+                runs.append(dict(m=m, state=tree_map(torch.clone, {"p": p, "o": o}),
+                                 captures=step.captures))
+        assert [t.data_ptr() for t in tree_leaves({"p": p, "o": o})] == ptrs
+        out[side] = runs
+    for cap, eag in zip(out["captured"], out["eager"]):
+        assert torch.equal(cap["m"]["loss"], eag["m"]["loss"])
+        for a, b in zip(tree_leaves(cap["state"]), tree_leaves(eag["state"])):
+            assert torch.equal(a, b)
+    assert [r["captures"] for r in out["captured"]] == [1, 1, 1]
+    assert int(out["captured"][0]["state"]["o"]["step"]) == 1
+    assert int(opt["step"]) == 3 and step.graphs()[0].replays == 2
+    assert any(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(out["captured"][0]["state"]["p"]), tree_leaves(start["p"])))
+
+
+@pytest.mark.gpu
+def test_train_step_holds_one_tree_on_card(cuda):
+    """A step handed new trees (a restore, a fresh copy) drops the graph
+    of the old ones before it captures: one graph a step object, the old
+    trees freed once the caller lets them go, and the new trees' steps
+    equal to the same steps under ``graphs.disabled()`` bit for bit."""
+    import gc
+    import weakref
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import graphs
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cfg = get_config("gemma2-9b").reduced()
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
+    step = st.make_train_step(cfg, tc)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda, generator=gen)
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    old = lm.init_params(cfg, gen)
+    old_opt = adamw.init_opt_state(old)
+    new = tree_map(torch.clone, old)
+    new_opt = tree_map(torch.clone, old_opt)
+    ref = tree_map(torch.clone, {"p": new, "o": new_opt})
+    for _ in range(2):
+        step(old, old_opt, batch)
+    assert step.captures == 1
+    gone = weakref.ref(tree_leaves(old)[0])
+    del old, old_opt
+    gc.collect()
+    assert gone() is not None            # held by the step's graph
+    for _ in range(2):
+        p, o, m = step(new, new_opt, batch)
+        assert p is new and o is new_opt
+    gc.collect()
+    assert gone() is None and step.captures == 1
+    assert step.graphs()[0].replays == 1
+    with graphs.disabled():
+        for _ in range(2):
+            _, _, me = step(ref["p"], ref["o"], batch)
+    assert torch.equal(m["loss"], me["loss"])
+    for a, b in zip(tree_leaves({"p": new, "o": new_opt}), tree_leaves(ref)):
+        assert torch.equal(a, b)

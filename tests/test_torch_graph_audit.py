@@ -6,7 +6,11 @@ models' prefill and decode bodies included (one tiny config a family);
 fixture steps that bake a tensor constant or branch on a device value are
 caught, and so are a decode body that reads its position on the host and
 an LM step factory whose runner is not captured (or does not donate the
-decode's cache); the
+decode's cache); the train steps' captured body (DiT, the LoRA
+distillation, the LM with remat over two microbatches) is one graph over
+batch contents and draws, a body that reads its loss on the host is
+flagged, and so is a train-step factory that runs eagerly or does not
+donate the parameters and the optimizer state; the
 cached packed step shows the refresh-mask fault that capture would have
 turned into wrong answers (the flags baked as a constant differ between
 two same-branch patterns; handed in as a tensor they do not) and exactly
@@ -106,6 +110,66 @@ def test_uncaptured_lm_step_factory_is_flagged():
         ("graph-uncaptured-runner", "undonated")]
     assert "runtime.graphs" in found[0].message
     assert "donates" in found[1].message
+
+
+@pytest.mark.parametrize("kind", ga.TRAIN_AUDIT_KINDS)
+def test_train_audit_unit_passes_on_the_port(kind):
+    """The captured body of a train step (gradients, then AdamW in place)
+    at two batch contents and draws: one graph, no host read."""
+    with torch.inference_mode(False), torch.no_grad():     # as the CLI runs it
+        rep = ga.audit_train_step(kind)
+    assert [f.render() for f in rep.findings] == []
+    assert list(rep.fingerprints) == [f"train_step[{kind}]"]
+    assert len(rep.fingerprints[f"train_step[{kind}]"]) == 32
+
+
+def test_train_audit_catches_a_host_read_of_the_loss():
+    """A planted body logs its loss on the host inside the step (a sync a
+    capture refuses): both cases are flagged."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as tsteps
+    _, cfg, sched = ga._tiny()
+    step = tsteps.make_dit_train_step(cfg, TrainConfig(), sched, mode=1)
+
+    def planted(params, opt, batch, draws, mask):
+        out = step.update(params, opt, batch, draws, mask)
+        if float(out[2]["loss"]) > 1e9:
+            raise FloatingPointError
+        return out
+
+    rep = ga.audit_train_step("dit", update=planted)
+    assert [(f.rule, f.symbol) for f in rep.findings
+            if f.severity == "error"] == [("graph-host-sync", "train_step[dit]")] * 2
+
+
+def test_uncaptured_train_step_factory_is_flagged():
+    """``graph-uncaptured-runner`` over the train-step factories: the
+    port's four pass; a factory whose step runs eagerly, or does not
+    donate the parameters and the optimizer state, is flagged."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.runtime import graphs
+    assert ga.train_runner_findings() == []
+    assert sorted(ga._train_factories()) == [
+        "make_distill_step", "make_dit_train_step", "make_mmd_finetune_step",
+        "make_train_step"]
+    _, cfg, sched = ga._tiny()
+    step = tsteps.make_dit_train_step(cfg, TrainConfig(), sched)
+    planted = {
+        "eager": (lambda: graphs.capture(step.update, eager=True,
+                                         donate=(0, 1)), ga.LM_STEPS_PATH),
+        "closure": (lambda: step.update, ga.LM_STEPS_PATH),
+        "state_copied": (lambda: graphs.capture(step.update, donate=(0,)),
+                         ga.LM_STEPS_PATH),
+        "sound": (lambda: tsteps.make_dit_train_step(cfg, TrainConfig(), sched),
+                  ga.LM_STEPS_PATH)}
+    found = ga.train_runner_findings(planted)
+    assert [(f.rule, f.symbol) for f in found] == [
+        ("graph-uncaptured-runner", "eager"),
+        ("graph-uncaptured-runner", "closure"),
+        ("graph-uncaptured-runner", "state_copied")]
+    assert "runtime.graphs" in found[0].message
+    assert "(0,)" in found[2].message and "AdamW state" in found[2].message
 
 
 def test_audit_catches_a_baked_constant_and_a_host_branch():

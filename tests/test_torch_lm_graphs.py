@@ -217,8 +217,17 @@ def test_donated_argument_keys_by_identity_and_comes_back_whole():
     assert run.key(params, cache, x) == run.key(params, {"k": cache["k"]}, x + 5)
     assert run.key(params, cache, x) != run.key(params, {"k": torch.zeros(3)}, x)
     assert len(run.keys_seen) == 1
-    with pytest.raises(ValueError, match="argument 0"):
-        graphs.capture(body, donate=(0,))
+    # the parameter tree may be donated too (a train step's): it comes back
+    # whole, written in place, and still keys by identity
+    def train(params, cache, x):
+        params["w"].sub_(x)
+        return params, cache, x.sum()
+
+    run = graphs.capture(train, donate=(0, 1))
+    p2, c2, s = run(params, cache, x)
+    assert p2 is params and c2 is cache and float(s) == 3.0
+    assert torch.equal(params["w"], torch.ones(3))
+    assert run.key(params, cache, x) != run.key({"w": params["w"].clone()}, cache, x)
 
 
 def test_write_kv_slot_equals_pad_kv_cache():

@@ -326,7 +326,10 @@ def test_train_step_matches_jax(setups, arch, n_micro):
     step = tsteps.make_train_step(s.tcfg, TrainConfig(**TC),
                                   n_microbatches=n_micro)
     tstate = convert.opt_state_from_numpy(state, device="cpu")
-    tp2, to2, tm = step(s.tp, tstate, tbatch(s.batch))
+    # the step writes its trees in place: step a copy of the shared setup's
+    tp = tcommon.tree_map(torch.clone, s.tp)
+    tp2, to2, tm = step(tp, tstate, tbatch(s.batch))
+    assert tp2 is tp and to2 is tstate
     check_step(tp2, to2, jax.tree.map(np.asarray, jp2), jo2)
     assert int(to2["step"]) == int(jo2["step"]) == 6
     assert sorted(tm) == sorted(jm)

@@ -67,7 +67,7 @@ def test_adamw_update_matches_jax(schedule, dtype, masked, clip):
     jp, tp = _jax(p0, jdt), _torch(p0, tdt)
     jo, to = jadamw.init_opt_state(jp), adamw.init_opt_state(tp)
     mask = TRAINABLE if masked else None
-    frozen = tp["b"]["c"]
+    frozen = tp["b"]["c"].clone()       # the update writes tp in place
     for _ in range(3):
         g = _tree(rng, SHAPES)
         jp, jo, jm = jadamw.adamw_update(jp, _jax(g, jdt), jo, jtc, mask)

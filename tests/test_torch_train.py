@@ -102,8 +102,9 @@ def test_dit_train_step_draws_reference_shapes(shared, batch):
     assert 0 <= int(d["t"].min()) and int(d["t"].max()) < 1000
     assert d["noise"].shape == batch["x0"].shape
     assert d["noise"].dtype == torch.float32
-    params, opt = to_torch(jp), tadamw.init_opt_state(to_torch(jp))
-    outs = [step(params, opt, tbatch(batch), torch.Generator().manual_seed(3))
+    # each step from its own copy: the step updates its trees in place
+    outs = [step(to_torch(jp), tadamw.init_opt_state(to_torch(jp)), tbatch(batch),
+                 torch.Generator().manual_seed(3))
             for _ in range(2)]
     assert torch.equal(outs[0][0]["blocks"]["attn"]["wq"],
                        outs[1][0]["blocks"]["attn"]["wq"])
@@ -125,7 +126,8 @@ def test_lm_steps_raise_naming_the_slice():
     for sp in (False, True):
         cfg = dataclasses.replace(base, sequence_parallel=sp)
         step = tsteps.make_train_step(cfg, TrainConfig(**TC))
-        out.append(step(params, tadamw.init_opt_state(params), batch))
+        p = tcommon.tree_map(torch.clone, params)    # stepped in place
+        out.append(step(p, tadamw.init_opt_state(p), batch))
     (p0, o0, m0), (p1, o1, m1) = out
     for a, b in zip(tcommon.tree_leaves({"p": p0, "m": o0["m"], "v": o0["v"]}),
                     tcommon.tree_leaves({"p": p1, "m": o1["m"], "v": o1["v"]})):
@@ -186,13 +188,15 @@ def test_lora_recipe_keeps_frozen_leaves_bit_for_bit(lora, batch):
     mask = trainable_mask(params, "lora")
     step = tdistill.make_distill_step(cfg, TrainConfig(**TC), trainable=mask)
     opt = tadamw.init_opt_state(params)
+    before = tcommon.tree_map(torch.clone, params)   # stepped in place
     p, o = params, opt
     gen = torch.Generator().manual_seed(4)
     for _ in range(2):
         p, o, m = step(p, o, tbatch(batch), gen)
         assert np.isfinite(float(m["distill_loss"]))
+    assert p is params and o is opt
     flat = lambda tree: dict(jax.tree_util.tree_leaves_with_path(tree))
-    fm, fp0, fp1 = flat(mask), flat(params), flat(p)
+    fm, fp0, fp1 = flat(mask), flat(before), flat(p)
     fmo, fvo = flat(o["m"]), flat(o["v"])
     n_frozen = n_moved = 0
     for path, on in fm.items():

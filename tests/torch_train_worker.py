@@ -98,6 +98,7 @@ def run_case(rank, case, mesh) -> Dict[str, Any]:
     the first counted when the case asks), the resident bytes, each
     planted fault."""
     from repro_torch.launch import roofline as rl
+    from repro_torch.models.common import tree_map
     from repro_torch.optim import adamw
     from repro_torch.runtime import placement as plc
 
@@ -111,6 +112,10 @@ def run_case(rank, case, mesh) -> Dict[str, Any]:
     (loss, metrics), grads = step.grads(params, batch, **draws[0])
     full = _full(grads)
     out["loss"], out["metrics"] = float(loss), _metrics(metrics)
+    # the steps write their trees in place: the faults below start from
+    # copies of the first state, and step 1's state is kept as a copy
+    copy = lambda tree: tree_map(torch.clone, tree)
+    params0, opt0 = copy(params), copy(opt)
     p, o = params, opt
     out["steps"] = []
     for i in range(case.get("steps", 2)):
@@ -124,16 +129,17 @@ def run_case(rank, case, mesh) -> Dict[str, Any]:
                 for k, v in ledger.kinds.items() if v["count"]}
         out["steps"].append({"params": _full(p), "metrics": _metrics(m)})
         if i == 0:
-            out["after1"] = (p, o)
+            out["after1"] = (copy(p), copy(o))
     if out["steps"]:
         out["moments"] = _full({"m": o["m"], "v": o["v"]})
     for name in case.get("faults", ()):
         with planted(name):
             if name == "norm_local":
-                _, _, m = step.with_draws(params, opt, batch, **draws[0])
+                _, _, m = step.with_draws(copy(params0), copy(opt0), batch,
+                                          **draws[0])
                 out[name] = float(m["grad_norm"])
             else:
-                (_, fm), fg = step.grads(params, batch, **draws[0])
+                (_, fm), fg = step.grads(params0, batch, **draws[0])
                 out[name] = {"metrics": _metrics(fm), "grads": _full(fg)}
     if rank != 0:
         out = {"bytes": out["bytes"], "after1": out.get("after1"),
@@ -230,11 +236,12 @@ def train_group(rank: int, device: torch.device, job: Dict[str, Any]) -> dict:
         state, extra = elastic.elastic_restore(ck, case["cfg"], sub,
                                                profile=case["profile"],
                                                device="cpu")
+        chunks = _chunks(state["params"])   # before the step writes them
         p2, _, _ = _step(case).with_draws(state["params"], state["opt"],
                                    _torch(case["batch"]),
                                    **_draws(case["draws"][1]))
         step2 = _full(p2)                 # a collective: both ranks gather
-        out["elastic"] = {"chunks": _chunks(state["params"]), "extra": extra,
+        out["elastic"] = {"chunks": chunks, "extra": extra,
                           "sub": tuple(sub.mesh.shape),
                           "step2": step2 if rank == 0 else None}
     else:
@@ -261,3 +268,37 @@ def _refused(exc):
     except exc:
         return
     raise AssertionError(f"expected {exc.__name__}")
+
+
+def inplace_group(rank: int, device: torch.device, job: Dict[str, Any]) -> dict:
+    """The placed train step's in-place contract on a (2 x 1) CPU group:
+    two steps of the DiT case through ``with_draws`` and ``__call__``; the
+    trees come back as the caller's objects, each rank's chunks written
+    where they lie, no graph captured; the gathered moments and the
+    metrics after the steps (rank 0's)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import placement as plc
+
+    mesh = make_debug_mesh(2, 1, device="cpu", backend="gloo")
+    case = job["case"]
+    step, params = _step(case), _placed(case, mesh)
+    opt = adamw.init_opt_state(params)
+    before = [plc.local(x).clone() for x in tree_leaves(params)]
+    ptrs = [plc.local(x).data_ptr() for x in tree_leaves({"p": params, "o": opt})]
+    batch = _torch(case["batch"])
+    p, o, m1 = step.with_draws(params, opt, batch, **_draws(case["draws"][0]))
+    same = p is params and o is opt
+    gen = torch.Generator().manual_seed(job["seed"])
+    p, o, m2 = step(params, opt, batch, gen)
+    same = same and p is params and o is opt
+    moved = sum(not torch.equal(plc.local(x), b)
+                for x, b in zip(tree_leaves(params), before))
+    out = {"same_objects": same, "step": int(opt["step"]), "moved": moved,
+           "in_place": ptrs == [plc.local(x).data_ptr()
+                                for x in tree_leaves({"p": params, "o": opt})],
+           "captures": step.captures, "placed": plc.placed_mesh(params) is not None,
+           "moments": _full({"m": opt["m"], "v": opt["v"]}),
+           "metrics": [_metrics(m1), _metrics(m2)]}
+    return out if rank == 0 else {k: out[k] for k in ("same_objects", "in_place")}
