@@ -292,6 +292,30 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    ``python3 chip_smoke.py --only graphs`` runs phases 1, 8 and 17
    alone; ``--only lm`` runs phases 1 and 11-13; ``--only train`` runs
    phases 1, 9 and 13.
+18. the fleet over sequence-parallel rank groups (``launch/serve.py
+   --mesh 2x2 --replicas 2``): two persistent groups of 2 rank processes
+   (``fleet/groups.RankGroupPipeline``), all four on this card over Gloo,
+   each rank holding DiT-XL/2 at full width (phase 3's weights recipe,
+   bf16) on a (1 x 2) mesh, behind the fixed-slot fleet on a fake clock,
+   budgets {0.6, 0.8, 1.0}, T=10 DDIM, CFG 1.5, Ulysses with the flash
+   kernel at 8 of 16 heads: (a) 10 requests under ``cheapest``; (b) 8
+   under ``rr``, one rank of replica 0's group SIGKILLed after the first
+   tick and the heartbeat timeout declaring the replica dead, then a
+   rejoin on a fresh group and 2 more. Each is held against the same
+   scenario on single-device fixed-slot fleets on this card (``(b)``'s
+   with ``inject_hang``): placements equal, every request served once,
+   x0 within 1e-6 of the single-device fleet whose token GEMMs run in
+   the ranks' row blocks (``rank_shaped_gemms``: the same arithmetic as
+   a rank's) and within SP_RING_X0_TOL of the plain one (the same
+   function summed in another order: a lone weak-mode request's GEMMs
+   have 64 rows on a rank and 128 on one device, and cuBLAS may sum them
+   in another order); a planted fault (x0 shipped back in bfloat16) must
+   read over 1e-6 in every request; every rank's flash launches in (a) 28 x the
+   forwards its group ran, all ``wgmma``; no process of the killed group
+   left. (c) ``python -m repro_torch.launch.serve --mesh 2x2 --replicas
+   2`` exits 0. The groups take turns on the card: walls price routing
+   over sequence-parallel replicas, not scale. ``python3 chip_smoke.py
+   --only fleet-groups`` runs phases 1 and 18 alone.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -5285,6 +5309,344 @@ def phase_graphs(smi: str) -> dict:
                            for m, r in fw.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the fleet over sequence-parallel rank groups
+
+
+FG_SEED = SEED + 11
+# (a) serves FG_REQUESTS; (b) serves the first FG_FIRST, loses a rank,
+# rejoins and serves the rest
+FG_REQUESTS, FG_FIRST = 10, 8
+FG_SP = 2
+# x0 of the groups against the single-device fleet whose token GEMMs run
+# in the ranks' row blocks: the same arithmetic, so it reads 0 on an H100
+# 80GB HBM3 (700 W; PERF.md §6). The planted fault, x0 shipped back to
+# the parent in bfloat16, must read over it in every request.
+FG_SHAPED_X0_TOL = 1e-6
+FG_HEARTBEAT_S = 5.0
+FG_TIMEOUT_S = 420.0
+FG_CLI = ["--arch", "dit-xl-2", "--mesh", "2x2", "--replicas", "2",
+          "--dist-backend", "gloo", "--requests", "4", "--T", str(T_STEPS),
+          "--budget-levels", "0.6,0.8,1.0", "--attn-backend", "pallas"]
+
+
+def fg_weights(device: torch.device):
+    """Phase 18's weights, built on each rank (spawned ranks import this
+    file by path): phase 3's recipe from FG_SEED."""
+    return trained_like_xl(torch.Generator(device=device).manual_seed(FG_SEED))[0]
+
+
+def fg_launches(rank: int, device: torch.device, state: dict,
+                reset: bool) -> tuple:
+    """This rank's flash launches and their variants; ``reset`` sets the
+    counts to 0 after the read."""
+    got = (ops.flash_attention.launches,
+           dict(ops.flash_attention.launches_by_variant))
+    if reset:
+        ops.reset_launches()
+    return got
+
+
+@contextlib.contextmanager
+def rank_shaped_gemms(sp: int):
+    """Single-device DiT forwards whose token GEMMs run in the row blocks a
+    rank of a (1 x sp) group computes: every ``_linear`` of a [B, N, d]
+    input (q, k, v, o and the MLP, all inside the blocks; the embed, the
+    de-embed and the adaLN of [B, d] take other paths) done on each of
+    the sp token slices [B, N/sp, d] apart. The same function, each
+    GEMM's rows in the ranks' blocks: cuBLAS may pick another algorithm
+    (another float32 summation order) at another row count."""
+    sound = dit_mod._linear
+
+    def sliced(x, w, *a, **kw):
+        if x.dim() != 3 or x.shape[1] % sp:
+            return sound(x, w, *a, **kw)
+        n = x.shape[1] // sp
+        return torch.cat([sound(x[:, i * n:(i + 1) * n], w, *a, **kw)
+                          for i in range(sp)], dim=1)
+
+    dit_mod._linear = sliced
+    try:
+        yield
+    finally:
+        dit_mod._linear = sound
+
+
+def fg_fleet(pipe, plans, clock, pipes=None, **kw):
+    """A fixed-slot fleet of 2 replicas (FG_SP wide each) with its
+    placements logged."""
+    from repro_torch.fleet import Fleet
+    f = Fleet(pipe, plans, 2, pipes=pipes, engine_kind="fixed",
+              seq_parallel=FG_SP, batch_size=BATCH, clock=clock,
+              seconds_per_token=1e-4, **kw)
+    f.placement_log, place = [], f.router.place
+
+    def logged(req, views, level):
+        r = place(req, views, level)
+        f.placement_log.append((req.rid, r, level))
+        return r
+
+    f.router.place = logged
+    return f
+
+
+def fg_submit(f, labels, lo: int, hi: int) -> None:
+    for rid in range(lo, hi):
+        if f.submit(cond=labels[rid], budget=BUDGETS[rid % 3]) != rid:
+            raise AssertionError(f"fleet id {rid} out of order")
+
+
+def fg_batches(f) -> list:
+    """The fixed-slot batches a fleet served: (replica, level, fleet ids),
+    a batch being the requests one step of one replica finished."""
+    out = collections.defaultdict(list)
+    for rid, r in sorted(f.results.items()):
+        out[(r.replica, r.record.finish, r.budget_served)].append(rid)
+    return [(rep, b, rids) for (rep, _, b), rids in sorted(out.items())]
+
+
+def fg_spread(make, labels):
+    """(a): FG_REQUESTS requests under ``cheapest``, timed."""
+    f = make(FleetClock(), router="cheapest")
+    fg_submit(f, labels, 0, FG_REQUESTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f.served = f.run()
+    torch.cuda.synchronize()
+    f.wall = time.perf_counter() - t0
+    return f
+
+
+def fg_lost(make, labels, stop):
+    """(b): the first FG_FIRST requests under ``rr``; after the first tick
+    ``stop`` stops replica 0 (a single-process fleet: ``inject_hang``; the
+    group fleet: one rank SIGKILLed), the clock passes the heartbeat
+    timeout, the rest is served elsewhere; replica 0 rejoins and the last
+    requests arrive."""
+    clock = FleetClock()
+    f = make(clock, router="rr", heartbeat_timeout_s=FG_HEARTBEAT_S)
+    fg_submit(f, labels, 0, FG_FIRST)
+    f.served = f.tick()
+    f.first_pipe = f.replicas[0].engine.pipe
+    stop(f)
+    clock.advance(FG_HEARTBEAT_S + 1.0)
+    f.served += f.tick()
+    f.state_after = f.membership.state(0)
+    f.served += f.run()
+    f.incarnation = f.rejoin_replica(0)
+    fg_submit(f, labels, FG_FIRST, FG_REQUESTS)
+    f.served += f.run()
+    return f
+
+
+def fg_sigkill(f) -> None:
+    import signal
+    group = f.replicas[0].engine.pipe.group
+    os.kill(group.pids[1], signal.SIGKILL)
+    t0 = time.perf_counter()
+    while group.alive() and time.perf_counter() - t0 < 30.0:
+        time.sleep(0.01)
+
+
+def fg_gone(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def fg_record(f):
+    """What a reference fleet's checks read, without its pipeline (whose
+    weights and graph pools would stay on the card)."""
+    import types
+    return types.SimpleNamespace(
+        results=f.results, served=f.served, placement_log=f.placement_log,
+        wall=getattr(f, "wall", None))
+
+
+def fg_x0(f, ref) -> dict:
+    return {r.rid: rel_err(r.x0, ref.results[r.rid].x0) for r in f.served}
+
+
+def fg_references(params, cfg, sched, plans, labels, smi: str) -> dict:
+    """(a) and (b) on single-device fixed-slot fleets on this card: plain
+    (captured runners), and with the ranks' GEMM row blocks
+    (:func:`rank_shaped_gemms`, eager on a fresh pipeline). Prints what
+    the row blocks alone move x0 by."""
+    refs = {}
+    for shaped in (False, True):
+        pipe = FlexiPipeline(params, cfg, sched, device=DEV)
+        ctx = contextlib.ExitStack()
+        if shaped:
+            ctx.enter_context(graphs.disabled())
+            ctx.enter_context(rank_shaped_gemms(FG_SP))
+        with ctx:
+            make = lambda clock, **kw: fg_fleet(pipe, plans, clock, **kw)  # noqa: E731
+            refs[shaped] = tuple(fg_record(f) for f in (
+                fg_spread(make, labels),
+                fg_lost(make, labels, lambda f: f.inject_hang(0))))
+        del pipe
+    plain, shaped = refs[False][0], refs[True][0]
+    errs = fg_x0(shaped, plain)
+    log(f"[fleet-groups] single device, the ranks' GEMM row blocks against "
+        f"plain (the same function, other float32 sums): ||x0 - plain|| / "
+        f"||plain|| by request {{{', '.join(f'{k}: {v:.3e}' for k, v in errs.items())}}}"
+        f" over batches {fg_batches(plain)} ({smi})")
+    return refs
+
+
+def fg_check(name: str, f, refs, errors: list) -> str:
+    """Placements equal, every request served once, x0 within
+    FG_SHAPED_X0_TOL of the fleet with the ranks' GEMM row blocks and
+    within SP_RING_X0_TOL of the plain fleet (the limit of the same
+    function summed in another order, phase 14's ring); then the planted
+    fault, the groups' x0 rounded to bfloat16, must read over
+    FG_SHAPED_X0_TOL in every request."""
+    plain, shaped = refs
+    if f.placement_log != plain.placement_log:
+        errors.append(f"{name}: placements {f.placement_log} != the single-"
+                      f"process fleet's {plain.placement_log}")
+    rids = sorted(r.rid for r in f.served)
+    if rids != list(range(FG_REQUESTS)):
+        errors.append(f"{name}: served {rids}")
+    e_shaped, e_plain = fg_x0(f, shaped), fg_x0(f, plain)
+    if not all(e <= FG_SHAPED_X0_TOL for e in e_shaped.values()):
+        errors.append(f"{name}: x0 vs the rank-shaped single-process fleet "
+                      f"{e_shaped}")
+    if not all(e <= SP_RING_X0_TOL for e in e_plain.values()):
+        errors.append(f"{name}: x0 vs the plain single-process fleet "
+                      f"{e_plain}")
+    planted = {r.rid: rel_err(r.x0.to(torch.bfloat16), shaped.results[r.rid].x0)
+               for r in f.served}
+    if not min(planted.values()) > FG_SHAPED_X0_TOL:
+        errors.append(f"{name}: the planted fault (x0 in bfloat16) reads "
+                      f"{planted}, within {FG_SHAPED_X0_TOL}")
+    over = {k: f"{v:.3e}" for k, v in e_plain.items() if v > SERVE_X0_TOL}
+    return (f"placements equal: {f.placement_log == plain.placement_log}; "
+            f"served once each: {rids == list(range(FG_REQUESTS))}; ||x0 - "
+            f"ref|| / ||ref|| against the single-process fleet with the "
+            f"ranks' GEMM row blocks max {max(e_shaped.values()):.3e} (tol "
+            f"{FG_SHAPED_X0_TOL}; planted fault, x0 in bfloat16, min "
+            f"{min(planted.values()):.3e} max {max(planted.values()):.3e}), "
+            f"against the plain one max {max(e_plain.values()):.3e} (tol "
+            f"{SP_RING_X0_TOL}; over {SERVE_X0_TOL}: {over}); batches "
+            f"{fg_batches(f)}")
+
+
+def phase_fleet_groups(smi: str) -> dict:
+    """Phase 18 (see the module docstring)."""
+    from repro_torch.distributed import ParallelSpec
+    from repro_torch.fleet.groups import RankGroupPipeline
+    t0 = time.perf_counter()
+    build.build_all()        # every kernel built before any rank starts
+    cfg, sched = get_config("dit-xl-2"), linear_schedule(1000)
+
+    def start(rid=None, device_ids=None) -> RankGroupPipeline:
+        return RankGroupPipeline(cfg, sched, fg_weights, FG_SP, device=DEV,
+                                 backend="gloo", timeout_s=FG_TIMEOUT_S)
+
+    groups = [start(), start()]        # they start while the references run
+    errors = []
+    try:
+        plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
+                 for b in BUDGETS}
+        labels = np.random.default_rng(FG_SEED).integers(
+            0, cfg.dit.num_classes, FG_REQUESTS).tolist()
+        params, _ = trained_like_xl(torch.Generator(device=DEV)
+                                    .manual_seed(FG_SEED))
+        refs = fg_references(params, cfg, sched, plans, labels, smi)
+        del params
+        free_card()
+        t1 = time.perf_counter()
+        for g in groups:
+            g.wait_ready()
+        log(f"[fleet-groups] 2 groups of {FG_SP} ranks up with their weights "
+            f"{time.perf_counter() - t0:.1f}s into the phase ("
+            f"{time.perf_counter() - t1:.1f}s waited after the references; "
+            f"{smi})")
+        par = {b: dataclasses.replace(p, parallel=ParallelSpec())
+               for b, p in plans.items()}
+        forwards = [0, 0]
+        for i, g in enumerate(groups):     # the forwards each group runs
+            def counted(plan, n, *a, _sample=g.sample, _i=i, **kw):
+                forwards[_i] += forward_calls(plan, cfg)
+                return _sample(plan, n, *a, **kw)
+            g.sample = counted
+
+        def make(clock, **kw):
+            return fg_fleet(groups[0], par, clock, pipes=groups,
+                            pipe_factory=start, **kw)
+
+        # (a), every rank's flash launches counted from 0
+        for g in groups:
+            g.group.call(fg_launches, True)
+        a = fg_spread(make, labels)
+        counts = [g.group.call(fg_launches, False) for g in groups]
+        line = fg_check("(a)", a, (refs[False][0], refs[True][0]), errors)
+        launches = 0
+        for i, ranks in enumerate(counts):
+            want = cfg.num_layers * forwards[i]
+            if not want or any(c != want or v["wgmma"] != want
+                               for c, v in ranks):
+                errors.append(f"(a) group {i}: flash launches {ranks}, "
+                              f"expected {want} a rank, all wgmma")
+            launches += sum(c for c, _ in ranks)
+        plain_wall = refs[False][0].wall
+        log(f"[fleet-groups] (a) {FG_REQUESTS} requests over 2 groups of "
+            f"{FG_SP} ranks, first run, in {a.wall:.2f}s = "
+            f"{FG_REQUESTS / a.wall:.2f} img/s against the single-process "
+            f"fleet's first run {plain_wall:.2f}s = "
+            f"{FG_REQUESTS / plain_wall:.2f} img/s (the groups take turns on "
+            f"this card and Gloo stages every collective through the host: "
+            f"routing's price, not scale); {line}; flash launches a rank "
+            f"{[c for g in counts for c, _ in g]} = {cfg.num_layers} x "
+            f"{forwards} forwards, all wgmma ({smi})")
+
+        # (b): one rank of replica 0's group SIGKILLed after the first tick
+        t1 = time.perf_counter()
+        b = fg_lost(make, labels, fg_sigkill)
+        try:
+            old = b.first_pipe.group
+            left = [pid for pid in old.pids if not fg_gone(pid)]
+            line = fg_check("(b)", b, (refs[False][1], refs[True][1]), errors)
+            fresh = b.replicas[0].engine.pipe
+            if b.state_after != "dead" or left or fresh is b.first_pipe \
+                    or not fresh.alive():
+                errors.append(f"(b): replica 0 {b.state_after}, processes "
+                              f"left {left}, rejoined on a fresh group "
+                              f"{fresh is not b.first_pipe and fresh.alive()}")
+            log(f"[fleet-groups] (b) rank 1 of replica 0's group SIGKILLed "
+                f"after the first tick: replica 0 {b.state_after} after the "
+                f"{FG_HEARTBEAT_S}s heartbeat timeout, "
+                f"{int(b.summary()['readmit']['count'])} re-admitted, "
+                f"processes of the killed group left {left}; rejoined on a "
+                f"fresh group for the last {FG_REQUESTS - FG_FIRST}; {line}; "
+                f"{time.perf_counter() - t1:.1f}s, the fresh group's start "
+                f"included ({smi})")
+        finally:
+            b.close()
+    finally:
+        for g in groups:
+            g.close()
+    if errors:
+        raise AssertionError("phase 18: " + "; ".join(errors))
+    t1 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *FG_CLI], capture_output=True, text=True,
+                         timeout=FG_TIMEOUT_S, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    tail = [ln for ln in cli.stdout.splitlines() if ln.startswith("[fleet]")]
+    log(f"[fleet-groups] (c) CLI {' '.join(FG_CLI)}: exit {cli.returncode} in "
+        f"{time.perf_counter() - t1:.1f}s; {tail} ({smi})")
+    if cli.returncode != 0 or "[fleet] served 4 requests over 2" not in cli.stdout:
+        raise AssertionError(f"phase 18 (c): CLI --mesh 2x2 --replicas 2 "
+                             f"failed:\n{cli.stdout[-2000:]}\n{cli.stderr[-3000:]}")
+    secs = time.perf_counter() - t0
+    log(f"[fleet-groups] phase 18 in {secs:.1f}s ({smi})")
+    return {"launches": launches, "seconds": secs}
+
+
 def free_card() -> None:
     """Release what the last phase held on the card: its runners' CUDA
     graph pools go with their pipelines (a cycle among a phase's objects
@@ -5343,6 +5705,13 @@ def main() -> None:
             k: {kk: vv for kk, vv in v.items() if isinstance(vv, (int, float))}
             for k, v in got.items()}}), flush=True)
         return
+    if sys.argv[1:] == ["--only", "fleet-groups"]:  # phase 18 alone
+        phase_build()
+        got = phase_fleet_groups(smi)
+        print(smi)
+        print(json.dumps({"only": "fleet-groups", "ok": True, **got}),
+              flush=True)
+        return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()
         got = phase_plan(smi)
@@ -5394,9 +5763,12 @@ def main() -> None:
     plan = phase_plan(smi, sharded["bytes"])
     free_card()
     graphs_run = phase_graphs(smi)
-    log(f"[walls] phases 11 / 12 / 13 / 17: {lm['seconds']:.1f} / "
+    free_card()
+    fleet_groups = phase_fleet_groups(smi)
+    log(f"[walls] phases 11 / 12 / 13 / 17 / 18: {lm['seconds']:.1f} / "
         f"{families['seconds']:.1f} / {lm_train['seconds']:.1f} / "
-        f"{graphs_run['seconds']:.1f} s ({smi})")
+        f"{graphs_run['seconds']:.1f} / {fleet_groups['seconds']:.1f} s "
+        f"({smi})")
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
@@ -5405,7 +5777,7 @@ def main() -> None:
              "lm_train_then_serve": lm_train["launches"],
              "seq_parallel": seq_parallel["launches"],
              "sharded_train_then_serve": sharded["launches"],
-             "plan": plan["launches"]}
+             "plan": plan["launches"], "fleet_groups": fleet_groups["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

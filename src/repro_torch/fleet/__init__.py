@@ -5,7 +5,10 @@ Control plane (host-pure: no torch, no numpy): ``router`` (placement +
 affinity ledger), ``membership`` (heartbeat drain/join/death), ``health``
 (straggler weights + hedging). Data plane: ``replica`` (engine + clock
 + price), ``fleet`` (the front door), ``warmup`` (background warm-set
-building). On one card every packed replica shares the pipeline's device.
+building), ``groups`` (a pipeline over a persistent rank group: the
+sequence-parallel replicas of ``launch/serve.py --mesh DATAxSEQ
+--replicas N``; imported by name, as the reference has no such module).
+On one card every packed replica shares the pipeline's device.
 """
 from repro_torch.fleet.fleet import Fleet, FleetResult
 from repro_torch.fleet.health import FleetHealth

@@ -32,7 +32,14 @@ throughput honestly.
 Devices: ``device_ids`` are bookkeeping for the membership planner.
 Every packed replica runs on its pipeline's device (``pipes`` gives one
 pipeline per replica; by default all share ``pipe``), so N replicas fit
-one card.
+one card. A replica's pipeline may be a rank group
+(``fleet/groups.RankGroupPipeline``: ``launch/serve.py --mesh DATAxSEQ
+--replicas N``). Then a replica that dies (killed, or declared dead) has
+its group stopped; a group that loses a rank on its own is treated as a
+hung replica (no pump, no heartbeat) until the timeout declares it dead;
+a joined or rejoined replica gets a fresh pipeline from ``pipe_factory``
+(the reference hands it ``pipe``, replica 0's); :meth:`close` stops every
+group.
 
 Randomness: request ``rid`` is seeded with ``request_seed(base_seed,
 rid)`` unless the submitter gives a ``seed`` or ``x_T`` / ``noise``; the
@@ -113,7 +120,9 @@ class Fleet:
                  expire_queued: bool = False,
                  max_retries: int = 2,
                  backoff_base_s: float = 0.05,
-                 engine_kwargs: Optional[Dict[str, Any]] = None):
+                 engine_kwargs: Optional[Dict[str, Any]] = None,
+                 pipe_factory: Optional[Callable[[int, Sequence[int]],
+                                                 Any]] = None):
         if n_replicas < 1:
             raise ValueError("a fleet needs at least one replica")
         self._clock = clock or time.monotonic
@@ -155,6 +164,9 @@ class Fleet:
             raise ValueError(f"pipes: got {len(pipes)} for "
                              f"{n_replicas} replicas")
         self._default_pipe = pipe
+        # (replica id, its device ids) -> a fresh pipeline for a join or
+        # rejoin; by default every new replica shares ``pipe``
+        self._pipe_factory = pipe_factory
         self.replicas: Dict[int, Replica] = {}
         for i in range(n_replicas):
             self.replicas[i] = self._build_replica(
@@ -295,6 +307,7 @@ class Fleet:
         out: List[FleetResult] = []
         if self._injector is not None:
             self._apply_faults(now)
+        self._mark_lost()
         self._place_pending(now)
         for rid, rep in sorted(self.replicas.items()):
             if not self.membership.pumpable(rid) or rid in self._hung:
@@ -312,6 +325,9 @@ class Fleet:
                     if r is not None:
                         out.append(r)
             self._intake_recovery(rid, rep, now)
+            if rep.lost:      # its rank group lost a rank in this pump
+                self._hung.add(rid)
+                continue
             # pumping (even an idle pass) is the in-process heartbeat;
             # an armed injector may drop (partition) or hold (skew) it
             if self._injector is not None:
@@ -557,14 +573,28 @@ class Fleet:
         heartbeating); membership declares it dead after the timeout."""
         self._hung.add(rid)
 
+    def _mark_lost(self) -> None:
+        """A live replica whose rank group lost a rank hangs from now on:
+        no placement, no pump, no heartbeat, as :meth:`inject_hang`."""
+        for rid, rep in self.replicas.items():
+            if self.membership.pumpable(rid) and rep.lost:
+                self._hung.add(rid)
+
+    def _fresh_pipe(self, rid: int) -> Any:
+        if self._pipe_factory is None:
+            return self._default_pipe
+        return self._pipe_factory(
+            rid, self.membership.replicas[rid].device_ids)
+
     def rejoin_replica(self, rid: int, *,
                        speed_factor: float = 1.0) -> int:
         """Bring a dead/drained replica id back with a FRESH engine (the
         old incarnation's state is untrusted); returns the incarnation."""
         inc = self.membership.rejoin(rid)
         self._hung.discard(rid)
+        self.replicas[rid].close()
         self.replicas[rid] = self._build_replica(
-            rid, self._default_pipe, speed_factor)
+            rid, self._fresh_pipe(rid), speed_factor)
         if self.virtual:
             self.replicas[rid].rclock.catch_up(self.now)
         return inc
@@ -582,7 +612,7 @@ class Fleet:
         rid = self.membership.join(device_ids)
         self.health.grow(rid + 1)
         self.replicas[rid] = self._build_replica(
-            rid, self._default_pipe, speed_factor)
+            rid, self._fresh_pipe(rid), speed_factor)
         if self.virtual:
             self.replicas[rid].rclock.catch_up(self.now)
         if warm_background and self._engine_kind == "packed":
@@ -593,6 +623,7 @@ class Fleet:
 
     def _on_death(self, rid: int) -> int:
         now = self.now
+        self.replicas[rid].close()        # a rank group's processes go too
         orphans = [r for r in self.router.requests.values()
                    if r.state == "placed" and r.owner == rid]
         for req in orphans:
@@ -693,6 +724,18 @@ class Fleet:
                 raise TimeoutError("background warm-set build still "
                                    "running")
             w.assert_warm()
+
+    def close(self) -> None:
+        """Stop every replica's rank group (a no-op for pipelines in this
+        process)."""
+        for rep in self.replicas.values():
+            rep.close()
+
+    def __enter__(self) -> "Fleet":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
 
     # ------------------------------------------------------------------
     # Introspection

@@ -8,7 +8,11 @@ Two engine kinds sit behind the same pump/submit surface:
 * ``fixed`` — :class:`FixedSlotEngine`, a per-level fixed-slot batcher
   driving ``FlexiPipeline.sample`` directly. It takes sequence-parallel
   plans (``plan.parallel``): every rank of the pipeline's mesh runs the
-  same engine with the same submissions (``launch/serve.py --mesh``).
+  same engine with the same submissions (``launch/serve.py --mesh``), or
+  the pipeline is a rank group's (``fleet/groups.py``) and one engine
+  feeds its ranks (``--mesh DATAxSEQ --replicas N``). A replica over a
+  group that lost a rank is :attr:`Replica.lost`: the fleet stops pumping
+  it, so it stops beating.
 
 **Virtual time.** A single-process fleet shares one card, so replica
 compute serializes and wall-clock can never show N-replica throughput.
@@ -46,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.scheduler import dit_nfe_flops
+from repro_torch.launch.mesh import RankLost
 from repro_torch.models import dit as dit_mod
 from repro_torch.pipeline.pipeline import FlexiPipeline
 from repro_torch.pipeline.plan import SamplingPlan
@@ -351,7 +356,10 @@ class Replica:
         t0 = self.rclock()
         n0 = self.engine.metrics.total_steps
         w0 = self.engine.waits
-        results = self.engine.step()
+        try:
+            results = self.engine.step()
+        except RankLost:
+            return [], 0.0   # the group is stopped: see ``lost``
         dt = 0.0
         if self.engine.metrics.total_steps > n0:
             srec = self.engine.metrics.steps[-1]
@@ -401,3 +409,16 @@ class Replica:
 
     def cache_stats(self) -> Dict[str, int]:
         return self.engine.cache_stats()
+
+    @property
+    def lost(self) -> bool:
+        """The pipeline is a rank group that is no longer whole: it lost
+        a rank, or was stopped (never for a pipeline in this process)."""
+        alive = getattr(self.engine.pipe, "alive", None)
+        return alive is not None and not alive()
+
+    def close(self) -> None:
+        """Stop the pipeline's rank group, if it has one."""
+        close = getattr(self.engine.pipe, "close", None)
+        if close is not None:
+            close()

@@ -31,12 +31,18 @@ The mesh path: ``--mesh DATAxSEQ`` serves DiT requests sequence-parallel
 (``repro_torch.distributed``) from fixed batch slots of ``--batch-slots``
 requests, in DATA x SEQ rank processes started here
 (``launch.mesh.run_ranks``), every rank running the same loop; rank 0's
-``[batch n]`` and ``served`` lines are printed. The backend follows the
-rule of ``launch/mesh.py``: ``gloo`` on the CPU, ``nccl`` when every rank
-has its own card, and ranks that share a card need ``--dist-backend
-gloo``. ``--mesh`` with ``--replicas`` (a router over multi-process
-replicas) is not ported and raises. The language-model path reads
-neither flag: it serves on one device, as the reference's does.
+``[batch n]`` and ``served`` lines are printed. ``--mesh DATAxSEQ
+--replicas N`` (N == DATA) composes the two: with SEQ > 1, N fixed-slot
+replicas behind the router, each over its own persistent group of SEQ
+rank processes (``fleet/groups.RankGroupPipeline``) on one contiguous
+slice of the N x SEQ devices, with ``ParallelSpec()`` plans; with SEQ ==
+1, N packed replicas with a pipeline each. The groups take turns on one
+card, so the fleet's img/s prices routing over sequence-parallel
+replicas, not scale. The backend follows the rule of ``launch/mesh.py``
+over all the ranks: ``gloo`` on the CPU, ``nccl`` when every rank has
+its own card, and ranks that share a card need ``--dist-backend gloo``;
+nothing falls back to one device. The language-model path reads neither
+flag: it serves on one device, as the reference's does.
 
 Runs on CUDA unless ``--device cpu``.
 
@@ -52,6 +58,8 @@ Runs on CUDA unless ``--device cpu``.
       --batch-slots 2 --prompt-len 512 --max-new 16
   python -m repro_torch.launch.serve --arch dit-xl-2 --mesh 1x2 \
       --dist-backend gloo --requests 4 --batch-slots 2 --T 10
+  python -m repro_torch.launch.serve --arch dit-xl-2 --mesh 2x2 \
+      --replicas 2 --dist-backend gloo --requests 8 --T 10
 """
 from __future__ import annotations
 
@@ -121,19 +129,19 @@ def build_plan_menu(cfg, args, parallel=None) -> Dict[float, "object"]:
 def serve_dit(cfg, args) -> Dict[str, float]:
     """Serve DiT sampling requests through the continuous-batching engine
     (or, with ``--replicas`` > 1, a fleet of them; with ``--mesh``, the
-    sequence-parallel fixed-slot path) on ``args.device`` (CUDA unless
-    'cpu'). Returns the metrics summary."""
+    sequence-parallel fixed-slot path; with both, a fleet of
+    sequence-parallel replicas) on ``args.device`` (CUDA unless 'cpu').
+    Returns the metrics summary."""
     from repro_torch.device import resolve_device
     from repro_torch.diffusion import schedule as sch
+    from repro_torch.fleet import Fleet
     from repro_torch.models import dit as dit_mod
     from repro_torch.pipeline import FlexiPipeline
 
+    replicas = getattr(args, "replicas", 1)
     if getattr(args, "mesh", None):
-        if getattr(args, "replicas", 1) > 1:
-            raise NotImplementedError(
-                "--mesh with --replicas needs a router over multi-process "
-                "replicas, which a later distributed slice of the port "
-                "brings (ROADMAP queue 1)")
+        if replicas > 1:
+            return _serve_dit_mesh_fleet(cfg, args)
         return _serve_dit_mesh(cfg, args)
     device = resolve_device(getattr(args, "device", None))
     gen = torch.Generator(device=device).manual_seed(0)
@@ -141,9 +149,16 @@ def serve_dit(cfg, args) -> Dict[str, float]:
     pipe = FlexiPipeline(params, cfg, sch.linear_schedule(args.train_T),
                          device=device)
     plans = build_plan_menu(cfg, args)
-    if getattr(args, "replicas", 1) > 1:
-        return _serve_dit_fleet(cfg, args, pipe, plans)
+    if replicas > 1:
+        return _serve_dit_fleet(cfg, args, Fleet(
+            pipe, plans, replicas, router=args.router,
+            engine_kwargs=_packed_engine_kwargs(args)))
     return _serve_dit_engine(cfg, args, pipe, plans)
+
+
+def _packed_engine_kwargs(args) -> Dict[str, object]:
+    return {"policy": getattr(args, "policy", None) or "fifo",
+            "max_tokens_per_step": getattr(args, "max_tokens_per_step", None)}
 
 
 def lm_prefill(prefill, params, inputs: Dict[str, torch.Tensor],
@@ -374,22 +389,93 @@ def _serve_mesh_rank(rank: int, device: torch.device, cfg, args, plans,
                         "runners": float(stats["compiled"])}}
 
 
-def _serve_dit_fleet(cfg, args, pipe, plans) -> Dict[str, float]:
-    """The fleet path: ``--replicas N`` packed engines behind the router,
-    on the wall clock, sharing ``pipe`` (one card). One background thread
-    warms the small-cohort ladder while the fleet already serves; after
-    the drain every rung must be warm."""
-    from repro_torch.fleet import BackgroundCompiler, Fleet
+def _serve_dit_mesh_fleet(cfg, args) -> Dict[str, float]:
+    """``--mesh DATAxSEQ --replicas N``, the reference's fleet over
+    device slices: N == DATA replicas, each on a contiguous SEQ-wide slice
+    of the N x SEQ devices. SEQ > 1: fixed-slot replicas with
+    ``ParallelSpec()`` plans, each over a persistent rank group
+    (``fleet/groups.RankGroupPipeline``; weights from seed 0 on every
+    rank, as the single-device path's), a joined or rejoined replica on a
+    fresh group; SEQ == 1: packed replicas, one pipeline each (no ranks).
+    Every group is stopped when the fleet is done."""
+    from repro_torch.device import resolve_device
+    from repro_torch.diffusion import schedule as sch
+    from repro_torch.distributed import ParallelSpec
+    from repro_torch.fleet import Fleet, partition_devices
+    from repro_torch.launch.mesh import (default_backend, parse_mesh_arg,
+                                         rank_device)
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.pipeline import FlexiPipeline
 
-    engine_kwargs = {"policy": getattr(args, "policy", None) or "fifo",
-                     "max_tokens_per_step":
-                         getattr(args, "max_tokens_per_step", None)}
-    fleet = Fleet(pipe, plans, args.replicas, router=args.router,
-                  engine_kwargs=engine_kwargs)
-    # replicas share one pipeline, so one background walk warms them all
-    fleet.warmers[0] = BackgroundCompiler(fleet.replicas[0].engine,
-                                          name="serve-warm").start()
-    levels = sorted(plans)
+    n = args.replicas
+    d_sz, s_sz = parse_mesh_arg(args.mesh)
+    if d_sz != n:
+        raise SystemExit(f"--mesh {args.mesh}: DATA={d_sz} must equal "
+                         f"--replicas {n} on the fleet path (one "
+                         f"replica per data-parallel slice)")
+    device = resolve_device(getattr(args, "device", None))
+    sched = sch.linear_schedule(args.train_T)
+    slices = partition_devices(range(n * s_sz), n, s_sz)
+    print(f"[mesh] {n} replica(s) x seq={s_sz}: slices "
+          f"{[list(sl) for sl in slices]}")
+    if s_sz == 1:
+        params = dit_mod.init_dit(
+            cfg, torch.Generator(device=device).manual_seed(0))
+        pipes = [FlexiPipeline(params, cfg, sched, device=device)
+                 for _ in slices]
+        plans = build_plan_menu(cfg, args)
+        return _serve_dit_fleet(cfg, args, Fleet(
+            pipes[0], plans, n, router=args.router, pipes=pipes,
+            seq_parallel=s_sz, batch_size=args.batch_slots,
+            engine_kwargs=_packed_engine_kwargs(args)))
+    from repro_torch.fleet.groups import RankGroupPipeline
+
+    world = n * s_sz
+    backend = (getattr(args, "dist_backend", None)
+               or default_backend(world, device.type))
+    print(f"[mesh] {world} ranks in {n} groups ({backend}, {device.type})")
+
+    def group(rid: int, device_ids) -> RankGroupPipeline:
+        return RankGroupPipeline(
+            cfg, sched, 0, s_sz, device=device, backend=backend,
+            devices=[rank_device(i, world, backend, device.type)
+                     for i in device_ids],
+            timeout_s=MESH_TIMEOUT_S,
+            # CPU ranks share the host's cores: one intra-op thread each
+            threads=1 if device.type == "cpu" else None)
+
+    plans = build_plan_menu(cfg, args, ParallelSpec())
+    pipes: List = []
+    try:
+        pipes.extend(group(i, sl) for i, sl in enumerate(slices))
+        for p in pipes:            # the groups start side by side
+            p.wait_ready()
+        fleet = Fleet(pipes[0], plans, n, router=args.router, pipes=pipes,
+                      engine_kind="fixed", seq_parallel=s_sz,
+                      batch_size=args.batch_slots, pipe_factory=group)
+        with fleet:
+            return _serve_dit_fleet(
+                cfg, args, fleet, packed=False,
+                note="; the groups take turns on the card(s): routing's "
+                     "price, not scale")
+    finally:
+        for p in pipes:
+            p.close()
+
+
+def _serve_dit_fleet(cfg, args, fleet, *, packed: bool = True,
+                     note: str = "") -> Dict[str, float]:
+    """Serve ``--requests`` through ``fleet`` on the wall clock. A
+    ``packed`` fleet warms the small-cohort ladder on one background
+    thread (replica 0's pipeline; shared pipelines make it the others'
+    too) while it already serves, and after the drain every rung must be
+    warm; a fixed-slot fleet has no ladder."""
+    from repro_torch.fleet import BackgroundCompiler
+
+    if packed:
+        fleet.warmers[0] = BackgroundCompiler(fleet.replicas[0].engine,
+                                              name="serve-warm").start()
+    levels = sorted(fleet.plans)
     rng = np.random.default_rng(0)
     t0 = time.time()
     for i in range(args.requests):
@@ -397,7 +483,8 @@ def _serve_dit_fleet(cfg, args, pipe, plans) -> Dict[str, float]:
         fleet.submit(cond=int(rng.integers(0, cfg.dit.num_classes)),
                      budget=levels[i % len(levels)], deadline=deadline)
     results = fleet.run()
-    fleet.wait_warm(timeout=600.0)
+    if packed:
+        fleet.wait_warm(timeout=600.0)
     dt = time.time() - t0
     s = fleet.summary()
     for r in results[:4]:
@@ -406,7 +493,7 @@ def _serve_dit_fleet(cfg, args, pipe, plans) -> Dict[str, float]:
               f"x0_std={float(r.x0.float().std()):.3f}", flush=True)
     print(f"[fleet] served {s['served']} requests over {s['replicas']} "
           f"replicas in {dt:.1f}s ({len(results) / max(dt, 1e-9):.2f} "
-          f"img/s) router={args.router}")
+          f"img/s{note}) router={args.router}")
     rs = s["router"]
     print(f"[fleet] affinity_hit_rate={s['affinity_hit_rate']:.3f} "
           f"placements={int(rs['placements'])} "
@@ -669,14 +756,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--replicas", type=int, default=1,
                     help="serve DiT requests through a fleet of N packed "
                          "engines behind a router (all on the one card); "
-                         "the LM path serves on one device")
+                         "with --mesh DATAxSEQ (DATA == N) each replica "
+                         "owns a SEQ-wide slice; the LM path serves on one "
+                         "device")
     ap.add_argument("--router", default="cheapest",
                     choices=["cheapest", "rr", "affinity"],
                     help="fleet placement policy (--replicas > 1)")
     ap.add_argument("--mesh", default=None, metavar="DATAxSEQ",
                     help="serve DiT requests sequence-parallel over DATA x "
-                         "SEQ rank processes started here, e.g. 1x2 (the LM "
-                         "path serves on one device)")
+                         "SEQ rank processes started here, e.g. 1x2; with "
+                         "--replicas N, N groups of SEQ ranks behind the "
+                         "router (the LM path serves on one device)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="--mesh: the torch.distributed backend (default: "
                          "gloo on the CPU, nccl when every rank has its own "

@@ -486,6 +486,7 @@ def test_serve_cli_mesh_on_cpu(capsys):
     assert "[mesh] data=1 seq=2 over 2 ranks (gloo, cpu)" in out
     assert "[shard]" in out and "impl=ulysses" in out
     assert "served 3 requests" in out and m["served"] == 3.0
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # with --replicas the fleet path takes the mesh: DATA must equal N
+    with pytest.raises(SystemExit, match="DATA=1 must equal --replicas 2"):
         tserve.main(["--arch", "dit-xl-2", "--smoke", "--device", "cpu",
                      "--mesh", "1x2", "--replicas", "2"])

@@ -726,9 +726,3 @@ def test_serve_cli_fleet_on_cpu(capsys, router):
     out = capsys.readouterr().out
     assert m["served"] == 4.0 and "[fleet] served 4 requests over 2" in out
     assert f"router={router}" in out and "pipes=1" in out
-
-
-def test_serve_cli_mesh_still_raises():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tserve.main(["--arch", "dit-xl-2", "--smoke", "--device", "cpu",
-                     "--replicas", "2", "--mesh", "2x1"])

@@ -501,19 +501,29 @@ def _serving_cfg(dtype: str):
         dit=dataclasses.replace(cfg.dit, latent_shape=(1, 32, 32, 4)))
 
 
-def _serving_pipe(dtype: str, device):
-    from repro_torch.diffusion.schedule import linear_schedule
+def _serving_params(dtype: str, device):
     from repro_torch.models import dit as dit_mod
-    from repro_torch.pipeline import FlexiPipeline
-    cfg = _serving_cfg(dtype)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = dit_mod.init_dit(cfg, gen)
+    params = dit_mod.init_dit(_serving_cfg(dtype), gen)
     for node, key in [(params["deembed"], "w_flex"),
                       (params["final"]["ada"], "w"),
                       (params["blocks"]["ada"], "w")]:
         node[key] = (torch.randn(node[key].shape, generator=gen, device=device)
                      * 0.05).to(node[key].dtype)
-    return FlexiPipeline(params, cfg, linear_schedule(100), device=device)
+    return params
+
+
+def _serving_pipe(dtype: str, device):
+    from repro_torch.diffusion.schedule import linear_schedule
+    from repro_torch.pipeline import FlexiPipeline
+    return FlexiPipeline(_serving_params(dtype, device), _serving_cfg(dtype),
+                         linear_schedule(100), device=device)
+
+
+def _serving_params_f32(device):
+    """The float32 serving weights, built on a rank (spawned ranks import
+    this module by name)."""
+    return _serving_params("float32", device)
 
 
 def _plans(solver="ddim", **kw):
@@ -847,6 +857,58 @@ def test_fleet_on_card_matches_pipeline(cuda):
         ref = pipe.sample(plans[r.budget_served], 1, gen,
                           cond=torch.tensor([r.cond], device=cuda)).x0[0]
         torch.testing.assert_close(r.x0, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fleet_over_rank_groups_on_card(cuda):
+    """float32, two groups of 2 rank processes on the one card over Gloo
+    (``fleet/groups.RankGroupPipeline``, Ulysses at 2 of 4 heads) behind
+    the fixed-slot fleet: each request lands on the replica a
+    single-process fixed-slot fleet on the card picks, every x0 within
+    1e-4 of that fleet's, each rank's flash launches on the f32 variant;
+    closing the fleet stops every rank."""
+    import dataclasses
+
+    from repro_torch.distributed import ParallelSpec
+    from repro_torch.fleet import Fleet
+    from repro_torch.fleet.groups import RankGroupPipeline
+    from repro_torch.kernels import build
+    build.build_all()                  # before any rank starts
+    pipe = _serving_pipe("float32", cuda)
+    groups = [RankGroupPipeline(pipe.cfg, pipe.sched, _serving_params_f32, 2,
+                                device=cuda, backend="gloo", timeout_s=300.0)
+              for _ in range(2)]
+    fleets = []
+    try:
+        for pipes, plans in ((None, _plans()),
+                             (groups, _plans(parallel=ParallelSpec()))):
+            fleet = Fleet(pipe if pipes is None else pipes[0], plans, 2,
+                          pipes=pipes, engine_kind="fixed", seq_parallel=2,
+                          batch_size=2, router="cheapest", clock=_Clock(),
+                          seconds_per_token=1e-4)
+            rids = [fleet.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+                    for i in range(6)]
+            fleet.run()
+            assert sorted(fleet.results) == rids
+            fleets.append(fleet)
+        ref, ours = fleets
+        for rid, r in ref.results.items():
+            assert ours.results[rid].replica == r.replica
+            torch.testing.assert_close(ours.results[rid].x0, r.x0,
+                                       atol=1e-4, rtol=1e-4)
+        launches = [g.group.call(_rank_flash_launches) for g in groups]
+        assert all(n > 0 and v["f32"] == n for ranks in launches
+                   for n, v in ranks), launches
+        ours.close()
+        assert not any(g.alive() for g in groups)
+    finally:
+        for g in groups:
+            g.close()
+
+
+def _rank_flash_launches(rank, device, state):
+    return (ops.flash_attention.launches,
+            dict(ops.flash_attention.launches_by_variant))
 
 
 @pytest.mark.gpu

@@ -161,8 +161,10 @@ def test_later_families_raise_naming_the_slice():
     raise naming the distributed slice) runs: with no mesh its forward
     and train step equal the plain ones bit for bit. ``serve_lm`` (once
     raising on ``--mesh`` and ``--replicas``) serves on one device with
-    either, as the reference's does. The seam still open keeps its raise,
-    naming its owner."""
+    either, as the reference's does. The DiT path's ``--mesh`` with
+    ``--replicas`` (once raising, naming the distributed slice) is ported:
+    a DATA other than the replica count exits with the reference's
+    message."""
     import argparse
     jcfg, tcfg, jp, tp = setup("deepseek-7b")
     cfg = dataclasses.replace(tcfg, sequence_parallel=True)
@@ -179,7 +181,7 @@ def test_later_families_raise_naming_the_slice():
             mesh=mesh, replicas=replicas, **lm_args))
         assert (got["served"], got["tokens"]) == (plain["served"],
                                                   plain["tokens"]) == (3.0, 3.0)
-    with pytest.raises(NotImplementedError, match="later distributed slice"):
+    with pytest.raises(SystemExit, match="DATA=1 must equal --replicas 2"):
         tserve.serve_dit(tcfgs.get_config("dit-xl-2"),
                          argparse.Namespace(mesh="1x2", replicas=2))
 

@@ -480,13 +480,19 @@ def test_serve_cli_smoke_on_cpu(capsys, extra):
 
 
 @pytest.mark.parametrize("flags,owner", [
-    (["--replicas", "2", "--mesh", "2x1"], "distributed"),
-    (["--mesh", "1x2", "--replicas", "3"], "distributed"),
-    (["--arch", "mamba2-130m", "--replicas", "2"], "language-model")])
+    pytest.param(["--replicas", "2", "--mesh", "2x1"], None,
+                 id="flags0-distributed"),
+    pytest.param(["--mesh", "1x2", "--replicas", "3"],
+                 "DATA=1 must equal --replicas 3", id="flags1-distributed"),
+    pytest.param(["--arch", "mamba2-130m", "--replicas", "2"],
+                 "language-model", id="flags2-language-model")])
 def test_serve_cli_later_slices_raise(capsys, flags, owner):
-    """The DiT path's ``--mesh`` with ``--replicas`` raises, naming its
-    slice. The language-model path (once raising on ``--replicas``) reads
-    neither flag and serves on one device, as the reference's does."""
+    """The DiT path's ``--mesh`` with ``--replicas`` (once raising, naming
+    the distributed slice) serves as the reference's does: N replicas on
+    the mesh's slices, and a DATA other than N exits with the reference's
+    message. The language-model path (once raising on ``--replicas``)
+    reads neither flag and serves on one device, as the reference's
+    does."""
     argv = ["--arch", "dit-xl-2", "--smoke", "--device", "cpu"] + flags
     if owner == "language-model":
         m = tserve.main(argv + ["--requests", "2", "--batch-slots", "2",
@@ -494,7 +500,12 @@ def test_serve_cli_later_slices_raise(capsys, flags, owner):
         assert (m["served"], m["tokens"]) == (2.0, 2.0)
         assert "reads neither --mesh nor --replicas" in capsys.readouterr().out
         return
-    with pytest.raises(NotImplementedError, match=owner):
+    if owner is None:
+        m = tserve.main(argv + ["--requests", "2", "--T", "2"])
+        out = capsys.readouterr().out
+        assert m["served"] == 2.0 and "[mesh] 2 replica(s) x seq=1" in out
+        return
+    with pytest.raises(SystemExit, match=owner):
         tserve.main(argv)
 
 

@@ -119,3 +119,41 @@ def fail_on_rank_one(rank: int, device: torch.device) -> int:
     import torch.distributed as dist
     dist.barrier()               # rank 0 waits for a rank that never comes
     return rank
+
+
+# ---------------------------------------------------------------------------
+# RankGroup calls: fn(rank, device, state, *args), state kept between calls
+
+
+def count_calls(rank: int, device: torch.device, state: dict, add: int):
+    """Adds ``add`` to this rank's running total (kept in ``state``)."""
+    import os
+    state["n"] = state.get("n", 0) + add
+    return rank, os.getpid(), state["n"]
+
+
+def raise_on_rank(rank: int, device: torch.device, state: dict, bad: int):
+    """Rank ``bad`` raises; the others wait for it in a barrier."""
+    import torch.distributed as dist
+    if rank == bad:
+        raise RuntimeError(f"planted failure on rank {rank}")
+    dist.barrier()
+    return rank
+
+
+def sleep_then_barrier(rank: int, device: torch.device, state: dict,
+                       sleeper: int, seconds: float):
+    """Rank ``sleeper`` sleeps (long enough to be killed first); every rank
+    then waits in a barrier."""
+    import time
+
+    import torch.distributed as dist
+    if rank == sleeper:
+        time.sleep(seconds)
+    dist.barrier()
+    return rank
+
+
+def unpicklable_result(rank: int, device: torch.device, state: dict):
+    """A result that cannot cross back to the parent."""
+    return lambda: rank
