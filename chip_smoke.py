@@ -201,8 +201,9 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    --arch mamba2-130m --steps 4`` and ``--arch deepseek-moe-16b --smoke``
    in-process, captured;
 14. sequence-parallel sampling (``repro_torch.distributed``): the
-   kernels built here before any rank starts, then rank processes
-   (``launch/mesh.run_ranks``), every one on this card over Gloo, each
+   kernels built here before any rank starts, then groups of rank
+   processes (``launch/mesh.RankGroup``: 2 and 3 ranks side by side,
+   then 4), every rank on this card over Gloo, each
    building DiT-XL/2 at full width (phase 3's weights recipe, a fresh
    seed, bf16) and sampling n = 4 at CFG 1.5, T = 10 DDIM, budgets 0.6
    and 1.0 through ``FlexiPipeline(mesh=)``: Ulysses on (1 x 2), (1 x 4)
@@ -231,17 +232,22 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    against single-device under the same limit; the flash kernel at the
    Ulysses inner shapes against its plain version and timed against
    SDPA; and ``python -m repro_torch.launch.serve --arch dit-xl-2 --mesh
-   1x2 --dist-backend gloo`` as a subprocess. Walls per sample are
-   printed beside single-device's: ranks sharing one card, with Gloo
-   staging every collective through the host, price the mechanism, not
-   scaling.
+   1x2 --dist-backend gloo`` as a subprocess (started and checked beside
+   phase 19's blocked references, where this host sits idle: it spends
+   its wall starting ranks and staging Gloo collectives). Walls per
+   sample are printed beside single-device's: ranks sharing one card (the (1 x 2)
+   and (1 x 3) groups' five ranks at once), with Gloo staging every
+   collective through the host, price the mechanism, not scaling.
 15. sharded training (``runtime/placement.py``, ``runtime/sharding``'s
    placement half, ``optim/compression.py``, ``runtime/elastic.py``): this
    process's single-device steps first (their gradients written to files,
    the card's memory freed), then one group of 4 rank processes on this
    card over Gloo, a ("data", "model") mesh of (2 x 2)
-   (``launch/mesh.make_debug_mesh``): DiT-XL/2 at full width (phase 3's
-   weights recipe, bf16, B=32, profile ``fsdp2d`` forced), 2 steps at mode
+   (``launch/mesh.make_debug_mesh``): DiT-XL/2 at full width cut to 14
+   of its 28 layers (phase 3's weights recipe, bf16, B=32, profile
+   ``fsdp2d`` forced; the cut halves the Gloo gathers and reduce-scatters
+   that take most of a rank's step, so the script fits its time limit
+   beside phase 19), 2 steps at mode
    1 and 2 at mode 0, the loss and every gradient leaf at both modes held
    against single-device as ||g - ref|| / ||ref|| over the whole leaf,
    the resident parameter and moment bytes a rank equal to the spec
@@ -254,7 +260,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    1, restored by ``elastic_restore`` onto ``make_elastic_mesh(2, 2)``
    (ranks 0-1) and stepped there against the uninterrupted step 2 (as an
    update), and restored on one device and sampled through
-   ``FlexiPipeline.sample`` at budget 0.6 on the flash kernel (28
+   ``FlexiPipeline.sample`` at budget 0.6 on the flash kernel (14
    ``wgmma`` launches a forward), x0 equal bit for bit to the gathered
    in-memory parameters'; four planted faults (``global_norm`` over local
    chunks, a data-axis gradient unsummed, the sequence-parallel gather's
@@ -275,10 +281,12 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    forward timed (CUDA events,
    median of PLAN_REPS) and its share of the planner's compute bound
    printed beside the card's name and power limit; the planner's
-   resident bytes a rank on (2 x 2) against phase 15's measured
-   1,692,272,000 / 3,284,825,600 / 3,988,572,160 (and against phase 15's
-   own reading in a full run). ``python3 chip_smoke.py --only plan``
-   runs phase 1 and this phase alone.
+   resident bytes a rank on (2 x 2) for phase 15's three configs (its
+   14-layer DiT-XL/2 cut, its gemma2-9b and deepseek-moe-16b cuts)
+   against the arithmetic phase 15 measures, 855,309,440 / 3,284,825,600
+   / 3,988,572,160 (and against phase 15's own reading in a full run).
+   ``python3 chip_smoke.py --only plan`` runs phase 1 and this phase
+   alone.
 17. runners captured once as CUDA graphs (``runtime.graphs``), each
    against the same run under ``graphs.disabled()``: frozen DDIM, DDPM
    and cached engines over the phase-7 wave and a budget switch,
@@ -295,8 +303,10 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 18. the fleet over sequence-parallel rank groups (``launch/serve.py
    --mesh 2x2 --replicas 2``): two persistent groups of 2 rank processes
    (``fleet/groups.RankGroupPipeline``), all four on this card over Gloo,
-   each rank holding DiT-XL/2 at full width (phase 3's weights recipe,
-   bf16) on a (1 x 2) mesh, behind the fixed-slot fleet on a fake clock,
+   each rank holding DiT-XL/2 at full width cut to 14 of its 28 layers
+   (phase 3's weights recipe, bf16; the cut for the script's time limit
+   beside phase 19: every check here is exact or at a fixed rounding) on
+   a (1 x 2) mesh, behind the fixed-slot fleet on a fake clock,
    budgets {0.6, 0.8, 1.0}, T=10 DDIM, CFG 1.5, Ulysses with the flash
    kernel at 8 of 16 heads: (a) 10 requests under ``cheapest``; (b) 8
    under ``rr``, one rank of replica 0's group SIGKILLed after the first
@@ -310,12 +320,46 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    function summed in another order: a lone weak-mode request's GEMMs
    have 64 rows on a rank and 128 on one device, and cuBLAS may sum them
    in another order); a planted fault (x0 shipped back in bfloat16) must
-   read over 1e-6 in every request; every rank's flash launches in (a) 28 x the
-   forwards its group ran, all ``wgmma``; no process of the killed group
+   read over 1e-6 in every request; every rank's flash launches in (a) 14 x
+   the forwards its group ran, all ``wgmma``; no process of the killed group
    left. (c) ``python -m repro_torch.launch.serve --mesh 2x2 --replicas
-   2`` exits 0. The groups take turns on the card: walls price routing
+   2`` exits 0 (in the full run started and checked beside phase 19's
+   blocked references, as phase 14's command line). The groups take
+   turns on the card: walls price routing
    over sequence-parallel replicas, not scale. ``python3 chip_smoke.py
    --only fleet-groups`` runs phases 1 and 18 alone.
+19. the paper's text-to-video DiT (``configs/video_dit.py``: 32 layers,
+   d=3072, 24 heads x 128, d_ff 12288, text cross-attention over 256 x
+   3072, a (32, 88, 48, 8) latent = 33,792 tokens at patch (1, 2, 2),
+   16,896 at the temporal weak patch (2, 2, 2) and 8,448 at the spatial
+   (1, 4, 4), LoRA rank 64, bf16, 6.91 B random trained-like weights drawn
+   on the card from a seed, every zero-initialized gate filled) at full
+   width and full depth: (b) the flash kernel at B=2 (the CFG rows) x
+   H=24 x hd 128 for each of the three lengths, non-causal, against its
+   plain version a head at a time at ||o - ref|| / ||ref|| <= 1e-2, where
+   the kv tile walk stopped halfway (a planted fault) must read over the
+   limit; (c) ``FlexiPipeline.sample`` with a seeded [1, 256, 3072] text
+   whose mask leaves out its last 56 tokens, n = 1, CFG 1.5, DDIM, LoRA
+   merged, every self-attention on the kernel: the temporal plan (T = 4,
+   budget 0.6, weak mode 1: phases ((1, 3), (0, 1)), relative compute
+   0.511; 4 steps, not 8, so that its blocked reference fits the script's
+   time limit) and the spatial one (T = 8, budget 0.25, weak mode 2:
+   ((2, 7), (0, 1)), 0.244), 32 ``wgmma`` launches a forward, each x0
+   held against the same
+   plan, x_T and text on the blocked backend (``blocked_gqa_attend``, the
+   reference's own path for long video sequences, run eagerly) at
+   VIDEO_X0_TOL, where the planted fault must read over it on both; (d)
+   each plan called again after the other (the replay's x0 bit for bit,
+   no runner built, no graph captured); (e) seconds a replayed NFE a mode
+   (the weak modes' captured alone, mode 0's from each plan's replay less
+   its weak NFEs), TFLOP/s against 2 x ``dit_nfe_flops``, the
+   cross-attention's share of an NFE, seconds a sample, peak memory,
+   pool bytes a plan, relative compute against the host ledger; (f) the
+   kernel timed at the three shapes against its bound and SDPA in
+   interleaved rounds (added to the flash entry's ``shapes``). In the full
+   run phases 14's and 18's ``--mesh`` command lines run beside the
+   blocked references. ``python3 chip_smoke.py --only video`` runs phases
+   1 and 19 alone.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -336,6 +380,7 @@ import itertools
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -952,10 +997,13 @@ def phase_new_kernel_checks(gen: torch.Generator, gen_new: torch.Generator) -> d
 # Phase 3: the main path
 
 
-def trained_like_xl(gen: torch.Generator):
-    """DiT-XL/2 with random weights; the zero-initialized de-embedding and
-    adaLN gates made non-zero so the sample depends on every block."""
+def trained_like_xl(gen: torch.Generator, num_layers: int | None = None):
+    """DiT-XL/2 with random weights (at full width, cut to ``num_layers``
+    when given); the zero-initialized de-embedding and adaLN gates made
+    non-zero so the sample depends on every block."""
     cfg = get_config("dit-xl-2")
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     params = dit_mod.init_dit(cfg, gen)
     dt = params["deembed"]["w_flex"].dtype
     for node, key, scale in [(params["deembed"], "w_flex", 0.1),
@@ -1551,17 +1599,19 @@ def phase_serving(pipe: FlexiPipeline, smi: str) -> dict:
 # Phase 8: the sampling extensions and the telemetry layer
 
 
-def trained_like_t2i(gen: torch.Generator):
-    """The text-to-image transformer with random weights; every zero-
-    initialized gate (de-embeddings, adaLN, cross-attention out, LoRA
-    ``b``, per-mode embedding) made non-zero so the sample depends on it."""
-    cfg = get_config("t2i-transformer")
+def trained_like_t2i(gen: torch.Generator, name: str = "t2i-transformer"):
+    """A text-conditioned DiT (the text-to-image transformer, or phase 19's
+    text-to-video DiT) with random weights; every zero-initialized gate
+    (de-embeddings, every new mode's de-embedding, adaLN, cross-attention
+    out, LoRA ``b``, per-mode embedding) made non-zero so the sample
+    depends on it."""
+    cfg = get_config(name)
     params = dit_mod.init_dit(cfg, gen)
     blocks = params["blocks"]
-    gates = [(params["deembed"], "w_flex", 0.1),
-             (params["deembed_new"]["m1"], "w", 0.1),
-             (params["final"]["ada"], "w", 0.05), (blocks["ada"], "w", 0.05),
-             (blocks["xattn"], "wo", 0.05), (params, "ps_embed", 0.1)]
+    gates = [(params["deembed"], "w_flex", 0.1)]
+    gates += [(new, "w", 0.1) for new in params["deembed_new"].values()]
+    gates += [(params["final"]["ada"], "w", 0.05), (blocks["ada"], "w", 0.05),
+              (blocks["xattn"], "wo", 0.05), (params, "ps_embed", 0.1)]
     gates += [(pair, "b", 0.05) for grp in blocks["lora"].values()
               for pair in grp.values()]
     for node, key, scale in gates:
@@ -3818,6 +3868,51 @@ def phase_lm_train(gen: torch.Generator, smi: str) -> dict:
     return {"launches": launches, "seconds": time.perf_counter() - t0, **out}
 
 
+class ServeCli:
+    """``python -m repro_torch.launch.serve <argv>`` from this checkout,
+    started in the background, its output in temporary files; ``check``
+    waits for it and fails unless it exits 0 with ``expect`` in its
+    output. The --mesh command lines spend most of their wall starting
+    rank processes and staging Gloo collectives through the host, so the
+    full run starts them beside phase 19's blocked references, where the
+    host sits idle."""
+
+    def __init__(self, tag: str, argv: list, expect: str, timeout_s: float):
+        import tempfile
+        self.tag, self.argv, self.expect = tag, argv, expect
+        self.timeout_s = timeout_s
+        self.out, self.err = (tempfile.TemporaryFile("w+") for _ in range(2))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            stdout=self.out, stderr=self.err, text=True, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def check(self, smi: str) -> None:
+        left = self.timeout_s - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            rc = None
+        wall = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        tail = ([ln for ln in out.splitlines() if ln.startswith("[fleet]")]
+                or out.strip().splitlines()[-3:])
+        log(f"{self.tag} CLI {' '.join(self.argv)}: exit {rc} in {wall:.1f}s; "
+            f"{tail} ({smi})")
+        if rc != 0 or self.expect not in out:
+            raise AssertionError(f"{self.tag} CLI {' '.join(self.argv)} "
+                                 f"failed:\n{out[-2000:]}\n{err[-3000:]}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 14: sequence-parallel sampling across rank processes
 
@@ -3860,6 +3955,7 @@ SP_ATTN = [(2 * SP_N, 256, 4, 72), (2 * SP_N, 64, 4, 72), (2, 4096, 4, 128)]
 SP_CLI = ["--arch", "dit-xl-2", "--mesh", "1x2", "--dist-backend", "gloo",
           "--requests", "4", "--batch-slots", "2", "--T", str(T_STEPS),
           "--budget-levels", "0.6,1.0", "--attn-backend", "pallas"]
+SP_SERVE_CLI = ("[sp]", SP_CLI, "served 4 requests", SP_TIMEOUT_S)
 
 
 def sp_plan(b: float, attn=None, **kw) -> SamplingPlan:
@@ -3985,8 +4081,10 @@ def sp_calls(device: torch.device, mesh, calls) -> dict:
     return out
 
 
-def sp_rank(rank: int, device: torch.device, runs, t2i: bool) -> dict:
-    """One rank of phase 14 (spawned ranks import this file by path). Every
+def sp_rank(rank: int, device: torch.device, state: dict, runs,
+            t2i: bool) -> dict:
+    """One rank of phase 14, a ``RankGroup`` call (spawned ranks import
+    this file by path; ``state`` is unused: one call a group). Every
     rank builds the meshes in the same order, the same weights from the
     same seed, and samples every run."""
     from repro_torch.launch.mesh import make_inference_mesh
@@ -4079,7 +4177,7 @@ def sp_kernel_shapes(gen: torch.Generator, smi: str) -> dict:
 
 def phase_seq_parallel(smi: str) -> dict:
     from repro_torch.distributed import plan_partition
-    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh import RankGroup
     t0 = time.perf_counter()
     build.build_all()        # every kernel built before any rank starts
     shapes = sp_kernel_shapes(torch.Generator(device=DEV).manual_seed(SP_SEED),
@@ -4116,20 +4214,34 @@ def phase_seq_parallel(smi: str) -> dict:
     log(f"[sp] single-device references in {time.perf_counter() - t0:.1f}s "
         f"({smi})")
 
+    # the 2- and 3-rank groups run side by side on this card, then the
+    # 4-rank group alone: their checks do not depend on each other, and a
+    # small group spends most of its wall starting its ranks
     groups, calls = {}, {}
-    for world, runs in ((2, SP_RUNS[:1]), (3, SP_RUNS[3:4]),
-                        (4, [SP_RUNS[1], SP_RUNS[2], SP_RUNS[4]])):
-        t1 = time.perf_counter()
-        res = run_ranks(sp_rank, world, backend="gloo", device="cuda",
-                        timeout_s=SP_TIMEOUT_S, args=(runs, world == 4))
-        log(f"[sp] {world} ranks ({', '.join(r[0] for r in runs)}) in "
-            f"{time.perf_counter() - t1:.1f}s ({smi})")
-        for name, *_ in runs:
-            groups[name] = [r["runs"][name] for r in res]
-        for shape in res[0]["calls"]:
-            calls[shape] = [r["calls"][shape] for r in res]
-        if world == 4:
-            t2i_ranks = [r["t2i"] for r in res]
+    for wave in (((2, SP_RUNS[:1]), (3, SP_RUNS[3:4])),
+                 ((4, [SP_RUNS[1], SP_RUNS[2], SP_RUNS[4]]),)):
+        t1, started = time.perf_counter(), []
+        try:
+            for world, runs in wave:
+                group = RankGroup(world, backend="gloo", device="cuda",
+                                  timeout_s=SP_TIMEOUT_S)
+                group.submit(sp_rank, runs, world == 4)
+                started.append((group, world, runs))
+            for group, world, runs in started:
+                res = group.collect()
+                log(f"[sp] {world} ranks ({', '.join(r[0] for r in runs)}) "
+                    f"done in {time.perf_counter() - t1:.1f}s"
+                    + (" (beside the other small group)" if len(wave) > 1
+                       else "") + f" ({smi})")
+                for name, *_ in runs:
+                    groups[name] = [r["runs"][name] for r in res]
+                for shape in res[0]["calls"]:
+                    calls[shape] = [r["calls"][shape] for r in res]
+                if world == 4:
+                    t2i_ranks = [r["t2i"] for r in res]
+        finally:
+            for group, *_ in started:
+                group.close()
 
     errors, launches = [], 0
     for name, (d_sz, s_sz), attn in SP_RUNS:
@@ -4240,21 +4352,11 @@ def phase_seq_parallel(smi: str) -> dict:
         errors.append(f"t2i bytes {t2i_bytes}")
     launches += sum(t2i_launch)
 
-    t1 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *SP_CLI], capture_output=True, text=True,
-                         timeout=SP_TIMEOUT_S, cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    tail = cli.stdout.strip().splitlines()[-3:]
-    log(f"[sp] CLI {' '.join(SP_CLI)}: exit {cli.returncode} in "
-        f"{time.perf_counter() - t1:.1f}s; {tail} ({smi})")
-    if cli.returncode != 0 or "served 4 requests" not in cli.stdout:
-        errors.append(f"CLI --mesh 1x2 failed:\n{cli.stdout[-2000:]}"
-                      f"\n{cli.stderr[-3000:]}")
     if errors:
         raise AssertionError("phase 14: " + "; ".join(errors))
-    log(f"[sp] phase 14 in {time.perf_counter() - t0:.1f}s ({smi})")
-    return {"launches": launches, "shapes": shapes}
+    secs = time.perf_counter() - t0
+    log(f"[sp] phase 14 in {secs:.1f}s ({smi})")
+    return {"launches": launches, "shapes": shapes, "seconds": secs}
 
 
 # ---------------------------------------------------------------------------
@@ -4271,6 +4373,13 @@ ST_SEED, ST_DRAW_SEED, ST_PSUM_SEED = SEED + 11, 5151, SEED + 12
 # GB, phase 9's single-device peak), lr large enough that an update spans
 # several bf16 ulps of a weight
 ST_DIT_B, ST_DIT_LR, ST_MODES = TRAIN_BATCH, 1e-3, (1, 1, 0, 0)
+# ... cut to 14 of its 28 layers: a rank's step is mostly the Gloo
+# gathers and reduce-scatters of the layers' parameters, and the cut
+# keeps the script within its time limit beside phase 19. The readings
+# barely move with it: the worst gradient leaf 3.1e-3 at 28 layers, 3.0e-3
+# at 14, against ST_GRAD_TOL; the planted DiT faults 0.41 / 0.68 and 0.40
+# / 0.68 (PERF.md §6, PRs 25 and 31)
+ST_DIT_LAYERS = 14
 # gemma2-9b at full width cut to one local (window 4096) and one global
 # layer, sequence parallel; deepseek-moe-16b at full width cut to 2
 # layers; B x S tokens each, one step. The MoE batch's second row is one
@@ -4296,9 +4405,10 @@ ST_AUX_TOL = 1e-2
 ST_UPDATE_TOL = 0.1
 ST_TIMEOUT_S = 900.0
 
-# phase 16: the planner. Phase 15 measured these resident parameter +
-# moment bytes a rank on (2 x 2) (PERF.md §6)
-PLAN_BYTES = {"dit": 1_692_272_000, "gemma2-9b": 3_284_825_600,
+# phase 16: the planner. Phase 15's resident parameter + moment bytes a
+# rank on (2 x 2), as its ranks measure them (PERF.md §6): its DiT-XL/2
+# cut to ST_DIT_LAYERS (the whole 28 layers read 1,692,272,000, PR 25)
+PLAN_BYTES = {"dit": 855_309_440, "gemma2-9b": 3_284_825_600,
               "deepseek-moe-16b": 3_988_572_160}
 PLAN_B, PLAN_REPS = 8, 20
 # the card's count (GEMMs + flash ledger) against the planner's meta count
@@ -4319,7 +4429,8 @@ def st_dit_setup(device):
     """DiT-XL/2's weights, batch and the 4 steps' draws of the whole
     batch, the same in every process (seeds on this card)."""
     from repro_torch.launch.steps import draw_t_noise
-    params, cfg = trained_like_xl(torch.Generator(device=device).manual_seed(ST_SEED))
+    params, cfg = trained_like_xl(torch.Generator(device=device).manual_seed(ST_SEED),
+                                  ST_DIT_LAYERS)
     batch = train_batch(cfg, ST_DIT_B, SEED)
     x0 = batch["x0"].to(torch.bfloat16)
     draws = []
@@ -4656,7 +4767,7 @@ def st_serve_restored(ck, mem, device) -> dict:
     this one device and the gathered in-memory parameters ``mem``, each
     sampled through FlexiPipeline.sample at budget 0.6 on the flash
     kernel (built by the parent)."""
-    cfg = get_config("dit-xl-2")
+    cfg = dataclasses.replace(get_config("dit-xl-2"), num_layers=ST_DIT_LAYERS)
     tree, _ = ck.restore(device=device)
     mem = tree_map(lambda x: x.to(device), mem)
     out = {"same_leaves": all(torch.equal(a, b) for a, b in zip(
@@ -4708,8 +4819,9 @@ def phase_sharded_train(smi: str) -> dict:
     st_report(res, refs, group_s, smi, errors)
     if errors:
         raise AssertionError("phase 15: " + "; ".join(errors))
-    log(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f}s ({smi})")
-    return {"launches": res[0]["dit"]["serve"]["launches"],
+    secs = time.perf_counter() - t0
+    log(f"[sharded] phase 15 in {secs:.1f}s ({smi})")
+    return {"launches": res[0]["dit"]["serve"]["launches"], "seconds": secs,
             "bytes": {case: sum(res[0][case]["bytes"][:2])
                       for case in ["dit"] + [n for n, *_ in ST_LMS]}}
 
@@ -4734,7 +4846,8 @@ def st_report(res, refs, group_s, smi, errors) -> None:
     worst = max(r0["rels"].values())
     lrel = st_rel(r0["loss"], want["loss"])
     nrel = st_rel(r0["grad_norm"], want["grad_norm"])
-    log(f"[sharded] DiT-XL/2 first step (mode {ST_MODES[0]}) on (2 x 2) "
+    log(f"[sharded] DiT-XL/2 ({ST_DIT_LAYERS} of 28 layers) first step "
+        f"(mode {ST_MODES[0]}) on (2 x 2) "
         f"fsdp2d, B={ST_DIT_B}: loss {r0['loss']:.6f} vs single-device "
         f"{want['loss']:.6f} (rel {lrel:.2e}); grad norm rel {nrel:.2e}; "
         f"gradient leaves ||g - ref|| / ||ref|| worst {worst:.3e} over "
@@ -4742,7 +4855,8 @@ def st_report(res, refs, group_s, smi, errors) -> None:
     if not (worst <= ST_GRAD_TOL and lrel <= ST_GRAD_TOL and nrel <= ST_GRAD_TOL):
         errors.append(f"DiT: loss {lrel}, norm {nrel}, worst leaf {worst}")
     walls = [max(r["dit"]["walls"][i] for r in res) for i in range(4)]
-    log(f"[sharded] DiT-XL/2 steps (modes {ST_MODES}) on (2 x 2): walls "
+    log(f"[sharded] DiT-XL/2 ({ST_DIT_LAYERS} of 28 layers) steps (modes "
+        f"{ST_MODES}) on (2 x 2): walls "
         f"{', '.join(f'{w:.2f}' for w in walls)} s vs single-device "
         f"{', '.join(f'{w:.3f}' for w in refs['dit_walls'])} s; losses "
         f"{', '.join(f'{x:.4f}' for x in r0['losses'])}; peak memory a rank "
@@ -4766,7 +4880,8 @@ def st_report(res, refs, group_s, smi, errors) -> None:
     log(f"[sharded] the (2 x 2) checkpoint restored on one device (rank 0): "
         f"leaves == the gathered in-memory parameters: {sv['same_leaves']}; "
         f"each sampled at budget 0.6 (CFG 1.5, T={T_STEPS}) on the flash "
-        f"kernel: flash launches {sv['launches']} (2 x 28 x {sv['forwards']} "
+        f"kernel: flash launches {sv['launches']} (2 x {ST_DIT_LAYERS} x "
+        f"{sv['forwards']} "
         f"forwards), by variant {sv['by_variant']}; x0 restored == in memory "
         f"bit for bit: {sv['same']} ({smi})")
     if not (sv["same"] and sv["same_leaves"] and sv["finite"]):
@@ -4922,7 +5037,8 @@ def phase_plan(smi: str, measured_bytes: dict | None = None) -> dict:
     torch.cuda.empty_cache()
     # resident bytes a rank on (2 x 2): the planner against phase 15
     mesh = AxisLayout(("data", "model"), ST_MESH)
-    cases = [("dit", get_config("dit-xl-2"), "fsdp2d")]
+    cases = [("dit", dataclasses.replace(get_config("dit-xl-2"),
+                                         num_layers=ST_DIT_LAYERS), "fsdp2d")]
     for lm_name, lm_keep, profile, over in ST_LMS:
         cases.append((lm_name, dataclasses.replace(lm_cut(lm_name, lm_keep)[1],
                                                    **over), profile))
@@ -5318,6 +5434,11 @@ FG_SEED = SEED + 11
 # rejoins and serves the rest
 FG_REQUESTS, FG_FIRST = 10, 8
 FG_SP = 2
+# DiT-XL/2 at full width cut to 14 of its 28 layers, so the script keeps
+# within its time limit beside phase 19: placements, served-once and x0
+# against the rank-shaped fleet are exact at any depth, the planted bf16
+# x0 reads bf16's rounding (at 28 layers: PERF.md §6, PR 30)
+FG_LAYERS = 14
 # x0 of the groups against the single-device fleet whose token GEMMs run
 # in the ranks' row blocks: the same arithmetic, so it reads 0 on an H100
 # 80GB HBM3 (700 W; PERF.md §6). The planted fault, x0 shipped back to
@@ -5328,12 +5449,15 @@ FG_TIMEOUT_S = 420.0
 FG_CLI = ["--arch", "dit-xl-2", "--mesh", "2x2", "--replicas", "2",
           "--dist-backend", "gloo", "--requests", "4", "--T", str(T_STEPS),
           "--budget-levels", "0.6,0.8,1.0", "--attn-backend", "pallas"]
+FG_SERVE_CLI = ("[fleet-groups] (c)", FG_CLI, "[fleet] served 4 requests over 2",
+                FG_TIMEOUT_S)
 
 
 def fg_weights(device: torch.device):
     """Phase 18's weights, built on each rank (spawned ranks import this
     file by path): phase 3's recipe from FG_SEED."""
-    return trained_like_xl(torch.Generator(device=device).manual_seed(FG_SEED))[0]
+    return trained_like_xl(torch.Generator(device=device).manual_seed(FG_SEED),
+                           FG_LAYERS)[0]
 
 
 def fg_launches(rank: int, device: torch.device, state: dict,
@@ -5534,13 +5658,15 @@ def fg_check(name: str, f, refs, errors: list) -> str:
             f"{fg_batches(f)}")
 
 
-def phase_fleet_groups(smi: str) -> dict:
-    """Phase 18 (see the module docstring)."""
+def phase_fleet_groups(smi: str, cli: bool = True) -> dict:
+    """Phase 18 (see the module docstring); ``cli=False`` leaves (c) to the
+    caller (the full run starts it beside phase 19's references)."""
     from repro_torch.distributed import ParallelSpec
     from repro_torch.fleet.groups import RankGroupPipeline
     t0 = time.perf_counter()
     build.build_all()        # every kernel built before any rank starts
-    cfg, sched = get_config("dit-xl-2"), linear_schedule(1000)
+    cfg = dataclasses.replace(get_config("dit-xl-2"), num_layers=FG_LAYERS)
+    sched = linear_schedule(1000)
 
     def start(rid=None, device_ids=None) -> RankGroupPipeline:
         return RankGroupPipeline(cfg, sched, fg_weights, FG_SP, device=DEV,
@@ -5554,7 +5680,7 @@ def phase_fleet_groups(smi: str) -> dict:
         labels = np.random.default_rng(FG_SEED).integers(
             0, cfg.dit.num_classes, FG_REQUESTS).tolist()
         params, _ = trained_like_xl(torch.Generator(device=DEV)
-                                    .manual_seed(FG_SEED))
+                                    .manual_seed(FG_SEED), FG_LAYERS)
         refs = fg_references(params, cfg, sched, plans, labels, smi)
         del params
         free_card()
@@ -5631,20 +5757,331 @@ def phase_fleet_groups(smi: str) -> dict:
             g.close()
     if errors:
         raise AssertionError("phase 18: " + "; ".join(errors))
-    t1 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *FG_CLI], capture_output=True, text=True,
-                         timeout=FG_TIMEOUT_S, cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    tail = [ln for ln in cli.stdout.splitlines() if ln.startswith("[fleet]")]
-    log(f"[fleet-groups] (c) CLI {' '.join(FG_CLI)}: exit {cli.returncode} in "
-        f"{time.perf_counter() - t1:.1f}s; {tail} ({smi})")
-    if cli.returncode != 0 or "[fleet] served 4 requests over 2" not in cli.stdout:
-        raise AssertionError(f"phase 18 (c): CLI --mesh 2x2 --replicas 2 "
-                             f"failed:\n{cli.stdout[-2000:]}\n{cli.stderr[-3000:]}")
+    if cli:
+        ServeCli(*FG_SERVE_CLI).check(smi)
     secs = time.perf_counter() - t0
     log(f"[fleet-groups] phase 18 in {secs:.1f}s ({smi})")
     return {"launches": launches, "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the paper's text-to-video DiT
+
+VIDEO_SEED = SEED + 19
+# the flash kernel at the video DiT's lengths under CFG (2 rows), 24 heads
+# x 128: modes 0 / 1 / 2 (patches (1, 2, 2) / (2, 2, 2) / (1, 4, 4) over a
+# (32, 88, 48, 8) latent), held at T2I_ATTN_REL_TOL
+VIDEO_ATTN = [(2, 33792, 24, 128), (2, 16896, 24, 128), (2, 8448, 24, 128)]
+# the two plans (DDIM, CFG 1.5, LoRA merged) with their phases and
+# relative compute as the host ledger resolves them at the full config:
+# the temporal weak mode at budget 0.6 and T = 4, the spatial at 0.25 and
+# T = 8 (the paper's "75 % less compute"). The temporal plan runs 4 steps,
+# not 8 or 6: its blocked reference takes ~26 s a mode-0 NFE on the card
+# (its float32 score blocks), and at T = 6 (two of them) the whole script
+# took 1177 s of its 1200 s limit on an H100 80GB HBM3 (PERF.md §6, PR 31)
+VIDEO_PLANS = (("temporal", dict(T=4, budget=0.6, weak_mode=1),
+                ((1, 3), (0, 1)), 0.511),
+               ("spatial", dict(T=8, budget=0.25, weak_mode=2),
+                ((2, 7), (0, 1)), 0.244))
+# the text mask keeps the first 200 of the 256 text tokens; the null
+# text's keeps its first
+VIDEO_TEXT_KEEP = 200
+# x0 through the flash kernel against the same plan, x_T and text on the
+# blocked backend (models/attention.blocked_gqa_attend, the reference's
+# own path for long video sequences), ||x0 - ref|| / ||ref||; the planted
+# fault (the kv tile walk stopping halfway) must read over it on every
+# run. On an H100 80GB HBM3 (700 W), with the temporal plan at T = 8, 6
+# and 4, both plans read 5.5e-3 to 5.7e-3 (bf16 rounding, P rounded to
+# bf16 before P.V, over 32 layers) and the fault 1.41e-2 to 1.55e-2
+# (PERF.md §6, PR 31): the limit sits between, ~1.6x from each
+VIDEO_X0_TOL = 9e-3
+
+
+def video_kernel(gen: torch.Generator, smi: str, errors: list) -> tuple:
+    """Phase 19 (b) and (f): the flash kernel at the three video lengths
+    against its plain version (a head at a time), the planted fault, and
+    its time against the bound and SDPA in interleaved rounds."""
+    shapes, worst = {}, 0.0
+    for mode, (B, S, H, hd) in enumerate(VIDEO_ATTN):
+        q, k, v = (randn(gen, (B, S, H, hd), torch.bfloat16) for _ in range(3))
+        variant = variant_of(q, k, v)
+        got = ops.flash_attention(q, k, v, causal=False)
+        want, plain_ms = cuda_ms(lambda: flash_ref_by_head(q, k, v,
+                                                           causal=False))
+        want = want.float()
+        sound = ops.kernel_kwargs
+        ops.kernel_kwargs = _stop_tile_walk_halfway(sound)
+        try:
+            planted = ops.flash_attention(q, k, v, causal=False)
+        finally:
+            ops.kernel_kwargs = sound
+        rel, fault = rel_err(got, want), rel_err(planted, want)
+        err = (got.float() - want).abs().max().item()
+        del got, want, planted
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kw = ops.kernel_kwargs(q, k, causal=False)
+        t = interleaved_ms({
+            "wgmma": lambda: flash_attention_cuda(q, k, v, **kw, variant="wgmma"),
+            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)},
+            rounds=5, calls=2, replays=1)
+        bound, by = attention_bound_ms(B, S, H, hd, torch.bfloat16)
+        ms = t["wgmma"]["ms"]
+        log(f"[video] (b) flash_attention ({variant}) B{B} S{S} H{H} hd{hd} bf16 "
+            f"non-causal (mode {mode}): ||err||/||ref|| {rel:.3e} (tol "
+            f"{T2I_ATTN_REL_TOL}), max|err| {err:.3e}; planted fault (tile "
+            f"walk stops halfway) {fault:.3e}; (f) medians of "
+            f"{t['wgmma']['rounds']} interleaved rounds (fastest-slowest): "
+            f"{turns_line(t)}; plain {plain_ms:.1f} ms (one call, a head at a "
+            f"time); bound {bound:.4f} ms ({by}), {bound / ms:.1%} of it, "
+            f"{t['sdpa']['ms'] / ms:.2f}x sdpa's speed ({smi})")
+        if variant != "wgmma":
+            errors.append(f"(b) S{S}: selects {variant}, not wgmma")
+        if not rel <= T2I_ATTN_REL_TOL < fault:
+            errors.append(f"(b) S{S}: sound {rel:.3e} over {T2I_ATTN_REL_TOL} "
+                          f"or the planted fault {fault:.3e} under it")
+        worst = max(worst, err)
+        shapes[f"B{B} S{S} H{H} hd{hd} (video-dit mode {mode})"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=t["sdpa"]["ms"],
+            bound_ms=bound, bound_by=by, max_abs_err=err, rel_err=rel)
+        del q, k, v, qt, kt, vt
+        free_card()
+    return shapes, worst
+
+
+def video_cross_ms(params, cfg, mode: int, masks: tuple,
+                   gen: torch.Generator) -> float:
+    """Phase 19 (e): one layer's text cross-attention (dense, float32
+    scores over the 256 text keys) at ``mode``'s length, both CFG rows,
+    timed alone (CUDA graph of 2 calls)."""
+    N = dit_mod.tokens_for_mode(cfg, mode)
+    xa = randn(gen, (2, N, cfg.d_model), torch.bfloat16)
+    kv = randn(gen, (2, cfg.dit.text_len, cfg.d_model), torch.bfloat16)
+    mask2 = torch.cat(masks)
+    layer = tree_map(lambda a: a[0], params["blocks"]["xattn"])
+    return graph_ms(lambda: dit_mod._cross_mha(layer, xa, kv,
+                                               cfg.attn.num_heads,
+                                               kv_mask=mask2),
+                    calls=2, replays=2)
+
+
+def video_nfe_s(params, cfg, mode: int, inputs: tuple,
+                gen: torch.Generator) -> tuple:
+    """Phase 19 (e): one guided NFE at a weak ``mode`` (both CFG rows in
+    one forward, as the sampler runs it) captured alone; (seconds of a
+    replay between CUDA events, seconds of its first call, pool bytes)."""
+    from repro_torch.core.guidance import GuidanceConfig, make_eps_fn
+    g = GuidanceConfig(scale=1.5, mode_cond=mode, mode_uncond=mode)
+
+    def nfe(p, x, t, cond, null, tm, ntm):
+        return make_eps_fn(p, cfg, cond, null, g, tm, ntm,
+                           attn_backend="pallas")(x, t)[0]
+
+    runner = graphs.capture(nfe)
+    x = randn(gen, (1,) + tuple(cfg.dit.latent_shape))
+    t = torch.full((1,), 500.0, device=DEV)
+    args = (params, x, t) + inputs
+    _, first_ms = cuda_ms(lambda: runner(*args))
+    pool = graphs.stats([runner])["graph_pool_bytes"]
+    _, ms = cuda_ms(lambda: runner(*args))
+    return ms / 1e3, first_ms / 1e3, pool
+
+
+def video_references(ref_pipe, plans: dict, x_T: dict, x0: dict, kw: dict,
+                     smi: str) -> dict:
+    """Phase 19 (c): each plan on the blocked backend and with the planted
+    fault, eagerly (``graphs.disabled()``: no pool beside them); by plan,
+    (||x0 - ref|| / ||ref||, the same for the fault)."""
+    readings = {}
+    with graphs.disabled():
+        for name, plan in plans.items():
+            t1 = time.perf_counter()
+            ref = ref_pipe.sample(dataclasses.replace(
+                plan, attn_backend="xla-blocked"), 1, None, x_T=x_T[name],
+                **kw).x0
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t1
+            sound = ops.kernel_kwargs
+            ops.kernel_kwargs = _stop_tile_walk_halfway(sound)
+            try:
+                faulty = ref_pipe.sample(plan, 1, None, x_T=x_T[name], **kw).x0
+            finally:
+                ops.kernel_kwargs = sound
+            readings[name] = (rel_err(x0[name], ref), rel_err(faulty, ref))
+            log(f"[video] (c) {name}: ||x0 - blocked|| / ||blocked|| "
+                f"{readings[name][0]:.3e}, planted fault (tile walk stops "
+                f"halfway) {readings[name][1]:.3e} (tol {VIDEO_X0_TOL}); the "
+                f"blocked reference in {ref_s:.1f}s ({smi})")
+    return readings
+
+
+def phase_video(smi: str, beside: tuple = ()) -> dict:
+    """Phase 19 (see the module docstring). ``beside``: ``ServeCli``
+    arguments of other phases' command lines, started with the blocked
+    references and checked after them."""
+    from repro_torch.core.flexify import merge_lora
+    from repro_torch.core.scheduler import dit_nfe_flops
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(VIDEO_SEED)
+    errors = []
+    # (b), (f): the kernel first, while the card is empty
+    shapes, worst = video_kernel(gen, smi, errors)
+    # (a) the weights, the text and its masks, the priors
+    t1 = time.perf_counter()
+    params, cfg = trained_like_t2i(gen, "video-dit")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+    del params
+    text = randn(gen, (1, cfg.dit.text_len, cfg.dit.text_dim))
+    tmask = torch.zeros((1, cfg.dit.text_len), dtype=torch.bool, device=DEV)
+    tmask[:, :VIDEO_TEXT_KEEP] = True
+    null_mask = torch.zeros_like(tmask)
+    null_mask[:, 0] = True
+    kw = dict(cond=text, text_mask=tmask, null_text_mask=null_mask)
+    plans = {name: SamplingPlan(**pk, attn_backend="pallas")
+             for name, pk, _, _ in VIDEO_PLANS}
+    x_T = {name: randn(gen, (1,) + tuple(cfg.dit.latent_shape))
+           for name in plans}
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    log(f"[video] (a) {cfg.name}: {L} layers, d={cfg.d_model}, heads="
+        f"{cfg.attn.num_heads}x{cfg.attn.head_dim}, d_ff {cfg.d_ff}, latent "
+        f"{cfg.dit.latent_shape} at patches {dit_mod.patch_sizes(cfg)} = "
+        f"{[dit_mod.tokens_for_mode(cfg, m) for m in range(3)]} tokens, text "
+        f"{cfg.dit.text_len}x{cfg.dit.text_dim} (mask keeps "
+        f"{VIDEO_TEXT_KEEP}), LoRA rank {cfg.dit.lora_rank}, "
+        f"{cfg.param_dtype}: {n_params:,} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB) in {time.perf_counter() - t1:.1f}s "
+        f"({smi})")
+    # (c), (d): each plan twice, the two alternating
+    runs = {name: [] for name in plans}
+    pools = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for rnd in range(2):
+        for name, plan in plans.items():
+            before = pipe.cache_stats()
+            n0 = ops.flash_attention.launches
+            w0 = ops.flash_attention.launches_by_variant["wgmma"]
+            t1 = time.perf_counter()
+            res = pipe.sample(plan, 1, None, x_T=x_T[name], **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            after = pipe.cache_stats()
+            n = ops.flash_attention.launches - n0
+            w = ops.flash_attention.launches_by_variant["wgmma"] - w0
+            fwd = forward_calls(plan, cfg)
+            if not n == w == L * fwd:
+                errors.append(f"(c) {name}: flash launches {n} ({w} wgmma), "
+                              f"expected {L} x {fwd} forwards, all wgmma")
+            if rnd == 0:
+                pools[name] = after["graph_pool_bytes"] - before["graph_pool_bytes"]
+            elif (after["compiled"], after["captured"]) != \
+                    (before["compiled"], before["captured"]):
+                errors.append(f"(d) {name}: the second call built or captured: "
+                              f"{before} -> {after}")
+            runs[name].append(dict(x0=res.x0, wall=wall, flops=res.flops,
+                                   rel=res.relative_compute))
+    launches = ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    stats = pipe.cache_stats()
+    if (stats["compiled"], stats["captured"]) != (len(plans), len(plans)):
+        errors.append(f"(d) runners {stats}: one built and captured a plan")
+    shape = (1,) + tuple(cfg.dit.latent_shape)
+    for name, pk, phases, rel in VIDEO_PLANS:
+        plan = plans[name]
+        first, again = runs[name]
+        got_phases = plan.resolve_schedule(cfg).phases
+        ledger = first["flops"] / dataclasses.replace(plan, budget=1.0).flops(cfg)
+        if tuple(first["x0"].shape) != shape or \
+                not torch.isfinite(first["x0"]).all():
+            errors.append(f"(c) {name}: x0 not finite or not {shape}")
+        if not torch.equal(again["x0"], first["x0"]):
+            errors.append(f"(d) {name}: the replayed runner's x0 differs "
+                          f"from its first call's")
+        if got_phases != phases or round(first["rel"], 3) != rel or \
+                abs(ledger - first["rel"]) > 1e-12:
+            errors.append(f"(e) {name}: phases {got_phases}, relative "
+                          f"compute {first['rel']} (ledger {ledger}), expected "
+                          f"{phases} and {rel}")
+        log(f"[video] (c) {name} plan {pk} (phases {got_phases}, relative "
+            f"compute {first['rel']:.4f}, host ledger {ledger:.4f}): first "
+            f"call (eager, then captured) {first['wall']:.2f}s, replay "
+            f"{again['wall']:.2f}s a sample (x0 bit for bit: "
+            f"{torch.equal(again['x0'], first['x0'])}); flash launches "
+            f"{L} x {forward_calls(plan, cfg)} a call; pool "
+            f"{pools[name] / 1e9:.2f} GB; max|x0| "
+            f"{first['x0'].float().abs().max().item():.3f} ({smi})")
+    log(f"[video] (d) runners {stats}; flash launches {launches}, by variant "
+        f"{dict(ops.flash_attention.launches_by_variant)}; peak memory "
+        f"{peak / 1e9:.2f} GB allocated, {peak_reserved / 1e9:.2f} GB "
+        f"reserved ({smi})")
+    x0 = {name: r[0]["x0"] for name, r in runs.items()}
+    replay_s = {name: r[1]["wall"] for name, r in runs.items()}
+    del runs, res
+    # (e) a replayed NFE at each weak mode, captured alone (the plans'
+    # pools go first); the mode-0 NFE from each plan's replay less its
+    # weak NFEs (a mode-0 NFE alone would cost an eager call and a replay,
+    # ~9 s, which the script's time limit cannot spare)
+    params = pipe.params
+    del pipe
+    free_card()
+    inputs = (text, torch.zeros_like(text), tmask, null_mask)
+    nfe_s, cross = {}, {}
+    for mode in (1, 2):
+        p = merge_lora(params, cfg, mode)
+        nfe_s[mode], first_s, pool = video_nfe_s(p, cfg, mode, inputs, gen)
+        log(f"[video] (e) NFE at mode {mode} "
+            f"({dit_mod.tokens_for_mode(cfg, mode)} tokens, 2 rows), captured "
+            f"alone: replayed {nfe_s[mode]:.3f} s (its first call, eager and "
+            f"captured, {first_s:.3f} s), pool {pool / 1e9:.2f} GB ({smi})")
+        del p
+        free_card()
+    from_plans = {}
+    for name, _, phases, _ in VIDEO_PLANS:
+        n0 = dict(phases)[0]
+        weak = sum(n * nfe_s[m] for m, n in phases if m)
+        from_plans[name] = (replay_s[name] - weak) / n0
+    nfe_s[0] = statistics.mean(from_plans.values())
+    log(f"[video] (e) NFE at mode 0 ({dit_mod.tokens_for_mode(cfg, 0)} tokens, "
+        f"2 rows): each plan's replay less its weak NFEs, " + ", ".join(
+            f"{n} {v:.3f} s" for n, v in from_plans.items())
+        + f"; mean {nfe_s[0]:.3f} s ({smi})")
+    for mode in range(3):
+        cross[mode] = video_cross_ms(params, cfg, mode, (tmask, null_mask), gen)
+        flop = 2 * dit_nfe_flops(cfg, mode)
+        log(f"[video] (e) mode {mode}: {flop / nfe_s[mode] / 1e12:.1f} TFLOP/s "
+            f"against 2 x dit_nfe_flops = {flop / 1e12:.1f} TFLOP a replayed "
+            f"NFE of {nfe_s[mode]:.3f} s; cross-attention {cross[mode]:.3f} ms "
+            f"a layer, {cross[mode] * L / (nfe_s[mode] * 1e3):.1%} of the NFE "
+            f"({smi})")
+    free_card()
+    # (c) the references: the same plans on the blocked backend, and the
+    # planted fault, eagerly (graphs.disabled(): no pool beside them)
+    ref_pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+    del params
+    clis = [ServeCli(*args) for args in beside]
+    with contextlib.ExitStack() as stack:
+        for cli in clis:
+            stack.callback(cli.stop)
+        readings = video_references(ref_pipe, plans, x_T, x0, kw,
+                                    smi + (", beside the command lines"
+                                           if clis else ""))
+        for cli in clis:
+            cli.check(smi)
+    del ref_pipe
+    free_card()
+    bad = {n: r for n, r in readings.items()
+           if not r[0] <= VIDEO_X0_TOL < r[1]}
+    if bad:
+        errors.append(f"(c) x0: sound reading over {VIDEO_X0_TOL} or the "
+                      f"planted fault under it: {bad}")
+    secs = time.perf_counter() - t0
+    log(f"[video] phase 19 in {secs:.1f}s ({smi})")
+    if errors:
+        raise AssertionError("phase 19: " + "; ".join(errors))
+    return {"launches": launches, "shapes": shapes, "max_abs_err": worst,
+            "seconds": secs, "nfe_s": nfe_s}
 
 
 def free_card() -> None:
@@ -5712,6 +6149,14 @@ def main() -> None:
         print(json.dumps({"only": "fleet-groups", "ok": True, **got}),
               flush=True)
         return
+    if sys.argv[1:] == ["--only", "video"]:       # phase 19 alone
+        phase_build()
+        got = phase_video(smi)
+        print(smi)
+        print(json.dumps({"only": "video", "ok": True, "seconds": got["seconds"],
+                          "launches": got["launches"], "nfe_s": got["nfe_s"],
+                          "shapes": got["shapes"]}), flush=True)
+        return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()
         got = phase_plan(smi)
@@ -5764,11 +6209,16 @@ def main() -> None:
     free_card()
     graphs_run = phase_graphs(smi)
     free_card()
-    fleet_groups = phase_fleet_groups(smi)
-    log(f"[walls] phases 11 / 12 / 13 / 17 / 18: {lm['seconds']:.1f} / "
-        f"{families['seconds']:.1f} / {lm_train['seconds']:.1f} / "
-        f"{graphs_run['seconds']:.1f} / {fleet_groups['seconds']:.1f} s "
-        f"({smi})")
+    fleet_groups = phase_fleet_groups(smi, cli=False)
+    free_card()
+    # phases 14's and 18's command lines run beside phase 19's references
+    video = phase_video(smi, beside=(SP_SERVE_CLI, FG_SERVE_CLI))
+    times["shapes"].update(video["shapes"])
+    log(f"[walls] phases 11 / 12 / 13 / 14 / 15 / 17 / 18 / 19: "
+        f"{lm['seconds']:.1f} / {families['seconds']:.1f} / "
+        f"{lm_train['seconds']:.1f} / {seq_parallel['seconds']:.1f} / "
+        f"{sharded['seconds']:.1f} / {graphs_run['seconds']:.1f} / "
+        f"{fleet_groups['seconds']:.1f} / {video['seconds']:.1f} s ({smi})")
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
@@ -5777,13 +6227,14 @@ def main() -> None:
              "lm_train_then_serve": lm_train["launches"],
              "seq_parallel": seq_parallel["launches"],
              "sharded_train_then_serve": sharded["launches"],
-             "plan": plan["launches"], "fleet_groups": fleet_groups["launches"]}
+             "plan": plan["launches"], "fleet_groups": fleet_groups["launches"],
+             "video": video["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/flash_attention.py:46",
         "launches": sum(paths.values()), "launches_by_path": paths,
-        "max_abs_err": max(worst, serving["max_abs_err"]),
+        "max_abs_err": max(worst, serving["max_abs_err"], video["max_abs_err"]),
         "ms": times["ms"], "prev_ms": times["prev_ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": times["library_ms"], "shapes": times["shapes"]}]

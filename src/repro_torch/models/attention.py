@@ -129,24 +129,26 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
-def _scores(s: torch.Tensor, bias: torch.Tensor, hd: int,
+def _scores(s: torch.Tensor, bias: Optional[torch.Tensor], hd: int,
             cfg: AttnConfig) -> torch.Tensor:
-    """Scores scaled by 1/sqrt(hd), soft-capped and biased: in place,
-    unless autograd records them (tanh's backward keeps its output)."""
+    """Scores scaled by 1/sqrt(hd), soft-capped and biased (``None``: no
+    mask): in place, unless autograd records them (tanh's backward keeps
+    its output)."""
     if torch.is_grad_enabled() and s.requires_grad:
         s = s / math.sqrt(hd)
         if cfg.logit_softcap > 0.0:
             s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
-        return s + bias
+        return s if bias is None else s + bias
     s.div_(math.sqrt(hd))
     if cfg.logit_softcap > 0.0:
         s.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
-    return s.add_(bias)
+    return s if bias is None else s.add_(bias)
 
 
 def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               bias: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
-    """q: [B,Sq,H,hd]; k,v: [B,Sk,K,hd]; bias: [B,Sq,Sk] additive (f32).
+               bias: Optional[torch.Tensor], cfg: AttnConfig) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k,v: [B,Sk,K,hd]; bias: [B,Sq,Sk] additive (f32), or
+    None where every query sees every key.
 
     Query head h reads kv head h // (H / K). Per batch row: one batched
     product over the K kv heads ([G Sq, hd] x [hd, Sk], k read in its own
@@ -160,7 +162,8 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for b in range(B):
         qb = q[b].reshape(Sq, K, G, hd).permute(1, 2, 0, 3).reshape(K, G * Sq, hd)
         s = bmm_f32(qb, k[b].permute(1, 2, 0)).view(K, G, Sq, Sk)
-        p = torch.softmax(_scores(s, bias[b], hd, cfg), dim=-1).to(v.dtype)
+        p = torch.softmax(_scores(s, None if bias is None else bias[b], hd,
+                                  cfg), dim=-1).to(v.dtype)
         del s
         o = bmm_f32(p.view(K, G * Sq, Sk), v[b].permute(1, 0, 2))
         out.append(o.view(K, G, Sq, hd).permute(2, 0, 1, 3).reshape(Sq, H, hd)
@@ -169,7 +172,8 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       positions: torch.Tensor, causal: bool, window: int,
+                       positions: Optional[torch.Tensor], causal: bool,
+                       window: int,
                        cfg: AttnConfig, q_block: int = 1024,
                        segment_ids: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -180,8 +184,19 @@ def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Causal with a window shorter than S: each block visits only keys in
     [start, start + q_block + window), clipped into the sequence.
     ``segment_ids``: optional [B, S] shared by queries and keys; padded
-    query rows carry position -1 and see no key."""
+    query rows carry position -1 and see no key. ``positions`` None: every
+    row is a real token at 0..S-1 (the DiT's)."""
     B, S, H, hd = q.shape
+    window = int(window)
+    # every row real, non-causal, unwindowed and unsegmented: the mask
+    # would add 0.0 to each real query's scores (a padded query row, sliced
+    # off below, sees no key either way), so the scores go unbiased, one
+    # pass fewer over each float32 score block
+    unmasked = (positions is None and not causal and window <= 0
+                and segment_ids is None)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=q.device).expand(B, S)
     nq = -(-S // q_block)
     pad = nq * q_block - S
     if pad:
@@ -190,12 +205,14 @@ def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     seg_q = segment_ids
     if segment_ids is not None and pad:
         seg_q = torch.cat([segment_ids, segment_ids.new_full((B, pad), -1)], dim=1)
-    window = int(window)
     sliced = window > 0 and causal and window < S
     k_span = min(q_block + window, S) if sliced else S
     out = []
     for i in range(nq):
         q_i = q[:, i * q_block:(i + 1) * q_block]
+        if unmasked:
+            out.append(gqa_attend(q_i, k, v, None, cfg))
+            continue
         dq = positions[:, i * q_block:(i + 1) * q_block, None]
         start = min(max(i * q_block - window, 0), S - k_span) if sliced else 0
         k_s, v_s = k[:, start:start + k_span], v[:, start:start + k_span]

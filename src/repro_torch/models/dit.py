@@ -232,8 +232,8 @@ def _mha(p: Params, x: torch.Tensor, num_heads: int, *,
         # mask; segment ids thread through, so no [B,H,N,N] score tensor
         acfg = AttnConfig(num_heads=num_heads, num_kv_heads=num_heads,
                           head_dim=hd, use_rope=False)
-        pos = torch.arange(N, dtype=torch.int32, device=x.device).expand(B, N)
-        o = attn_mod.blocked_gqa_attend(q, k, v, positions=pos, causal=False,
+        # positions None: every token is real, at 0..N-1
+        o = attn_mod.blocked_gqa_attend(q, k, v, positions=None, causal=False,
                                         window=0, cfg=acfg,
                                         segment_ids=segment_ids)
     else:
