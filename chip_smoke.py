@@ -360,6 +360,35 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    run phases 14's and 18's ``--mesh`` command lines run beside the
    blocked references. ``python3 chip_smoke.py --only video`` runs phases
    1 and 19 alone.
+20. the examples (``examples/torch_quickstart.py``,
+   ``torch_flexify_lora_t2i.py``, ``torch_cached_sampling.py``) and two
+   paths of theirs at DiT-XL/2 width: (a) each example's ``main`` in this
+   process at its own width (d 96, 64 tokens: the attention runs dense
+   and no kernel launches), at the reference's defaults (400 steps and
+   T 20; 200 + 150 steps; T 20), in the full run too: the LoRA example's
+   mode 0 equal to the
+   pre-trained forward (0.0, float32), the cached example's interval 1
+   drifting by 0.0, its sweep building 2 runners and capturing no graph
+   after interval 2 (the first run with both refresh branches), every
+   printed number finite, each example's wall; (b) the default
+   ``CacheSpec()`` ("proxy") on phase 3's pipeline (its weights; B=4 with
+   labels and x_T from a seed, CFG 1.5, ``weak_first(20, 10)`` on the
+   flash kernel: at T = 10 the default policy refreshes every step),
+   captured against ``graphs.disabled()`` bit for bit, the refreshes and
+   FLOPs equal to ``cache_savings``'s exactly, flash launches equal to
+   28 a refresh forward and ``resolve_split(28)`` = 7 a skip, all
+   ``wgmma``, a switch to interval 2 on the captured pipeline building and
+   capturing nothing, x0 against the uncached plan (rel-MSE, above 0);
+   (c) the LoRA recipe (rank 8, phase 9's ``flexify``) on the same
+   weights, its zero ``b`` leaves drawn at EX_LORA_B_SCALE, sampled
+   unmerged and merged (B=4, CFG 1.5, ``weak_first(10, 5)``, flash): the
+   unmerged run captured against ``graphs.disabled()`` bit for bit, x0
+   unmerged against merged (||x0 - merged|| / ||merged||) under
+   EX_LORA_TOL, where the adapters zeroed (a planted fault) must read
+   over it, the unmerged FLOPs equal to the merged plus the weak NFEs x
+   ``lora_nfe_overhead`` exactly, 28 ``wgmma`` launches a forward, and ms
+   a sample both ways (CUDA events, replayed, interleaved).
+   ``python3 chip_smoke.py --only examples`` runs phases 1 and 20 alone.
 
 Each path resets its kernels' launch counts just before it runs and
 fails unless they equal the calls it made.
@@ -5187,7 +5216,7 @@ def sample_pair(pipe, plan, n, gen_seed, label, **kw) -> dict:
                 xs.append((res.x0, time.perf_counter() - t0))
                 launches.append(dict(ops.flash_attention.launches_by_variant))
         out[side] = dict(x0=xs, launches=launches, stats=gp.cache_stats(),
-                         pipe=gp)
+                         pipe=gp, result=res)
     cap, eag = out["captured"], out["eager"]
     ref = eag["x0"][0][0]
     ok = all(torch.equal(x, ref) for x, _ in cap["x0"])
@@ -6084,6 +6113,311 @@ def phase_video(smi: str, beside: tuple = ()) -> dict:
             "seconds": secs, "nfe_s": nfe_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the examples
+
+
+EXAMPLES = ROOT / "examples"
+EX_SEED = SEED + 20
+# (a) the port's three examples, each main([]) in this process at the
+# reference's defaults, in the full run too: on an H100 80GB HBM3 (700 W)
+# the three took 6.6 s together (PERF.md §6 PR 32)
+# (b) the default CacheSpec() (policy "proxy", threshold 0.05) on DiT-XL/2.
+# At T = 10 the ladder's gaps of 111 steps drift past the threshold at
+# every step, so the default policy refreshes every step there and
+# skips nothing; at T = 20 (gaps of 52-53) it refreshes every other step
+EX_CACHE_T, EX_CACHE_WEAK = 20, 10
+# (c) unmerged LoRA on DiT-XL/2: rank 8 adapters, flexify's zero b leaves
+# drawn at EX_LORA_B_SCALE (the delta a.b.(2/r) then ~7 % of a weight's
+# scale, a few % being what a fine-tune leaves). Unmerged vs merged x0 as
+# ||x0 - merged|| / ||merged||: merging rounds W + s.a.b once in bf16,
+# unmerged rounds each product, and DDIM amplifies each rounding (as
+# phase 7's). The planted fault, unmerged with the adapters zeroed, must
+# read over the limit. On an H100 80GB HBM3 (700 W) the sound run reads
+# 3.48e-3 and the fault 8.89e-3 (PERF.md §6 PR 32): the limit sits
+# between, ~1.6x from each; the readings are deterministic
+EX_LORA_T, EX_LORA_WEAK, EX_LORA_RANK = 10, 5, 8
+EX_LORA_B_SCALE = 0.1
+EX_LORA_TOL = 5.5e-3
+EX_TIME_ROUNDS = 3
+
+
+def ex_run(name: str, argv: list) -> tuple:
+    """An example's ``main(argv)`` in this process: its result and its
+    wall, its printed lines logged under the example's name."""
+    import io
+    import runpy
+    mod = runpy.run_path(str(EXAMPLES / name))
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod["main"](argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[examples] {name}: {line}")
+    return res, wall
+
+
+def all_finite(*xs) -> bool:
+    return all(np.isfinite(np.asarray(x, np.float64)).all() for x in xs)
+
+
+def ex_scripts(errors: list) -> dict:
+    """(a) the three examples at the examples' own width (d 96, 64
+    tokens): the attention runs dense there, so no kernel launches."""
+    walls = {}
+    ops.reset_launches()
+    q, walls["quickstart"] = ex_run("torch_quickstart.py", [])
+    rows = q["rows"]
+    if not all_finite(q["losses"], [[r["relative_compute"], r["flops"], r["fid"]]
+                                    for r in rows], *[r["x0"] for r in rows]):
+        errors.append("quickstart: a printed number or x0 is not finite")
+    lo, walls["lora"] = ex_run("torch_flexify_lora_t2i.py", [])
+    if lo["mode0_delta"] != 0.0:
+        errors.append(f"LoRA example: mode 0 differs from the pre-trained "
+                      f"forward by {lo['mode0_delta']}")
+    if not all_finite(lo["losses"], [lo["forward_delta"], lo["overhead_pct"],
+                                     lo["sample_delta"], lo["unmerged"]["flops"],
+                                     lo["merged"]["flops"]],
+                      lo["unmerged"]["x0"], lo["merged"]["x0"]):
+        errors.append("LoRA example: a printed number or x0 is not finite")
+    c, walls["cached"] = ex_run("torch_cached_sampling.py", [])
+    rows = c["rows"]
+    caps = [r["stats"]["captured"] for r in rows]
+    log(f"[examples] cached sweep: graphs captured after each run {caps} (the "
+        f"uncached runner, then interval 1's refresh branches, then interval "
+        f"2's skip branches; nothing after); runners {c['stats']['compiled']}")
+    if rows[1]["drift"] != 0.0:
+        errors.append(f"cached example: interval 1 drifts by {rows[1]['drift']}")
+    if c["stats"]["compiled"] != 2 or len(set(caps[2:])) != 1:
+        errors.append(f"cached example: the policy sweep built runners or "
+                      f"captured graphs: {c['stats']}, captured {caps}")
+    if not all_finite([[r["rel_flops"], r["refresh_rate"], r["drift"], r["flops"]]
+                       for r in rows], *[r["x0"] for r in rows]):
+        errors.append("cached example: a printed number or x0 is not finite")
+    if ops.flash_attention.launches:
+        errors.append(f"the examples launched flash "
+                      f"{ops.flash_attention.launches} times at d 96")
+    log(f"[examples] (a) walls at the reference's defaults: quickstart "
+        f"{walls['quickstart']:.2f} s, LoRA {walls['lora']:.2f} s, cached "
+        f"{walls['cached']:.2f} s; no flash launch")
+    return walls
+
+
+def ex_inputs(cfg) -> dict:
+    labels = torch.tensor(np.random.default_rng(EX_SEED).integers(
+        0, cfg.dit.num_classes, BATCH).tolist(), device=DEV)
+    x_T = randn(torch.Generator(device=DEV).manual_seed(EX_SEED),
+                (BATCH,) + tuple(cfg.dit.latent_shape))
+    return dict(cond=labels, x_T=x_T)
+
+
+def pair_launches(pair: dict) -> dict:
+    """Flash launches by variant over every call ``sample_pair`` made."""
+    got = collections.Counter()
+    for side in ("captured", "eager"):
+        for by in pair[side]["launches"]:
+            got.update(by)
+    return dict(got)
+
+
+def counted(fn):
+    """``fn()`` with the flash launches it made, by variant."""
+    ops.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {k: v for k, v in ops.flash_attention.launches_by_variant.items()
+                 if v}
+
+
+def ex_proxy_cache(pipe, errors: list) -> dict:
+    """(b) the default CacheSpec() ("proxy") at DiT-XL/2 width on the flash
+    kernel: captured vs graphs.disabled(), refreshes and FLOPs against the
+    ledger, launches against the refresh mask, a policy switch on the
+    captured pipeline, x0 against the uncached plan."""
+    from repro_torch.cache import cache_savings
+    from repro_torch.core.scheduler import FlexiSchedule
+    from repro_torch.diffusion.schedule import respaced_timesteps
+    cfg, L = pipe.cfg, pipe.cfg.num_layers
+    spec = CacheSpec()
+    split = spec.resolve_split(L)
+    budget = FlexiSchedule.weak_first(EX_CACHE_T, EX_CACHE_WEAK)
+    plan = SamplingPlan(T=EX_CACHE_T, budget=budget, guidance_scale=1.5,
+                        attn_backend="pallas", cache=spec)
+    kw = ex_inputs(cfg)
+    pair = sample_pair(pipe, plan, BATCH, EX_SEED, "proxy cache (CacheSpec())",
+                       **kw)
+    errors += pair.pop("errors")
+    launches = collections.Counter(pair_launches(pair))
+    res = pair["captured"]["result"]
+    ts = respaced_timesteps(pipe.sched.num_steps, EX_CACHE_T)
+    led = cache_savings(cfg, budget, ts, spec)
+    masks = res.trace["refresh_masks"]
+    n_refresh = int(sum(int(m.sum()) for m in masks))
+    want = sum(L if rf else split for m in masks for rf in m)
+    per_call = [sum(by.values()) for side in ("captured", "eager")
+                for by in pair[side]["launches"]]
+    log(f"[examples] (b) proxy masks {[m.astype(int).tolist() for m in masks]}: "
+        f"{n_refresh} refreshes of {sum(len(m) for m in masks)} steps, ledger "
+        f"{led['n_refresh']:.0f}; FLOPs {res.flops:.6e} vs {BATCH} x ledger "
+        f"{BATCH * led['flops']:.6e} (saved {led['flops_saved_frac']:.4f}); "
+        f"flash launches a call {per_call} vs predicted {want} ({L} a refresh "
+        f"forward, {split} shallow blocks a skip), by variant "
+        f"{pair['captured']['launches'][-1]}")
+    if n_refresh != led["n_refresh"] or res.flops != BATCH * led["flops"]:
+        errors.append("proxy cache: refreshes or FLOPs differ from cache_savings")
+    if n_refresh == sum(len(m) for m in masks):
+        errors.append("proxy cache: the default policy skipped no step")
+    if any(n != want for n in per_call) or launches["wgmma"] != sum(per_call):
+        errors.append(f"proxy cache: flash launches {per_call} (by variant "
+                      f"{dict(launches)}) != {want} a call, all wgmma")
+    gp = pair["captured"]["pipe"]
+    before = gp.cache_stats()
+    switched = dataclasses.replace(plan, cache=CacheSpec(policy="interval",
+                                                         interval=2))
+    _, by = counted(lambda: gp.sample(switched, BATCH, None, **kw))
+    launches.update(by)
+    after = gp.cache_stats()
+    log(f"[examples] (b) proxy -> interval 2 on the captured pipeline: "
+        f"runners {before['compiled']} -> {after['compiled']}, graphs "
+        f"{before['captured']} -> {after['captured']}")
+    if (after["compiled"], after["captured"]) != (before["compiled"],
+                                                   before["captured"]):
+        errors.append("proxy cache: the policy switch built or captured")
+    ref, by = counted(lambda: gp.sample(dataclasses.replace(plan, cache=None),
+                                        BATCH, None, **kw).x0)
+    launches.update(by)
+    drift = rel_err(res.x0, ref) ** 2          # the examples' x0 rel-MSE
+    log(f"[examples] (b) x0 rel-MSE against the uncached plan: {drift:.4e} "
+        f"(must be > 0: a cache that never skipped reads 0)")
+    if not drift > 0.0 or not torch.isfinite(res.x0).all():
+        errors.append(f"proxy cache: x0 rel-MSE {drift} against uncached")
+    return {"launches": dict(launches), "drift": drift,
+            "n_refresh": n_refresh, "flops_saved_frac": led["flops_saved_frac"]}
+
+
+def ex_unmerged_lora(pipe, smi: str, errors: list) -> dict:
+    """(c) unmerged-LoRA sampling at DiT-XL/2 width on the flash kernel,
+    against merged: captured vs graphs.disabled(), x0, the FLOPs pricing,
+    launches, a planted fault, ms a sample both ways."""
+    from repro_torch.core import flexify
+    from repro_torch.core.scheduler import FlexiSchedule, lora_nfe_overhead
+    gen = torch.Generator(device=DEV).manual_seed(EX_SEED + 1)
+    lparams, lcfg = flexify(pipe.params, pipe.cfg, [(1, 4, 4)],
+                            lora_rank=EX_LORA_RANK, generator=gen)
+    pairs = [p for grp in lparams["blocks"]["lora"].values() for p in grp.values()]
+    filled = all(not p["b"].any() for p in pairs)
+    if filled:
+        for p in pairs:
+            p["b"] = randn(gen, p["b"].shape, p["b"].dtype) * EX_LORA_B_SCALE
+    L = lcfg.num_layers
+    budget = FlexiSchedule.weak_first(EX_LORA_T, EX_LORA_WEAK)
+    plans = {v: SamplingPlan(T=EX_LORA_T, budget=budget, guidance_scale=1.5,
+                             attn_backend="pallas", lora=v)
+             for v in ("unmerged", "merged")}
+    kw = ex_inputs(lcfg)
+    lpipe = FlexiPipeline(lparams, lcfg, pipe.sched, device=DEV)
+    pair = sample_pair(lpipe, plans["unmerged"], BATCH, EX_SEED + 2,
+                       "unmerged LoRA", **kw)
+    errors += pair.pop("errors")
+    launches = collections.Counter(pair_launches(pair))
+    gp = pair["captured"]["pipe"]
+    r_un = pair["captured"]["result"]
+    r_me, by = counted(lambda: gp.sample(plans["merged"], BATCH, None, **kw))
+    launches.update(by)
+    calls = forward_calls(plans["unmerged"], lcfg)
+    per_call = [sum(b.values()) for side in ("captured", "eager")
+                for b in pair[side]["launches"]] + [sum(by.values())]
+    if any(n != L * calls for n in per_call) or \
+            launches["wgmma"] != sum(launches.values()):
+        errors.append(f"unmerged LoRA: flash launches {per_call} (by variant "
+                      f"{dict(launches)}) != {L} x {calls} a call, all wgmma")
+    extra = 2 * EX_LORA_WEAK * BATCH * lora_nfe_overhead(lcfg, 1)
+    rel = rel_err(r_un.x0, r_me.x0)
+    # the planted fault: the adapters zeroed, eager on a fresh pipeline
+    zeroed = dict(lparams, blocks=dict(lparams["blocks"], lora=tree_map(
+        torch.zeros_like, lparams["blocks"]["lora"])))
+    fpipe = FlexiPipeline(zeroed, lcfg, pipe.sched, device=DEV)
+    with graphs.disabled():
+        x_f, by = counted(lambda: fpipe.sample(plans["unmerged"], BATCH, None,
+                                               **kw).x0)
+    launches.update(by)
+    rel_f = rel_err(x_f, r_me.x0)
+    del fpipe, zeroed
+    log(f"[examples] (c) LoRA rank {EX_LORA_RANK}, b leaves "
+        f"{'drawn at ' + str(EX_LORA_B_SCALE) if filled else 'as flexify left them'}"
+        f"; weak_first({EX_LORA_T}, {EX_LORA_WEAK}), B={BATCH}, CFG 1.5: "
+        f"unmerged vs merged ||x0 - merged|| / ||merged|| {rel:.4e} (tol "
+        f"{EX_LORA_TOL}); planted fault (adapters zeroed) {rel_f:.4e}; FLOPs "
+        f"unmerged {r_un.flops:.6e} = merged {r_me.flops:.6e} + "
+        f"{2 * EX_LORA_WEAK * BATCH} weak NFEs x {lora_nfe_overhead(lcfg, 1):.6e}"
+        f": {r_un.flops == r_me.flops + extra}; flash launches a call "
+        f"{per_call} ({L} x {calls})")
+    if not rel <= EX_LORA_TOL or not rel_f > EX_LORA_TOL:
+        errors.append(f"unmerged LoRA: x0 vs merged {rel} (tol {EX_LORA_TOL}), "
+                      f"planted fault {rel_f} (must be over it)")
+    if r_un.flops != r_me.flops + extra:
+        errors.append("unmerged LoRA: FLOPs != merged + weak NFEs x overhead")
+    if not (torch.isfinite(r_un.x0).all() and torch.isfinite(r_me.x0).all()):
+        errors.append("unmerged LoRA: x0 not finite")
+    # ms a sample, both variants replayed, in interleaved rounds
+    times = {"unmerged": [], "merged": []}
+    ops.reset_launches()
+    n_timed = 0
+    for _ in range(EX_TIME_ROUNDS):
+        for v in ("unmerged", "merged", "merged", "unmerged"):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            gp.sample(plans[v], BATCH, None, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times[v].append(start.elapsed_time(end) / BATCH)
+            n_timed += 1
+    launches.update({k: v for k, v in
+                     ops.flash_attention.launches_by_variant.items() if v})
+    if ops.flash_attention.launches != n_timed * L * calls:
+        errors.append("unmerged LoRA: timed calls' launches differ")
+    ms = {v: statistics.median(t) for v, t in times.items()}
+    log(f"[examples] (c) ms a sample (replayed, CUDA events, median of "
+        f"{2 * EX_TIME_ROUNDS} calls each, interleaved): unmerged "
+        f"{ms['unmerged']:.3f}, merged {ms['merged']:.3f} "
+        f"({ms['unmerged'] / ms['merged']:.3f}x) ({smi})")
+    return {"launches": dict(launches), "rel": rel, "fault": rel_f, "ms": ms,
+            "flops": {"unmerged": r_un.flops, "merged": r_me.flops}}
+
+
+def phase_examples(smi: str, pipe: FlexiPipeline | None = None) -> dict:
+    """Phase 20: the port's examples on the card, the default proxy cache
+    policy and unmerged-LoRA sampling at DiT-XL/2 width; see the module
+    docstring."""
+    t0 = time.perf_counter()
+    if pipe is None:
+        params, cfg = trained_like_xl(torch.Generator(device=DEV).manual_seed(SEED))
+        pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+        del params
+    errors = []
+    walls = ex_scripts(errors)
+    free_card()
+    proxy = ex_proxy_cache(pipe, errors)
+    free_card()
+    lora = ex_unmerged_lora(pipe, smi, errors)
+    free_card()
+    launches = collections.Counter(proxy["launches"])
+    launches.update(lora["launches"])
+    secs = time.perf_counter() - t0
+    log(f"[examples] phase 20 in {secs:.1f}s: flash launches {dict(launches)} "
+        f"((b) {sum(proxy['launches'].values())}, (c) "
+        f"{sum(lora['launches'].values())}) ({smi})")
+    if errors:
+        raise AssertionError("phase 20: " + "; ".join(errors))
+    return {"seconds": secs, "launches": sum(launches.values()),
+            "walls": walls, "drift": proxy["drift"],
+            "lora_rel": lora["rel"], "lora_fault": lora["fault"],
+            "lora_ms": lora["ms"]}
+
+
 def free_card() -> None:
     """Release what the last phase held on the card: its runners' CUDA
     graph pools go with their pipelines (a cycle among a phase's objects
@@ -6157,6 +6491,12 @@ def main() -> None:
                           "launches": got["launches"], "nfe_s": got["nfe_s"],
                           "shapes": got["shapes"]}), flush=True)
         return
+    if sys.argv[1:] == ["--only", "examples"]:    # phase 20 alone
+        phase_build()
+        got = phase_examples(smi)
+        print(smi)
+        print(json.dumps({"only": "examples", "ok": True, **got}), flush=True)
+        return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()
         got = phase_plan(smi)
@@ -6187,6 +6527,8 @@ def main() -> None:
     adaptive = phase_adaptive(pipe, smi)
     telemetry = phase_telemetry(pipe, smi)
     fleet = phase_fleet(pipe, smi)
+    free_card()
+    examples = phase_examples(smi, pipe)
     del pipe
     free_card()
     t2i = phase_t2i_flow(gen_t2i, smi)
@@ -6214,11 +6556,12 @@ def main() -> None:
     # phases 14's and 18's command lines run beside phase 19's references
     video = phase_video(smi, beside=(SP_SERVE_CLI, FG_SERVE_CLI))
     times["shapes"].update(video["shapes"])
-    log(f"[walls] phases 11 / 12 / 13 / 14 / 15 / 17 / 18 / 19: "
+    log(f"[walls] phases 11 / 12 / 13 / 14 / 15 / 17 / 18 / 19 / 20: "
         f"{lm['seconds']:.1f} / {families['seconds']:.1f} / "
         f"{lm_train['seconds']:.1f} / {seq_parallel['seconds']:.1f} / "
         f"{sharded['seconds']:.1f} / {graphs_run['seconds']:.1f} / "
-        f"{fleet_groups['seconds']:.1f} / {video['seconds']:.1f} s ({smi})")
+        f"{fleet_groups['seconds']:.1f} / {video['seconds']:.1f} / "
+        f"{examples['seconds']:.1f} s ({smi})")
     paths = {"pipeline": main_path["launches"], "engine": serving["launches"],
              "t2i_flow": t2i["launches"], "adaptive": adaptive["launches"],
              "telemetry_waves": telemetry["launches"],
@@ -6228,7 +6571,7 @@ def main() -> None:
              "seq_parallel": seq_parallel["launches"],
              "sharded_train_then_serve": sharded["launches"],
              "plan": plan["launches"], "fleet_groups": fleet_groups["launches"],
-             "video": video["launches"]}
+             "video": video["launches"], "examples": examples["launches"]}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
