@@ -67,11 +67,15 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    against the same plan on the dense backend, and the same check must
    fail when the kernel's kv tile walk is made to stop halfway; adaptive DDIM on DiT-XL/2 (CFG 1.5, T=10): gaps, switch step and
    relative compute recomputed from them; and the phase-7 wave served
-   untapped, tapped (``Telemetry(taps=True)``) and tapped with profiling:
-   x0 equal bit for bit, the tapped wave adds no host synchronisation
+   untapped, with spans only (``Telemetry()``), tapped
+   (``Telemetry(taps=True)``) and tapped with profiling: x0 equal bit for
+   bit, the spans-only and tapped waves add no host synchronisation
    (``torch.cuda.set_sync_debug_mode``) and profiling adds exactly one
-   per dispatch, spans cover the lifecycle, attribution conserves
-   exactly, achieved GFLOP/s per step family, nothing rebuilt;
+   per dispatch, one positive ``dispatch.device`` span a dispatch, spans
+   cover the lifecycle, attribution conserves exactly, achieved GFLOP/s
+   per step family, nothing rebuilt. ``python3 chip_smoke.py --only
+   serving`` runs phases 1 and 7 and this telemetry check alone, on
+   phase 3's weights recipe;
 9. training at full width: DiT-XL/2 (bf16 parameters, float32 AdamW
    moments, random trained-like weights from a seed) through
    ``make_dit_train_step`` at B=32, patch modes 0 and 1 alternating (the
@@ -1814,12 +1818,13 @@ def count_syncs(fn, messages: list | None = None):
 
 
 def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
-    """The phase-7 wave untapped, tapped and tapped with profiling, each on
-    a fresh runner cache, warmed by one wave and then measured on two
-    replays: x0 bit for bit, synchronising calls (compared on the second
-    replay, the steady state: in the first call the first engine's first
-    replay made one more than the others), spans, attribution, taps, the
-    cost report, and no runner built by the replays."""
+    """The phase-7 wave untapped, with spans only, tapped and tapped with
+    profiling, each on a fresh runner cache, warmed by one wave and then
+    measured on two replays: x0 bit for bit, synchronising calls (compared
+    on the second replay, the steady state: in the first call the first
+    engine's first replay made one more than the others; spans only adds
+    none), spans (one positive ``dispatch.device`` a dispatch), attribution,
+    taps, the cost report, and no runner built by the replays."""
     cfg = pipe.cfg
     L = cfg.num_layers
     plans = {b: SamplingPlan(T=T_STEPS, budget=b, attn_backend="pallas")
@@ -1829,7 +1834,8 @@ def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
             for i in range(SERVE_WAVE + SERVE_JOIN)]
     n = len(wave)
     out, launches = {}, 0
-    for name, tel in (("untapped", None), ("tapped", Telemetry(taps=True)),
+    for name, tel in (("untapped", None), ("spans", Telemetry()),
+                      ("tapped", Telemetry(taps=True)),
                       ("profiled", Telemetry(taps=True, profile=True))):
         eng = ServingEngine(FlexiPipeline(pipe.params, cfg, pipe.sched,
                                           device=DEV), plans,
@@ -1861,15 +1867,26 @@ def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
             f"dispatches each, {first_syncs} then {syncs} synchronising "
             f"calls, {n / wall:.2f} img/s under sync debug mode ({smi})")
     base = out["untapped"]
-    for name in ("tapped", "profiled"):
+    for name in ("spans", "tapped", "profiled"):
         x0 = out[name]["x0"]
         if sorted(x0) != sorted(base["x0"]) or not all(
                 torch.equal(x0[i], base["x0"][i]) for i in x0):
             raise AssertionError(f"{name} wave: x0 differs from the untapped "
                                  f"wave")
-    if out["tapped"]["syncs"] != base["syncs"]:
-        raise AssertionError(f"taps added host syncs: {base['syncs']} -> "
-                             f"{out['tapped']['syncs']}")
+    for name in ("spans", "tapped"):
+        if out[name]["syncs"] != base["syncs"]:
+            raise AssertionError(f"{name} added host syncs: {base['syncs']} "
+                                 f"-> {out[name]['syncs']}")
+    for name in ("spans", "profiled"):
+        srec = out[name]["tel"].recorder
+        srec.read_pending()
+        dev = srec.by_name("dispatch.device")
+        if len(dev) != len(srec.by_name("dispatch")) or not all(
+                e.dur > 0 for e in dev):
+            raise AssertionError(f"{name}: {len(dev)} dispatch.device spans "
+                                 f"for {len(srec.by_name('dispatch'))} "
+                                 f"dispatches, min "
+                                 f"{min((e.dur for e in dev), default=0)}")
     want = base["syncs"] + out["profiled"]["dispatches"]
     if out["profiled"]["syncs"] != want:
         raise AssertionError(f"profiling: {out['profiled']['syncs']} syncs, "
@@ -1907,8 +1924,9 @@ def phase_telemetry(pipe: FlexiPipeline, smi: str) -> dict:
             r["achieved_gflops_per_s"] > 0 for r in rows):
         raise AssertionError(f"cost report: {rep['n_flagged']} flagged, "
                              f"{len(rows)} rows with walls")
-    log(f"[telemetry] x0 of the tapped and profiled waves == untapped bit for "
-        f"bit ({n} requests); syncs untapped {base['syncs']}, tapped "
+    log(f"[telemetry] x0 of the spans-only, tapped and profiled waves == "
+        f"untapped bit for bit ({n} requests); syncs untapped {base['syncs']},"
+        f" spans only {out['spans']['syncs']} (+0), tapped "
         f"{out['tapped']['syncs']} (+0), profiled {prof['syncs']} (+"
         f"{prof['dispatches']} dispatches); spans {rec.events_recorded} "
         f"(dispatch {len(rec.by_name('dispatch'))}, request rows {n_req}); "
@@ -6496,6 +6514,17 @@ def main() -> None:
         got = phase_examples(smi)
         print(smi)
         print(json.dumps({"only": "examples", "ok": True, **got}), flush=True)
+        return
+    if sys.argv[1:] == ["--only", "serving"]:     # phase 7 and its telemetry
+        phase_build()
+        params, cfg = trained_like_xl(
+            torch.Generator(device=DEV).manual_seed(SEED))
+        pipe = FlexiPipeline(params, cfg, linear_schedule(1000), device=DEV)
+        del params
+        phase_serving(pipe, smi)
+        got = phase_telemetry(pipe, smi)
+        print(smi)
+        print(json.dumps({"only": "serving", "ok": True, **got}), flush=True)
         return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()

@@ -14,13 +14,17 @@ flash kernel. ``--policy`` picks admission/step ordering: ``fifo``,
 demoted to the highest budget level the measured arrival rate sustains).
 Weights are random (``init_dit`` from a seed): a smoke run, not a model.
 
-Telemetry (``repro_torch.telemetry``): ``--trace OUT.json`` (spans and
-tap counters as a Chrome trace), ``--metrics-interval N`` (a ``[metrics]``
+Telemetry (``repro_torch.telemetry``): ``--trace OUT.json`` (the
+engine's spans as a Chrome trace, on CUDA with each dispatch's device
+time, ``dispatch.device``), ``--metrics-interval N`` (a ``[metrics]``
 line every N engine steps), ``--profile`` (per-dispatch wall time, the
 packed runners' cost report, per-request attribution ``[attrib]`` and the
 controller's calibration ``[calib]``), ``--postmortem-dir DIR`` and
 ``--slo-p99 SEC`` (the SLO watchdog and its flight recorder). Any one of
-them turns on spans and taps.
+them turns on spans; the last four also turn on taps (the tapped step
+family, whose values they read), and then the trace holds the tap
+counters too. ``--trace`` alone keeps the untapped steps and adds no
+wait.
 
 The fleet path: ``--replicas N`` runs N packed engines behind the
 router (``repro_torch.fleet``; ``--router cheapest|rr|affinity``), all on
@@ -535,15 +539,16 @@ def _serve_dit_engine(cfg, args, pipe, plans) -> Dict[str, float]:
     slo_p99 = getattr(args, "slo_p99", None)
     telemetry = None
     if trace_path or metrics_interval or profile or pm_dir or slo_p99:
-        # tracing implies taps: the tapped step family serves the same
-        # latents bit for bit
+        # taps where something reads them (the tapped step family serves
+        # the same latents bit for bit); spans alone reroute nothing
+        taps = bool(metrics_interval or profile or pm_dir or slo_p99)
         watchdog = None
         if pm_dir or slo_p99:
             from repro_torch.telemetry.watchdog import Watchdog, WatchdogConfig
             watchdog = Watchdog(WatchdogConfig(p99_slo_s=slo_p99))
-        telemetry = Telemetry(taps=True, profile=profile,
+        telemetry = Telemetry(taps=taps, profile=profile,
                               watchdog=watchdog, postmortem_dir=pm_dir)
-        print("[telemetry] spans+taps on"
+        print("[telemetry] " + ("spans+taps on" if taps else "spans on")
               + (", cost profiling on" if profile else "")
               + (f", post-mortems -> {pm_dir}" if pm_dir else "")
               + (f", trace -> {trace_path}" if trace_path else ""))
@@ -736,8 +741,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--solver", default="ddim", choices=["ddim", "ddpm"])
     ap.add_argument("--cfg-scale", type=float, default=1.5)
     ap.add_argument("--trace", default=None, metavar="OUT.json",
-                    help="record span tracing + device taps and dump a "
-                         "Chrome-trace JSON loadable in ui.perfetto.dev")
+                    help="record the engine's spans (on CUDA each "
+                         "dispatch's device time too) and dump a "
+                         "Chrome-trace JSON loadable in ui.perfetto.dev; "
+                         "with the other telemetry flags, taps too")
     ap.add_argument("--metrics-interval", type=int, default=0, metavar="N",
                     help="print one structured [metrics] line every N "
                          "engine steps (0 = off); also enables taps")

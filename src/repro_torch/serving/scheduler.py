@@ -29,14 +29,19 @@ per dummy warm-up dispatch, and once per dispatch in which some request
 finishes (a result counts as served once it exists).
 
 ``telemetry=`` (``repro_torch.telemetry.Telemetry``) adds spans on the
-engine's clock (admit, plan, pack, build, dispatch, materialize, one row
-per request), routes dispatches through the tapped step family (the same
-latents bit for bit, device tap outputs read only at aggregation), and,
-with profiling on, measures each dispatch's wall time (CUDA events and one
-wait per dispatch), attributes it to the requests in the pack with exact
-conservation, and calibrates the ``BudgetController``; a watchdog checks
-SLOs every step and dumps a post-mortem bundle on alerts or an uncaught
-exception. Without it none of this runs.
+engine's clock: admit, plan, pack, compile (a cold runner), dispatch,
+materialize and retire abut, so every moment of a working step lies in
+one of them, plus one row per request; on CUDA each dispatch's device
+time (``dispatch.device``, a CUDA event pair around the runner call, read
+after the engine's next wait or at export, never at a wait of its own).
+With taps on it routes dispatches through the tapped step family (the
+same latents bit for bit, device tap outputs read only at aggregation),
+and with profiling on it waits once a dispatch to read the same event
+pair as its wall time, attributes it to the requests in the pack with
+exact conservation, and calibrates the ``BudgetController``; a watchdog
+checks SLOs every step and dumps a post-mortem bundle on alerts or an
+uncaught exception. Spans alone serve the same latents with the same
+``waits``. Without telemetry none of this runs.
 
 Resilience seams (``repro_torch.resilience``): ``faults=`` takes a
 per-replica fault facade (``FaultInjector(plan).for_replica(i)``) that can
@@ -85,7 +90,7 @@ from repro_torch.serving.queue import Request, RequestQueue
 from repro_torch.telemetry import TapSample, Telemetry
 from repro_torch.telemetry.profile import dummy_packed_args
 from repro_torch.telemetry.profile import packed_key as profile_packed_key
-from repro_torch.telemetry.trace import REQUEST_PID
+from repro_torch.telemetry.trace import REQUEST_PID, DeviceSpans
 
 ENGINE_POLICIES = ("fifo", "edf", "degrade")
 
@@ -235,6 +240,11 @@ class ServingEngine:
         self._wd_ticks = 0
         if telemetry is not None:
             telemetry.bind_clock(self.clock)
+        # each dispatch's device time: a CUDA event pair around the runner
+        # call, read after the next wait the engine makes anyway
+        self._dev = (DeviceSpans(self._rec, "dispatch.device")
+                     if telemetry is not None and self.device.type == "cuda"
+                     else None)
         self.policy = policy
         self._validate_menu(plans)
         ref = next(iter(plans.values()))
@@ -702,22 +712,21 @@ class ServingEngine:
         now = self.clock()
         n_before = len(self._inflight)
         self._admit(now)
-        if self._rec is not None and len(self._inflight) > n_before:
-            self._rec.complete("admit", now, self.clock(),
-                               args={"admitted":
-                                     len(self._inflight) - n_before,
-                                     "queued": len(self._queue)})
+        # the spans abut: each starts where the last ended (t_span)
+        t_span = now
+        if self._rec is not None and self._inflight:
+            t_span = self._span("admit", now,
+                                admitted=len(self._inflight) - n_before,
+                                queued=len(self._queue))
         if not self._inflight:
             self._last_step_at = now
             return []
         mult = 2 if self.guided else 1
-        t_plan = self.clock() if self._rec is not None else 0.0
         k, layout, picked = self._plan()
         if self._rec is not None:
-            self._rec.complete("plan", t_plan, self.clock(),
-                               args={"k": k, "groups": str(layout.groups),
-                                     "inflight": len(self._inflight)})
-        t_pack = self.clock() if self._rec is not None else 0.0
+            t_span = self._span("plan", t_span, k=k,
+                                groups=str(layout.groups),
+                                inflight=len(self._inflight))
         ddpm = self.solver == "ddpm"
 
         xs, metas, noises = [], [], []
@@ -807,21 +816,19 @@ class ServingEngine:
             self.packed_forwards += k
 
         if self._rec is not None:
-            self._rec.complete("pack", t_pack, self.clock(),
-                               args={"real_tokens": real_tokens})
+            t_span = self._span("pack", t_span, real_tokens=real_tokens)
         was_warm = self._is_warm(layout, k) if self._rec is not None else True
-        t_fetch = self.clock() if self._rec is not None else 0.0
         runner = self.pipe.packed_step(layout, k_steps=k, **self._runner_kw())
         if self._rec is not None and not was_warm:
             # cold dispatch: the runner was built now
-            self._rec.complete("compile", t_fetch, self.clock(),
-                               args={"groups": str(layout.groups), "k": k})
+            t_span = self._span("compile", t_span, groups=str(layout.groups),
+                                k=k)
+        # a warm runner's fetch counts to the dispatch span, not to the
+        # profiled wall (t_run)
+        t_disp = t_span
         timed = self._profile is not None
-        t_disp = self.clock() if self._rec is not None or timed else 0.0
-        events = None
-        if timed and self.device.type == "cuda":
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record()
+        t_run = self.clock() if timed else 0.0
+        pair = self._dev.begin() if self._dev is not None else None
         zs = tuple(noises) if ddpm else None
         tap = None
         if self.cache is not None:
@@ -848,15 +855,17 @@ class ServingEngine:
             outs, tap = out if self._taps else (out, None)
             if self._faults is not None:
                 self._apply_poison(outs, picked)
+        if pair is not None:
+            # after the cache scatter and the poison: the whole dispatch
+            self._dev.end(pair, k=k, groups=str(layout.groups))
         if timed:
             self._observe_dispatch(layout, k, picked, rf_real, step_flops,
-                                   now, t_disp, events)
+                                   now, t_run, pair)
         if self._rec is not None:
-            self._rec.complete(
-                "dispatch", t_disp, self.clock(),
-                args={"k": k, "groups": str(layout.groups),
-                      "requests": sum(len(s) for s in picked),
-                      "warm": was_warm})
+            t_span = self._span("dispatch", t_disp, k=k,
+                                groups=str(layout.groups),
+                                requests=sum(len(s) for s in picked),
+                                warm=was_warm)
         if tap is not None:
             # still device tensors: the aggregator reads them at export
             self.telemetry.taps.add(TapSample(
@@ -873,17 +882,19 @@ class ServingEngine:
             # derived from it) waits for the device. This is also the only
             # honest capacity sample: between waits the clock sees only
             # host-side batch assembly
-            t_mat = self.clock() if self._rec is not None else 0.0
             if self._quarantine:
                 # the finite flags' read is the wait
                 bad = self._scan_finite(tap, picked, outs, k)
             else:
                 self._wait()
+            if self._dev is not None:
+                self._dev.read()
             self.waits += 1
             now = self.clock()
             if self._rec is not None:
-                self._rec.complete("materialize", t_mat, now,
+                self._rec.complete("materialize", t_span, now,
                                    args={"k": k})
+                t_span = now
             if self.controller is not None and self._last_sync_at is not None \
                     and now > self._last_sync_at:
                 self.controller.observe_service(self._flops_since_sync,
@@ -920,25 +931,32 @@ class ServingEngine:
         if self._rec is not None:
             self._rec.counter("engine", {"inflight": len(self._inflight),
                                          "queued": len(self._queue)})
+            self._span("retire", t_span, finished=len(finished))
         if self._watchdog is not None:
             self._watch(now)
         self._last_step_at = now
         return finished
 
+    def _span(self, name: str, t0: float, **args: Any) -> float:
+        """Record span ``name`` from ``t0`` to now; returns now."""
+        t1 = self.clock()
+        self._rec.complete(name, t0, t1, args=args)
+        return t1
+
     def _observe_dispatch(self, layout: PackLayout, k: int,
                           picked: List[List[InFlight]],
                           rf_real: List[np.ndarray], step_flops: float,
                           now: float, t_disp: float,
-                          events: Optional[List[Any]]) -> None:
+                          pair: Optional[Any]) -> None:
         """Profiling: wait for the dispatch (the one wait profiling adds),
-        take its wall time (CUDA events on the card, the engine's clock on
-        the CPU), and feed the cost registry, the attribution ledger and
-        the controller's calibration."""
-        if events is not None:
-            events[1].record()
+        take its wall time (the dispatch's CUDA event pair on the card,
+        which also becomes its ``dispatch.device`` span; the engine's
+        clock on the CPU), and feed the cost registry, the attribution
+        ledger and the controller's calibration."""
         self._wait()
-        if events is not None:
-            wall_s = events[0].elapsed_time(events[1]) / 1e3
+        if pair is not None:
+            self._dev.read()
+            wall_s = pair.seconds
         else:
             wall_s = self.clock() - t_disp
         pkey = profile_packed_key(layout, k_steps=k, **self._runner_kw())

@@ -5,7 +5,9 @@ Three layers, one rule — **observability must be data, not structure**:
 * :mod:`repro_torch.telemetry.trace` — host-side span/event recorder
   (bounded ring buffer, the engine's clock) with Chrome-trace/Perfetto
   export: admit → plan → pack → dispatch → materialize → retire, plus
-  runner builds;
+  runner builds, and on CUDA the device time of each dispatch from a
+  CUDA event pair read after a wait the engine makes anyway; export can
+  stamp Unix time, the clock of a ``torch.profiler`` trace;
 * :mod:`repro_torch.telemetry.taps` — on-device scalar taps, extra data
   outputs of the packed step (per-request eps norm and finite flag,
   realized cache replay drift, the kernel ledger's attention block
@@ -29,8 +31,10 @@ class Telemetry:
     """One serving session's telemetry bundle.
 
     ``taps=False`` keeps the engine on the untapped step family (spans
-    only); ``taps=True`` routes dispatches through the tapped runners —
-    same latents bit for bit, plus per-dispatch tap samples.
+    only: no reroute and no wait, the same latents and ``engine.waits``
+    as without telemetry); ``taps=True`` routes dispatches through the
+    tapped runners — same latents bit for bit, plus per-dispatch tap
+    samples.
 
     ``profile=True`` adds the cost registry + per-request attribution
     ledger: the engine then measures each dispatch's wall time (CUDA
@@ -73,7 +77,7 @@ class Telemetry:
     def bind_clock(self, clock) -> None:
         """Adopt the engine's clock (simulated or wall) if the recorder
         was built before the engine existed."""
-        self.recorder.clock = clock
+        self.recorder.bind(clock)
 
     def snapshot(self) -> dict:
         """JSON-friendly view: tap aggregates + recorder counters."""

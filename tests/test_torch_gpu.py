@@ -787,6 +787,70 @@ def test_tapped_engine_on_card_equals_untapped(cuda):
     assert all(w.min_s > 0 for w in tel.profile.walls.values())
 
 
+@pytest.mark.gpu
+def test_spans_only_engine_on_card_times_dispatches_without_a_wait(
+        cuda, tmp_path):
+    """bf16 serving on the card with spans only (``Telemetry()``): x0 and
+    ``waits`` equal the telemetry-off engine's; one positive
+    ``dispatch.device`` span a dispatch, each inside the serving window
+    and their sum within it; under ``torch.profiler`` the recorder's
+    Unix-time export of a span lands within 0.1 ms of a
+    ``record_function`` probe around the same block."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.pipeline import FlexiPipeline
+    from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import Telemetry
+    pipe = _serving_pipe("bfloat16", cuda)
+    runs = {}
+    for tel in (None, Telemetry()):
+        eng = ServingEngine(FlexiPipeline(pipe.params, pipe.cfg, pipe.sched,
+                                          device=cuda), _plans(),
+                            steps_per_dispatch=4, telemetry=tel,
+                            clock=time.perf_counter)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(6):
+            eng.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+        out = eng.run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs[tel is None] = ({r.request.id: r.x0 for r in out}, eng.waits)
+    (plain, w0), (spans, w1) = runs[True], runs[False]
+    assert all(torch.equal(plain[i], spans[i]) for i in plain)
+    assert w1 == w0
+    rec = tel.recorder
+    rec.read_pending()
+    dev = rec.by_name("dispatch.device")
+    assert len(dev) == eng.metrics.total_steps
+    assert all(e.dur > 0 and t0 <= e.ts and e.ts + e.dur <= t1 for e in dev)
+    assert sum(e.dur for e in dev) <= t1 - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("warm"):
+            pass
+        for i in range(3):
+            with rec.span("probe"), record_function("probe"):
+                eng.submit(cond=i, budget=1.0)
+                eng.run()
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base_us = trace["baseTimeNanoseconds"] / 1e3
+    theirs = sorted((e for e in trace["traceEvents"]
+                     if e.get("name") == "probe"
+                     and e.get("cat") == "user_annotation"),
+                    key=lambda e: e["ts"])
+    ours = [e for e in rec.to_chrome_trace(unix=True)["traceEvents"]
+            if e["name"] == "probe"]
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        assert abs(a["ts"] - base_us - b["ts"]) < 100.0
+
+
 # ---------------------------------------------------------------------------
 # Training on the card
 

@@ -587,11 +587,15 @@ def test_serve_cli_telemetry_flags(capsys, tmp_path, flags, expect):
                     + flags)
     out = capsys.readouterr().out
     assert m["served"] == 8.0 and expect in out
-    assert "[telemetry] spans+taps on" in out and "[taps]" in out
-    if "--trace" in flags:
+    if flags[0] == "--trace":
+        # spans alone: the untapped steps, no tap counter
+        assert "[telemetry] spans on" in out and "[taps]" not in out
         trace = json.load(open(tmp_path / "t.json"))
         names = {e["name"] for e in trace["traceEvents"]}
-        assert {"dispatch", "plan", "pack", "req0", "taps"} <= names
+        assert {"dispatch", "plan", "pack", "retire", "req0"} <= names
+        assert "taps" not in names
+    else:
+        assert "[telemetry] spans+taps on" in out and "[taps]" in out
     if "--profile" in flags:
         assert "[profile] harvest" in out and "(all must be 0)" in out
 
