@@ -37,7 +37,16 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    in interleaved rounds with their previous kernel and the library call
    (flash at hd 256: compiled FlexAttention with a softcap ``score_mod``
    and a causal-window ``mask_mod``; SDPA, which has no softcap, as a
-   labelled reference);
+   labelled reference); and the fused adaLN kernels (``kernels/adaln``)
+   at DiT-XL/2's served layouts (8,192 tokens of d 1152, bf16: 32 rows of
+   one 256-token segment, and mixed 256- and 64-token segments with a
+   padding tail), held against their plain version bit for bit (the next
+   segment's table row and the scale column read as the gate must fail),
+   then timed against their bytes bound and the plain version, and the
+   three a block against the chain of PyTorch ops they replaced.
+   ``python3 chip_smoke.py --only adaln``
+   runs phase 1, these checks and timings, and one DiT-XL/2 packed
+   forward's launch count alone;
 7. serve the same DiT-XL/2 weights through the port's ``ServingEngine``
    (the packed mixed-mode path: requests at different budgets, modes and
    denoise steps share rows of 256 tokens, segment ids keep them apart,
@@ -47,6 +56,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    plain version; then a wave of 12 requests with 3 joining after two
    engine steps, and the same wave again. Checks every flash launch is on
    the TMA/wgmma variant and their count is 28 x the packed forwards, the
+   adaLN launches (3 x 28 + 1) x the packed forwards, the
    replay builds nothing, each x0 holds against ``FlexiPipeline.sample``
    for the same request (and the same check fails every request with
    weak steps when the segment ids are planted to 0), activation-cache
@@ -443,10 +453,16 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.diffusion.schedule import linear_schedule  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.adaln import ops as adaln_ops  # noqa: E402
+from repro_torch.kernels.adaln.adaln import (  # noqa: E402
+    REDUCE_ORDER_TORCH, launch_plan)
+from repro_torch.kernels.adaln.ref import (  # noqa: E402
+    adaln_norm_ref, adaln_residual_norm_ref)
 from repro_torch.kernels.attention import ops  # noqa: E402
 from repro_torch.kernels.attention.flash_attention import (  # noqa: E402
     flash_attention_cuda, select_variant, variant_of)
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
 from repro_torch.core import patch as patch_mod  # noqa: E402
 from repro_torch.kernels.patch_embed import ops as pe_ops  # noqa: E402
 from repro_torch.kernels.patch_embed.patch_embed import (  # noqa: E402
@@ -1392,6 +1408,180 @@ def phase_new_timing(gen: torch.Generator) -> dict:
     return out
 
 
+# The fused adaLN kernels at DiT-XL/2's served layouts: 8,192 tokens of
+# d 1152 in bf16, 32 rows of one 256-token segment (the full backlog) and
+# mixed rows of 256- and 64-token segments with a 128-token padding tail.
+ADALN_LAYOUTS = {"full": ((256, 32),), "mixed": ((256, 8), (64, 94))}
+# (gate, shift, scale) columns of the block's [S + 1, 6d] table
+ADALN_OPS = {"adaln_norm": (None, 0, 1), "adaln_residual_norm": (2, 3, 4),
+             "adaln_residual": (5, None, None)}
+
+
+def adaln_inputs(gen: torch.Generator, layout: str, d: int = 1152):
+    plan = packing._pack_plan(ADALN_LAYOUTS[layout], 256)
+    idx = torch.from_numpy(plan.token_idx).to(DEV)
+    shape = tuple(idx.shape) + (d,)
+    x = (randn(gen, shape) * 3 + 0.5).bfloat16()
+    y = randn(gen, shape, torch.bfloat16)
+    table = (randn(gen, (plan.n_seg + 1, 6 * d)) * 0.3).bfloat16()
+    return x, y, table, idx
+
+
+def adaln_call(x, y, table, idx, cols):
+    """One operation through the wrapper the packed block calls: (x', h),
+    with None for what the operation does not make."""
+    gate, shift, scale = cols
+    if gate is None:
+        return None, adaln_ops.adaln_norm(x, table, idx, shift, scale)
+    return adaln_ops.adaln_residual_norm(x, y, table, idx, gate, shift, scale)
+
+
+def adaln_agrees(x, y, table, idx, cols, got) -> tuple:
+    """(share, max_abs_err) of the outputs (x' and h) against the plain
+    version's on the card: the share equal bit for bit, the largest
+    difference."""
+    gate, shift, scale = cols
+    ok, n, err = 0, 0, 0.0
+    pairs = []
+    if gate is not None:
+        x = adaln_residual_norm_ref(x, y, table, idx, gate)[0]
+        pairs.append((got[0], x))
+    if shift is not None:
+        pairs.append((got[1], adaln_norm_ref(x, table, idx, shift, scale)))
+    for a, b in pairs:
+        ok, n = ok + int((a == b).sum()), n + b.numel()
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    return ok / n, err
+
+
+def adaln_bytes(x, table, cols) -> int:
+    """Each input byte read once and each output byte written once: x (and
+    y, x'), h, the table's columns the call reads, token_idx."""
+    gate, shift, _ = cols
+    per_tok = x.shape[-1] * x.element_size()
+    n_tok = x.numel() // x.shape[-1]
+    streams = 2 + (2 if gate is not None else 0) - (1 if shift is None else 0)
+    cols_read = (gate is not None) + 2 * (shift is not None)
+    return (streams * n_tok * per_tok + cols_read * table.shape[0] * per_tok
+            + 8 * n_tok)
+
+
+def phase_adaln(gen: torch.Generator) -> dict:
+    """The fused adaLN kernels, through the wrappers the packed block
+    calls, against their plain version on the card at both served layouts
+    (every output equal bit for bit; with the next segment's table row, or
+    the scale column read as the gate, not), then timed at the mixed
+    layout against their bytes bound and the plain version, and the three
+    a block against the chain of PyTorch ops they replaced, in interleaved
+    rounds. Returns the block's times and bound (``shapes``: each
+    operation's) and the largest difference from the plain version."""
+    worst = 0.0
+    for layout in ADALN_LAYOUTS:
+        x, y, table, idx = adaln_inputs(gen, layout)
+        nxt = (idx + 1) % table.shape[0]
+        for name, cols in ADALN_OPS.items():
+            share, err = adaln_agrees(x, y, table, idx, cols,
+                                      adaln_call(x, y, table, idx, cols))
+            fault = adaln_agrees(x, y, table, idx, cols,
+                                 adaln_call(x, y, table, nxt, cols))[0]
+            if share != 1.0 or fault == 1.0:
+                raise AssertionError(
+                    f"{name} ({layout}): {share:.6f} of the outputs agree bit "
+                    f"for bit (max |err| {err:.3e}), {fault:.6f} with the next "
+                    f"segment's row planted; the kernel sums LN in the order "
+                    f"of torch {REDUCE_ORDER_TORCH}'s CUDA reduce kernel, and "
+                    f"this card runs torch {torch.__version__}")
+            worst = max(worst, err)
+        swapped = adaln_agrees(x, y, table, idx, (2, 3, 4),
+                               adaln_call(x, y, table, idx, (4, 3, 4)))[0]
+        if swapped == 1.0:
+            raise AssertionError(f"adaln ({layout}): the scale column read as "
+                                 f"the gate passes the check")
+        log(f"[adaln] {layout}: every output of the three operations, through "
+            f"the wrappers, equals the plain version's bit for bit; the "
+            f"planted faults fail ({fault:.4f} and {swapped:.4f} of the "
+            f"outputs agree)")
+    # timed calls take 8 input sets in turn (8 x 37.7 MB of x and y), so a
+    # call finds none of its inputs in the 50 MB L2, as a block does
+    sets = [adaln_inputs(gen, "mixed") for _ in range(8)]
+    x, y, table, idx = sets[0]
+    n_tok, d = x.numel() // x.shape[-1], x.shape[-1]
+    plan = launch_plan(n_tok, d, 2, torch.cuda.get_device_properties(DEV)
+                       .multi_processor_count)
+
+    def turns(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    shapes = {}
+    plains = {"adaln_norm": lambda x, y, t, i: adaln_norm_ref(x, t, i, 0, 1),
+              "adaln_residual_norm": lambda x, y, t, i: adaln_residual_norm_ref(
+                  x, y, t, i, 2, 3, 4),
+              "adaln_residual": lambda x, y, t, i: adaln_residual_norm_ref(
+                  x, y, t, i, 5)}
+    for name, cols in ADALN_OPS.items():
+        nbytes = adaln_bytes(x, table, cols)
+        bound, by = bound_ms(nbytes, 0, BF16_FLOPS)
+        t = interleaved_ms({
+            "kernel": turns(lambda x, y, t, i, cols=cols: adaln_call(x, y, t, i, cols)),
+            "plain": turns(plains[name])})
+        ms, plain = t["kernel"]["ms"], t["plain"]["ms"]
+        log(f"[time] {name} T{n_tok} d{d} bf16 (mixed layout, inputs cold in "
+            f"L2; plan {plan}): {turns_line(t)}; bound {bound:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); {bound / ms:.1%} of the bound, "
+            f"{plain / ms:.2f}x the plain version's speed")
+        shapes[f"{name} T{n_tok} d{d} bf16 (mixed)"] = dict(
+            ms=ms, prev_ms=None, plain_ms=plain, library_ms=None,
+            bound_ms=bound, bound_by=by)
+
+    def chain(x, y, table, idx):      # the block's element-wise passes as they were
+        sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(table[idx], 6, dim=-1)
+        h = dit_mod._ln(x) * (1.0 + sc1) + sh1
+        x1 = x + g1 * y
+        h2 = dit_mod._ln(x1) * (1.0 + sc2) + sh2
+        return h, h2, x1 + g2 * y
+
+    def fused(x, y, table, idx):
+        h = adaln_call(x, y, table, idx, ADALN_OPS["adaln_norm"])[1]
+        x1, h2 = adaln_call(x, y, table, idx, ADALN_OPS["adaln_residual_norm"])
+        return h, h2, adaln_call(x1, y, table, idx, ADALN_OPS["adaln_residual"])[0]
+
+    t = interleaved_ms({"fused": turns(fused), "chain": turns(chain)})
+    log(f"[time] a block's adaLN passes T{n_tok} d{d} bf16: {turns_line(t)}; "
+        f"{t['chain']['ms'] / t['fused']['ms']:.2f}x; x 28 blocks: "
+        f"{28 * (t['chain']['ms'] - t['fused']['ms']):.3f} ms saved a forward")
+    return {"ms": t["fused"]["ms"], "prev_ms": None,
+            "plain_ms": t["chain"]["ms"], "library_ms": None,
+            "bound_ms": sum(v["bound_ms"] for v in shapes.values()),
+            "bound_by": "bytes", "max_abs_err": worst, "shapes": shapes}
+
+
+def adaln_forward_launches(params, cfg) -> dict:
+    """One DiT-XL/2 packed forward at the mixed layout's segments: the
+    adaLN launches it makes (3L + 1) and x0 finite."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    groups = ((0, 8), (1, 94))
+    xs = [randn(gen, (n,) + tuple(cfg.dit.latent_shape)) for _m, n in groups]
+    ts = [torch.randint(0, 1000, (n,), generator=gen, device=DEV)
+          for _m, n in groups]
+    cs = [torch.randint(0, 1000, (n,), generator=gen, device=DEV)
+          for _m, n in groups]
+    adaln_ops.reset_launches()
+    with torch.inference_mode():
+        outs = packing.packed_mixed_forward(params, cfg, groups, xs, ts, cs,
+                                            attn_backend="pallas")
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    got = (adaln_ops.adaln_norm.launches, adaln_ops.adaln_residual_norm.launches)
+    if got != (L + 1, 2 * L) or not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"a packed forward: adaLN launches {got}, not "
+                             f"{(L + 1, 2 * L)}, or outputs not finite")
+    log(f"[adaln] a DiT-XL/2 packed forward (8 + 94 segments, 32 rows): "
+        f"adaln_norm {got[0]} + adaln_residual_norm {got[1]} launches = 3 x "
+        f"{L} + 1")
+    return {"norm": got[0], "residual_norm": got[1]}
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: the serving engine
 
@@ -1466,6 +1656,7 @@ def phase_serving(pipe: FlexiPipeline, smi: str) -> dict:
     log(f"[engine] warm set: {n_pre} small-cohort runners built and run once "
         f"in {time.perf_counter() - t0:.2f}s")
     ops.reset_launches()
+    adaln_ops.reset_launches()
     f0, p0 = engine.packed_forwards, engine.block_passes
     walls, waves = [], []
     for w in range(2):
@@ -1482,6 +1673,14 @@ def phase_serving(pipe: FlexiPipeline, smi: str) -> dict:
     if launches != L * forwards or engine.block_passes - p0 != launches:
         raise AssertionError(f"engine: {launches} flash launches for {forwards} "
                              f"packed forwards of {L} layers")
+    adaln = adaln_ops.adaln_norm.launches + adaln_ops.adaln_residual_norm.launches
+    if (adaln_ops.adaln_norm.launches != (L + 1) * forwards
+            or adaln_ops.adaln_residual_norm.launches != 2 * L * forwards):
+        raise AssertionError(f"engine: adaLN launches {adaln_ops.adaln_norm.launches}"
+                             f" + {adaln_ops.adaln_residual_norm.launches} for "
+                             f"{forwards} packed forwards, not (3 x {L} + 1) each")
+    log(f"[engine] adaLN launches {adaln} == (3 x {L} + 1) x {forwards} packed "
+        f"forwards")
     if by_variant["wgmma"] != launches:
         raise AssertionError(f"engine flash launches by variant {by_variant}: "
                              f"not all on the TMA/wgmma kernel")
@@ -1624,7 +1823,8 @@ def phase_serving(pipe: FlexiPipeline, smi: str) -> dict:
         raise AssertionError(f"the x0 check does not see a planted packing "
                              f"fault on requests {missed} of {sorted(weak)}")
 
-    return {"launches": launches, "img_per_s": n / walls[1], "p50": p50,
+    return {"launches": launches, "adaln_launches": adaln,
+            "img_per_s": n / walls[1], "p50": p50,
             "p99": p99, "max_abs_err": served_err}
 
 
@@ -6526,6 +6726,14 @@ def main() -> None:
         print(smi)
         print(json.dumps({"only": "serving", "ok": True, **got}), flush=True)
         return
+    if sys.argv[1:] == ["--only", "adaln"]:       # the adaLN kernels alone
+        phase_build()
+        got = phase_adaln(torch.Generator(device=DEV).manual_seed(SEED + 10))
+        params, cfg = trained_like_xl(torch.Generator(device=DEV).manual_seed(SEED))
+        got["launches"] = adaln_forward_launches(params, cfg)
+        print(smi)
+        print(json.dumps({"only": "adaln", "ok": True, **got}), flush=True)
+        return
     if sys.argv[1:] == ["--only", "plan"]:        # phase 16 alone
         phase_build()
         got = phase_plan(smi)
@@ -6552,6 +6760,8 @@ def main() -> None:
     times["shapes"].update(phase_family_timing(gen_fam))
     free_card()
     new_times = phase_new_timing(gen)
+    adaln_times = phase_adaln(torch.Generator(device=DEV).manual_seed(SEED + 10))
+    free_card()
     serving = phase_serving(pipe, smi)
     adaptive = phase_adaptive(pipe, smi)
     telemetry = phase_telemetry(pipe, smi)
@@ -6619,6 +6829,10 @@ def main() -> None:
                         "replaces": f"src/repro/kernels/{tpu}",
                         "launches": launches[name], "max_abs_err": worst_new[name],
                         **new_times[name]})
+    kernels.append({"name": "adaln", "route": "cuda",
+                    "source": "src/repro_torch/csrc/adaln.cu",
+                    "replaces": None, "launches": serving["adaln_launches"],
+                    **adaln_times})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import dit_block_flops, dit_nfe_flops
+from repro_torch.kernels.adaln import ops as adaln_ops
 from repro_torch.kernels.attention import costing
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models import attention as attn_mod
@@ -218,7 +219,7 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,  # repro: traced
     zero = torch.zeros((1, d), dtype=dtype, device=dev)
     # adaLN is applied per token but computed per segment: each block
     # projects the [S+1, d] segment conditioning (last row zeros for
-    # padding) and gathers it token-wise
+    # padding), and each token reads its segment's row via token_idx
     seg_c = torch.cat(cvecs + [zero])
     packed = torch.cat(toks + [zero])[gather].reshape(R, C, d)
 
@@ -270,9 +271,8 @@ def packed_mixed_forward(params: Any, cfg: ModelConfig,  # repro: traced
 
     ada = dit_mod._linear(F.silu(seg_c.float()).to(dtype),
                           params["final"]["ada"]["w"],
-                          params["final"]["ada"]["b"])
-    sh, sc = torch.chunk(ada[token_idx], 2, dim=-1)
-    tok = dit_mod._ln(tok) * (1.0 + sc) + sh
+                          params["final"]["ada"]["b"])     # [S+1, 2d]: shift, scale
+    tok = adaln_ops.adaln_norm(tok, ada, token_idx, 0, 1)
 
     tok_flat = tok.reshape(R * C, d)
     outs: List[torch.Tensor] = []
@@ -324,28 +324,28 @@ def _packed_block(p: Any, x: torch.Tensor, seg_c: torch.Tensor,
                   segment_ids: torch.Tensor,
                   attn_backend: str = "auto",
                   block_map: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """DiT block with per-segment adaLN conditioning (gathered to token
-    level via ``token_idx``) and segment-masked attention."""
+    """DiT block with per-segment adaLN conditioning and segment-masked
+    attention. The adaLN projection stays per segment ([S+1, 6d]): the
+    fused adaLN kernels (``kernels/adaln``) read each token's row through
+    ``token_idx``, so nothing is gathered to token level."""
     H = cfg.attn.num_heads
     dtype = x.dtype
+    # columns of d: shift, scale, gate before attention; the same before the MLP
     ada = dit_mod._linear(F.silu(seg_c.float()).to(dtype),
                           p["ada"]["w"], p["ada"]["b"])
-    ada = ada[token_idx]                             # [R, C, 6d]
-    sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(ada, 6, dim=-1)
     lora = p.get("lora", {})
-    h = dit_mod._ln(x) * (1.0 + sc1) + sh1
+    h = adaln_ops.adaln_norm(x, ada, token_idx, 0, 1)
     attn = dit_mod._mha(p["attn"], h, H, lora=lora.get("attn"), mode=mode,
                         segment_ids=segment_ids, attn_backend=attn_backend,
                         block_map=block_map)
-    x = x + g1 * attn
-    h2 = dit_mod._ln(x) * (1.0 + sc2) + sh2
+    x, h2 = adaln_ops.adaln_residual_norm(x, attn, ada, token_idx, 2, 3, 4)
     mlp_lora = lora.get("mlp", {})
     h2 = dit_mod._linear(h2, p["mlp"]["w_in"], p["mlp"]["b_in"],
                          lora=mlp_lora.get("w_in"), mode=mode)
     h2 = F.gelu(h2.float(), approximate="tanh").to(dtype)
     h2 = dit_mod._linear(h2, p["mlp"]["w_out"], p["mlp"]["b_out"],
                          lora=mlp_lora.get("w_out"), mode=mode)
-    return x + g2 * h2
+    return adaln_ops.adaln_residual_norm(x, h2, ada, token_idx, 5)[0]
 
 
 # ---------------------------------------------------------------------------

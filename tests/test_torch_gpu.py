@@ -23,6 +23,7 @@ pieces keep Sc at float32 level and y far under its own bf16 rounding.
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import patch as patch_mod
 from repro_torch.kernels.attention import ops
@@ -1538,3 +1539,244 @@ def test_train_step_holds_one_tree_on_card(cuda):
     assert torch.equal(m["loss"], me["loss"])
     for a, b in zip(tree_leaves({"p": new, "o": new_opt}), tree_leaves(ref)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The fused adaLN kernels (kernels/adaln) against their plain version on
+# the card. Where a warp holds a row of 128 < d (d <= 1536 in bf16, 1024 in
+# float32) the kernel sums LN's rows in PyTorch's reduce order, so every
+# output equals the plain version's bit for bit: at DiT-XL/2's width on
+# two served layouts of 8,192 tokens (32
+# rows of one 256-token segment; mixed rows of 256- and 64-token segments
+# with a 128-token padding tail, the table's last row). At other widths
+# only the order of LN's sums differs: x' bit for bit, and h equal to the
+# plain chain with LN rounded to its bf16 value or a neighbour
+# (``torch_adaln_checks.norm_matches``), or at 1e-5 in float32.
+
+ADALN_LAYOUTS = {"full": ((256, 32),), "mixed": ((256, 8), (64, 94))}
+
+
+def _adaln_case(cuda, layout, d=1152, k=6, dtype=torch.bfloat16, seed=0):
+    from repro_torch.core import packing
+    if isinstance(layout, str):
+        plan = packing._pack_plan(ADALN_LAYOUTS[layout], 256)
+        idx, rows = torch.from_numpy(plan.token_idx), plan.n_seg + 1
+    else:                       # [n] tokens in runs of the given lengths
+        idx = torch.repeat_interleave(torch.arange(len(layout)),
+                                      torch.tensor(layout))
+        rows = len(layout)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = tuple(idx.shape) + (d,)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3 + 0.5).to(dtype)
+    y = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    table = (torch.randn((rows, k * d), generator=g, device=cuda)
+             * 0.3).to(dtype)
+    return x, y, table, idx.to(cuda)
+
+
+def _adaln_agrees(x, y, table, idx, cols, got):
+    """Whether the kernel's (x', h) at columns (gate, shift, scale) agree
+    with the plain version: x' bit for bit; h bit for bit where the kernel
+    sums LN in PyTorch's order (a warp a row, 128 < d), else by
+    ``norm_matches`` (bf16) or at 1e-5 (float32)."""
+    from torch_adaln_checks import norm_matches
+
+    from repro_torch.kernels.adaln.adaln import launch_plan
+    from repro_torch.kernels.adaln.ref import (adaln_norm_ref,
+                                               adaln_residual_norm_ref)
+    gate, shift, scale = cols
+    want_x = x
+    if gate is not None:
+        want_x = adaln_residual_norm_ref(x, y, table, idx, gate)[0]
+        if not torch.equal(got[0], want_x):
+            return False
+    if shift is None:
+        return True
+    want_h = adaln_norm_ref(want_x, table, idx, shift, scale)
+    d = x.shape[-1]
+    if d > 128 and launch_plan(1, d, x.element_size(), 1).row_threads == 32:
+        return torch.equal(got[1], want_h)
+    if x.dtype == torch.bfloat16:
+        return bool(norm_matches(got[1], want_x, table, idx, shift, scale).all())
+    return torch.allclose(got[1], want_h, atol=1e-5, rtol=1e-5)
+
+
+ADALN_OPS = {"norm": (None, 0, 1), "residual_norm": (2, 3, 4),
+             "residual": (5, None, None)}
+
+
+def _order_note() -> str:
+    """What a bit-for-bit failure may mean: another torch's reduce order."""
+    from repro_torch.kernels.adaln.adaln import REDUCE_ORDER_TORCH
+    return (f"LN's sums follow torch {REDUCE_ORDER_TORCH}'s CUDA reduce "
+            f"order; this card runs torch {torch.__version__}")
+
+
+def _adaln_call(x, y, table, idx, cols):
+    from repro_torch.kernels.adaln.adaln import adaln_cuda
+    gate, shift, scale = cols
+    return adaln_cuda(x, table, idx, y=None if gate is None else y,
+                      gate_col=gate, shift_col=shift, scale_col=scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layout", list(ADALN_LAYOUTS))
+def test_adaln_kernels_match_plain_on_card(cuda, layout, dtype):
+    """Each operation through its wrapper (counted) at d 1152: the block's
+    [S + 1, 6d] table and the final layer's [S + 1, 2d]."""
+    from repro_torch.kernels.adaln import ops as adaln_ops
+    x, y, table, idx = _adaln_case(cuda, layout, dtype=getattr(torch, dtype))
+    adaln_ops.reset_launches()
+    got = {"norm": (None, adaln_ops.adaln_norm(x, table, idx, 0, 1)),
+           "residual_norm": adaln_ops.adaln_residual_norm(x, y, table, idx,
+                                                          2, 3, 4),
+           "residual": adaln_ops.adaln_residual_norm(x, y, table, idx, 5)}
+    final = table[:, :2 * x.shape[-1]].contiguous()
+    got_final = adaln_ops.adaln_norm(x, final, idx, 0, 1)
+    torch.cuda.synchronize()
+    assert (adaln_ops.adaln_norm.launches,
+            adaln_ops.adaln_residual_norm.launches) == (2, 2)
+    assert got["residual"][1] is None
+    for name, cols in ADALN_OPS.items():
+        assert _adaln_agrees(x, y, table, idx, cols, got[name]), (
+            name, _order_note())
+    assert _adaln_agrees(x, y, final, idx, (None, 0, 1), (None, got_final)), (
+        _order_note())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(ADALN_LAYOUTS))
+def test_adaln_planted_faults_fail_on_card(cuda, layout):
+    """The same checks must fail a kernel handed the next segment's table
+    row, or the scale column in place of the gate."""
+    x, y, table, idx = _adaln_case(cuda, layout, seed=1)
+    nxt = (idx + 1) % table.shape[0]
+    for name, cols in ADALN_OPS.items():
+        got = _adaln_call(x, y, table, nxt, cols)
+        assert not _adaln_agrees(x, y, table, idx, cols, got), name
+    for cols in ((4, None, None), (4, 3, 4)):
+        got = _adaln_call(x, y, table, idx, cols)
+        assert not _adaln_agrees(x, y, table, idx, (2,) + cols[1:], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [8, 64, 136, 520, 1536, 2048, 4096, 8192])
+def test_adaln_kernels_at_other_widths_on_card(cuda, d, dtype):
+    """Widths that take one warp a row (1 to 12 chunks a lane) and those
+    that take up to 8 warps (their row sums across warps in shared
+    memory), on runs of tokens of uneven lengths."""
+    runs = (1, 63, 5, 130, 64, 37)
+    x, y, table, idx = _adaln_case(cuda, runs, d=d, dtype=getattr(torch, dtype),
+                                   seed=d)
+    for name, cols in ADALN_OPS.items():
+        got = _adaln_call(x, y, table, idx, cols)
+        assert _adaln_agrees(x, y, table, idx, cols, got), (
+            name, d, dtype, _order_note())
+
+
+@pytest.mark.gpu
+def test_adaln_refusals_on_card(cuda):
+    """A width the kernel does not take and an input that autograd would
+    record through are refused before a launch."""
+    from repro_torch.kernels.adaln import ops as adaln_ops
+    x, y, table, idx = _adaln_case(cuda, (40, 24), d=64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        adaln_ops.adaln_norm(x[..., :60].contiguous(), table[:, :120].contiguous(),
+                             idx, 0, 1)
+    adaln_ops.reset_launches()
+    xg = x.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="adaln_norm: the CUDA kernel has no"):
+        adaln_ops.adaln_norm(xg, table.float(), idx, 0, 1)
+    with pytest.raises(RuntimeError, match="adaln_residual_norm: the CUDA"):
+        adaln_ops.adaln_residual_norm(xg, y.float(), table.float(), idx, 2)
+    assert adaln_ops.adaln_norm.launches == adaln_ops.adaln_residual_norm.launches == 0
+
+
+class _IndexSources(TorchDispatchMode):
+    """Record the shape of every tensor ``aten.index.Tensor`` gathers from."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.index.Tensor:
+            self.shapes.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.gpu
+def test_packed_forward_launches_the_adaln_kernels_on_card(cuda):
+    """One bf16 packed forward (mixed modes, a padding tail): 3L + 1 adaLN
+    launches (a norm, a residual + norm and a residual a block, the final
+    norm), and no adaLN table gathered to token level."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.adaln import ops as adaln_ops
+    pipe = _serving_pipe("bfloat16", cuda)
+    cfg = pipe.cfg
+    groups = ((0, 3), (1, 5))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xs = [torch.randn((n,) + cfg.dit.latent_shape, generator=gen, device=cuda)
+          for _m, n in groups]
+    ts = [torch.randint(0, 100, (n,), generator=gen, device=cuda)
+          for _m, n in groups]
+    cs = [torch.randint(0, 10, (n,), generator=gen, device=cuda)
+          for _m, n in groups]
+    gathers = _IndexSources()
+    adaln_ops.reset_launches()
+    with torch.inference_mode(), gathers:
+        out = packing.packed_mixed_forward(pipe.params, cfg, groups, xs, ts,
+                                           cs, attn_backend="pallas")
+    torch.cuda.synchronize()
+    L, d, rows = cfg.num_layers, cfg.d_model, 3 + 5 + 1
+    assert adaln_ops.adaln_norm.launches == L + 1
+    assert adaln_ops.adaln_residual_norm.launches == 2 * L
+    assert gathers.shapes          # the token streams are still gathered
+    assert not [s for s in gathers.shapes if s in ((rows, 6 * d), (rows, 2 * d))]
+    assert all(torch.isfinite(o).all() for o in out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cached", [False, True])
+def test_captured_bf16_engine_equals_eager_on_card(cuda, cached):
+    """A bf16 engine whose packed micro-steps are captured (the adaLN
+    kernels inside the graphs) against the same engine under
+    ``graphs.disabled()``: x0 bit for bit, adaLN launches counted through
+    the replays equal to the eager run's, and 3L + 1 a forward uncached."""
+    import contextlib
+
+    from repro_torch.kernels.adaln import ops as adaln_ops
+    from repro_torch.pipeline import FlexiPipeline
+    from repro_torch.runtime import graphs
+    from repro_torch.serving import CacheSpec, ServingEngine
+    pipe = _serving_pipe("bfloat16", cuda)
+    spec = CacheSpec(policy="interval", interval=2, split=1) if cached else None
+    out = {}
+    for side in ("captured", "eager"):
+        ctx = graphs.disabled() if side == "eager" else contextlib.nullcontext()
+        with ctx:
+            gp = FlexiPipeline(pipe.params, pipe.cfg, pipe.sched, device=cuda)
+            eng = ServingEngine(gp, _plans(), steps_per_dispatch=4,
+                                allow_cold=False, cache=spec)
+            eng.precapture_warm_set(max_per_mode=1)
+            adaln_ops.reset_launches()
+            f0 = eng.packed_forwards
+            for i in range(6):
+                eng.submit(cond=i, budget=(0.6, 1.0)[i % 2])
+            x0 = {r.request.id: r.x0 for r in eng.run()}
+            torch.cuda.synchronize()
+            out[side] = dict(x0=x0, forwards=eng.packed_forwards - f0,
+                             launches=(adaln_ops.adaln_norm.launches,
+                                       adaln_ops.adaln_residual_norm.launches),
+                             captured=gp.cache_stats()["captured"])
+    cap, eag = out["captured"], out["eager"]
+    assert sorted(cap["x0"]) == sorted(eag["x0"])
+    assert all(torch.equal(cap["x0"][i], eag["x0"][i]) for i in cap["x0"])
+    assert cap["captured"] > 0 and eag["captured"] == 0
+    assert cap["launches"] == eag["launches"]
+    if not cached:
+        L = pipe.cfg.num_layers
+        assert cap["launches"] == ((L + 1) * cap["forwards"],
+                                   2 * L * cap["forwards"])
